@@ -1,0 +1,59 @@
+"""Carry state between the JAX package and the port.
+
+The port never imports JAX; the caller hands over numpy arrays (what
+``np.asarray`` gives for a JAX array) and gets tensors back, and the
+reverse for traces.  The parity tests use this to start both simulators
+from the very same ``x0`` and ``local0``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .apps.matfact import MFConfig, mf_app
+from .core.ps import PSApp, Trace
+from .device import resolve_device
+
+
+def to_tensors(arrays, device=None):
+    """A numpy array, or a dict of them, as tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(arrays, dict):
+        return {k: to_tensors(v, dev) for k, v in arrays.items()}
+    return torch.from_numpy(np.array(arrays, copy=True)).to(dev)
+
+
+def psapp_from_state(name: str, x0, local0: dict, worker_update, loss,
+                     device=None) -> PSApp:
+    """A port `PSApp` whose ``x0`` and ``local0`` (a dict of arrays with a
+    leading worker axis) are the given numpy arrays."""
+    x0, local0 = to_tensors(x0, device), to_tensors(local0, device)
+    return PSApp(name=name, dim=int(x0.shape[0]),
+                 n_workers=int(next(iter(local0.values())).shape[0]),
+                 x0=x0, local0=local0, worker_update=worker_update,
+                 loss=loss)
+
+
+def mf_app_from_state(cfg: MFConfig, x0, local0: dict,
+                      device=None) -> PSApp:
+    """The port's MF app over the JAX MF app's ``x0`` and ``local0``
+    (``{"ii", "jj", "vv"}``), as numpy arrays."""
+    loc = to_tensors(local0, device)
+    return mf_app(cfg, to_tensors(x0, device), loc["ii"], loc["jj"],
+                  loc["vv"])
+
+
+def _to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _to_numpy(v) for k, v in x.items()}
+    return x
+
+
+def trace_to_numpy(trace: Trace) -> Trace:
+    """The same `Trace` with every tensor moved to the host as numpy."""
+    return Trace(**{f.name: _to_numpy(getattr(trace, f.name))
+                    for f in dataclasses.fields(trace)})

@@ -1,0 +1,34 @@
+"""Dispatch of the simulator's hot-path kernels by the tensors' device.
+
+A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
+the hand-written kernel (``ps_view.py``), which launches or raises.  There
+is no backend switch and no fallback: on the card, the main path runs the
+kernels or fails.
+"""
+from __future__ import annotations
+
+from . import ref
+
+
+def _on_cuda(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def ring_view(base, uring, uclock, cview):
+    """PS view materialization; see `ref.ring_view` for the contract."""
+    if _on_cuda(uring):
+        from . import ps_view
+        return ps_view.ring_view(base, uring, uclock, cview)
+    return ref.ring_view(base, uring, uclock, cview)
+
+
+def vap_suffix_norms(uring, uclock, c: int):
+    """VAP suffix-aggregate inf-norms; see `ref.vap_suffix_norms`."""
+    if _on_cuda(uring):
+        from . import ps_view
+        return ps_view.vap_suffix_norms(uring, uclock, c)
+    return ref.vap_suffix_norms(uring, uclock, c)
