@@ -11,12 +11,15 @@ JAX or the JAX package).  Four phases, one JSON line each (or more):
 2. every hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes and at edge shapes, with its time, the
    plain version's time, a one-call library yardstick and the least time
-   the card could take (bytes over the data-sheet memory rate);
+   the card could take for the bytes these inputs need (over the H100 SXM
+   data-sheet memory rate);
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``;
-   both kernels must be launched once per clock, the traces finite, the
-   loss falling and the ESSP staleness bound kept; a profiled run gives
-   the per-clock device time of the kernels and of the rest;
+   both kernels must be launched once per clock, the clock loop must not
+   synchronize with the host, the traces must be finite, the loss falling
+   and the ESSP staleness bound kept; a profiled run gives the per-clock
+   device time of the kernels and of the rest, and the device's idle share
+   in that same run;
 4. the default MF config on the card against the same run on the CPU:
    integer Trace fields equal, float fields within the ulp budget.
 
@@ -32,6 +35,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -50,10 +54,10 @@ FULL_VAP_V0 = 0.5
 SMALL_CLOCKS = 20
 SMALL_VAP_V0 = 0.3
 
-# Data-sheet peak memory rate (bytes/s) and float32 non-tensor rate
-# (FLOP/s) by the name nvidia-smi reports (NVIDIA data sheets).
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+# The card the port runs on, as torch names it, with its data-sheet peak
+# memory rate (bytes/s) and float32 rate outside the tensor cores (FLOP/s):
+# NVIDIA H100 SXM, at its full 700 W power limit.
+CARD = ("NVIDIA H100 80GB HBM3", 3.35e12, 67e12)
 
 _lines: list[str] = []
 
@@ -65,10 +69,10 @@ def emit(obj) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, flops in CARDS:
-        if key in name:
-            return bw, flops
-    raise RuntimeError(f"no data-sheet rates for {name!r}")
+    if name != CARD[0]:
+        raise RuntimeError(f"no data-sheet rates for {name!r}; the bounds "
+                           f"are stated for {CARD[0]}")
+    return CARD[1], CARD[2]
 
 
 def nvidia_smi() -> str:
@@ -110,14 +114,33 @@ def ring_inputs(W, P, d, n_empty, seed, device, c=1000):
     return base, uring, uclock.to(device), cview.to(device), c
 
 
-def kernel_bounds(W, P, d, rates):
-    """Least time (ms) for each kernel's work: each input read once, each
-    output written once, over the memory rate; its adds over the float32
-    rate; the larger bounds it."""
+def visibility(uclock, cview):
+    """[reader, slot, producer] float32: 1 where reader r sees ring row
+    (w, q), as ring_view's contract defines it."""
+    import torch
+    from repro_torch.kernels.ref import RING_INVALID
+    return (((uclock[None, :, None] <= cview[:, None, :])
+             & (uclock > RING_INVALID)[None, :, None]).to(torch.float32))
+
+
+def kernel_bounds(uclock, cview, c, P, d, rates):
+    """Least time (ms) for each kernel's work on these inputs: each input
+    byte it needs read once, each output written once, over the memory
+    rate; its float operations over the float32 rate; the larger bounds it.
+
+    The work depends on the data: ``ring_view`` reads only the ring rows
+    that some reader sees and adds each into every reader that sees it;
+    ``vap_suffix_norms`` reads only the slots that hold clocks c-W..c-1."""
     bw, flops = rates
-    rv_bytes = (W * P * d + P * d + d) * 4 + (W + P * P) * 4
-    vs_bytes = W * P * d * 4 + W * 4 + (W + 1) * P * 4
-    rv_ops, vs_ops = W * P * P * d, 2 * W * P * d
+    W = uclock.numel()
+    vis = visibility(uclock, cview)
+    rows_seen = int(vis.amax(dim=0).sum().item())        # (w, q) rows read
+    adds = int(vis.sum().item())                         # (r, w, q) adds
+    slots = int(((uclock >= c - W) & (uclock <= c - 1)).sum().item())
+    rv_bytes = (rows_seen * d + P * d + d) * 4 + (W + P * P) * 4
+    vs_bytes = slots * P * d * 4 + W * 4 + (W + 1) * P * 4
+    # vap: one add per slot read, one abs-and-max per k, per column
+    rv_ops, vs_ops = adds * d, (slots + 2 * W) * P * d
     out = {}
     for name, nbytes, ops in (("ring_view", rv_bytes, rv_ops),
                               ("vap_suffix_norms", vs_bytes, vs_ops)):
@@ -151,10 +174,9 @@ def check_kernels(shape, device, rates, timed: bool):
         raise AssertionError(f"kernel disagrees with its plain version at "
                              f"W={W} P={P} d={d}: {rec}")
     if timed:
-        vis = (((uclock[None, :, None] <= cview[:, None, :])
-                & (uclock > ref.RING_INVALID)[None, :, None])
-               .to(torch.float32))
-        bounds = kernel_bounds(W, P, d, rates)
+        vis = visibility(uclock, cview)
+        bounds = kernel_bounds(uclock, cview, c, P, d, rates)
+        rec["ring_rows_read"] = int(vis.amax(dim=0).sum().item())
         rec["ring_view"].update(
             ms=time_ms(lambda: ps_view.ring_view(base, uring, uclock, cview),
                        20),
@@ -187,14 +209,18 @@ KERNEL_NAMES = ("ring_view_kernel", "vap_suffix_norms_kernel")
 
 def device_split(app, cfg, n_clocks):
     """Device time per clock from a profiled run: all kernels, the port's
-    two kernels, and the five ops that take the most of it."""
+    two kernels, and the five ops that take the most of it; the host time
+    per clock of the same run, and the share of it the device was idle.
+    The profiler's own host cost is inside that host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import ps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ps.simulate(app, cfg, n_clocks, seed=1)
+        t0 = time.perf_counter()
+        ps.simulate(app, cfg, n_clocks, seed=0)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_clocks
     busy = ours = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -202,12 +228,17 @@ def device_split(app, cfg, n_clocks):
             if any(k in e.name for k in KERNEL_NAMES):
                 ours += e.self_device_time_total
     if busy == 0.0:      # the profiler saw no device time: say so
-        return {"device_ms_per_clock": None, "kernel_ms_per_clock": None}
+        return {"profiled_ms_per_clock": wall_ms,
+                "device_ms_per_clock": None, "kernel_ms_per_clock": None}
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:5]
-    return {"device_ms_per_clock": busy / 1e3 / n_clocks,
+    busy_ms = busy / 1e3 / n_clocks
+    return {"profiled_ms_per_clock": wall_ms,
+            "device_ms_per_clock": busy_ms,
             "kernel_ms_per_clock": ours / 1e3 / n_clocks,
+            "rest_device_ms_per_clock": busy_ms - ours / 1e3 / n_clocks,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top_ops_ms_per_clock": {
                 e.key: e.self_device_time_total / 1e3 / n_clocks
                 for e in ops}}
@@ -217,7 +248,13 @@ def run_main_path(app, cfg, name, n_clocks):
     """One simulate run through the entry point, with the kernel counters
     set to 0 just before and read just after (after a 2-clock warm-up run
     that loads PyTorch's kernels), then a profiled run of as many clocks
-    for the per-clock device split."""
+    for the per-clock device split.
+
+    The counted run also runs under ``torch.cuda.set_sync_debug_mode``:
+    each operation that makes the host wait for the device (a copy from
+    the host, ``.item()``) is recorded with its call site, and the phase
+    fails after both configs if there was one."""
+    import warnings
     import torch
     from repro_torch.convert import trace_to_numpy
     from repro_torch.core import ps, staleness
@@ -227,8 +264,25 @@ def run_main_path(app, cfg, name, n_clocks):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ps_view.reset_launches()
+    syncs = []
+
+    def on_warning(message, *_):
+        if "synchroniz" in str(message):      # where the op was called
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            syncs.append(" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                     for f in frames[:-6:-1]))
+
     t0 = time.perf_counter()
-    trace = ps.simulate(app, cfg, n_clocks, seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # set first: turning the mode on warns once about the mode itself
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = on_warning
+        try:
+            trace = ps.simulate(app, cfg, n_clocks, seed=0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ps_view.launches)
@@ -245,6 +299,7 @@ def run_main_path(app, cfg, name, n_clocks):
            "d": app.dim, "W": cfg.effective_window, "P": app.n_workers,
            "seconds": secs, "clocks_per_s": n_clocks / secs,
            "ms_per_clock": secs / n_clocks * 1e3, "launches": launches,
+           "host_syncs": len(syncs), "host_sync_sites": sorted(set(syncs)),
            "loss_ref_first": float(tr.loss_ref[0]),
            "loss_ref_last": float(tr.loss_ref[-1]),
            "forced": int(tr.forced.sum()),
@@ -260,10 +315,11 @@ def run_main_path(app, cfg, name, n_clocks):
     split = device_split(app, cfg, n_clocks)
     rec.update(split)
     if split["device_ms_per_clock"] is not None:
-        rec["rest_device_ms_per_clock"] = (split["device_ms_per_clock"]
-                                           - split["kernel_ms_per_clock"])
-        rec["device_idle_share"] = max(
-            0.0, 1.0 - split["device_ms_per_clock"] / rec["ms_per_clock"])
+        # the profiler's host cost inflates the same-run share; this one
+        # sets the profiled run's device time against the counted run's
+        # host time (device time agrees within ~2 % between runs)
+        rec["device_idle_share_cross_run"] = (
+            1.0 - split["device_ms_per_clock"] / rec["ms_per_clock"])
     return rec
 
 
@@ -326,11 +382,15 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "main_path_setup", "config": FULL_MF, "d": app.dim,
           "make_mf_app_s": time.perf_counter() - t0})
-    main_launches = {}
+    main_launches, main_syncs = {}, {}
     for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(FULL_VAP_V0))):
         rec = run_main_path(app, cfg, name, FULL_CLOCKS)
         emit(rec)
         main_launches[name] = rec["launches"]
+        main_syncs[name] = rec["host_sync_sites"]
+    if any(main_syncs.values()):
+        raise AssertionError(f"the clock loop synchronized with the host: "
+                             f"{main_syncs}")
     del app
     torch.cuda.empty_cache()
 

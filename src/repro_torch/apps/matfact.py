@@ -56,7 +56,9 @@ class MFConfig:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # filled on the device: torch.tensor(x, device=cuda) copies from the
+    # host and synchronizes the stream
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def mf_data(cfg: MFConfig, device=None):

@@ -19,7 +19,9 @@ from .consistency import ConsistencyConfig
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # filled on the device: torch.tensor(x, device=cuda) copies from the
+    # host and synchronizes the stream
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def pod_of(P: int, n_pods: int, device=None) -> torch.Tensor:

@@ -17,7 +17,10 @@ What changed in the port:
 
 - ``lax.scan`` over clocks is a Python loop in which the clock ``c`` is a
   Python int.  Every decision stays a tensor operation on the run's
-  device, so a clock needs no host sync.
+  device, and every scalar is filled on the device (``torch.full``),
+  never copied from the host, so a clock makes the host wait for nothing
+  (``chip_smoke.py`` runs the loop under ``torch.cuda.set_sync_debug_mode``
+  to show it).
 - ``vmap`` of the worker update is a batched contract:
   ``PSApp.worker_update`` takes all ``P`` workers' views at once.
 - The ring buffer is updated in place (``uring[slot] = u``), which saves a
@@ -119,9 +122,10 @@ def enforce_vap(cfg: ConsistencyConfig, c: int, cview, norms, W: int):
     transit now, and the rest is force-delivered.  ``cview`` may be the
     full ``[P, P]`` matrix or a block of reader rows."""
     dev = norms.device
-    v0 = torch.tensor(cfg.v0, dtype=torch.float32, device=dev)
-    v_t = v0 / torch.sqrt(torch.tensor(float(c), dtype=torch.float32,
-                                       device=dev) + 1.0)
+    # filled on the device: torch.tensor(x, device=cuda) would synchronize
+    v0 = torch.full((), cfg.v0, dtype=torch.float32, device=dev)
+    v_t = v0 / torch.sqrt(torch.full((), float(c), dtype=torch.float32,
+                                     device=dev) + 1.0)
     ok = norms <= v_t                                   # [W+1, P]
     ok[0] = True                                        # empty suffix
     kcur = torch.clamp(c - 1 - cview, 0, W)             # [r, q]
@@ -136,7 +140,9 @@ def enforce_vap(cfg: ConsistencyConfig, c: int, cview, norms, W: int):
 def _x_ref(base, uring, uclock):
     """Reference parameters: base plus every stored (valid) ring slot."""
     valid = (uclock > RING_INVALID).to(uring.dtype)
-    return base + (uring * valid[:, None, None]).sum(dim=(0, 1))
+    # sum the producers first: the temporaries are [W, d], not the ring's
+    # [W, P, d]
+    return base + (uring.sum(dim=1) * valid[:, None]).sum(dim=0)
 
 
 def _not_ported(what: str, item: str):
@@ -171,7 +177,8 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
     cview = torch.full((P, P), -1, dtype=i32, device=dev)
     rng = jrng.PRNGKey(seed, dev)
     # two-tier staleness bound: s intra-pod, s + s_xpod across pods
-    s_eff = staleness_bound_matrix(cfg, torch.arange(P), P, device=dev)
+    s_eff = staleness_bound_matrix(cfg, torch.arange(P, device=dev), P,
+                                   device=dev)
     worker_ids = torch.arange(P, dtype=i32, device=dev)
     producers = torch.arange(P, device=dev)[None, :]
     eye = torch.eye(P, dtype=torch.bool, device=dev)
@@ -221,7 +228,7 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         old_valid = uclock[slot] > RING_INVALID
         base = base + torch.where(old_valid, 1.0, 0.0) * uring[slot].sum(0)
         uring[slot] = u
-        uclock[slot] = c
+        uclock[slot].fill_(c)       # a fill: `= c` copies from the host
 
         # --- 5. end-of-clock delivery (affects reads at c+1) -------------
         if cfg.model == "bsp":

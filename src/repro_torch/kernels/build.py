@@ -27,18 +27,13 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
-    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then the
-    toolkit's default prefix ``/usr/local/cuda``."""
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        home = os.environ.get(env)
-        if home and (Path(home) / "bin" / "nvcc").is_file():
-            return str(Path(home) / "bin" / "nvcc")
+    """``nvcc`` from ``CUDA_HOME``, then from ``PATH``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.is_file():
-        return str(default)
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the CUDA kernels cannot be built")
 

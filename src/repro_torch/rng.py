@@ -57,7 +57,10 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 (jax name)
     seed = int(seed)
     if not -(1 << 31) <= seed < (1 << 32):
         raise ValueError(f"seed {seed} is outside the 32-bit range")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    # filled on the device: a copy from the host would synchronize
+    key = torch.zeros((2,), dtype=torch.int64, device=device)
+    key[1].fill_(seed & _M32)
+    return key
 
 
 def _words(key):
@@ -116,16 +119,22 @@ def _unit_float(bits):
 
 
 def _scalar(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # filled on the device: torch.tensor(x, device=cuda) copies from the
+    # host and synchronizes the stream
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _uniform_chunk(key, counts, minval, maxval):
     floats = _unit_float(_bits32(key, counts))
-    lo, hi = _scalar(minval, key.device), _scalar(maxval, key.device)
+    # the bounds and their float32 difference, as JAX rounds them, taken on
+    # the host: they are constants of the draw
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    lo = float(lo)
     # XLA contracts floats * span + lo into one fused multiply-add; the
     # float64 product is exact, so one rounding step replays it
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    scaled = (floats.double() * span + lo).float()
+    return torch.clamp(scaled, min=lo)
 
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
@@ -138,7 +147,8 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
 
 def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     """``jax.random.bernoulli`` (mode "low"): ``uniform < p`` in float32."""
-    p = p if isinstance(p, torch.Tensor) else _scalar(p, key.device)
+    if not isinstance(p, torch.Tensor):
+        p = float(np.float32(p))        # JAX compares in float32
     return uniform(key, shape) < p
 
 

@@ -180,3 +180,23 @@ def test_cuda_kernels_check_their_inputs(cuda):
         ps_view.vap_suffix_norms(torch.zeros((65, 2, 4), device=cuda),
                                  torch.zeros(65, dtype=torch.int32,
                                              device=cuda), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["essp", "vap"])
+def test_cuda_clock_loop_does_not_sync(cuda, model):
+    """simulate on the card never makes the host wait for the device: a
+    copy from the host or an ``.item()`` in the clock loop raises here."""
+    from repro_torch.apps import matfact
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import ps
+    cfg = cc.essp(3) if model == "essp" else cc.vap(0.3)
+    app = matfact.make_mf_app(matfact.MFConfig(), device=cuda)
+    ps.simulate(app, cfg, 2)                    # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trace = ps.simulate(app, cfg, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trace.loss_ref.shape == (6,)
