@@ -10,18 +10,29 @@ JAX or the JAX package).  Four phases, one JSON line each (or more):
    builds the kernels from ``src/repro_torch/kernels/csrc``;
 2. every hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes and at edge shapes, with its time, the
-   plain version's time, a one-call library yardstick and the least time
-   the card could take for the bytes these inputs need (over the H100 SXM
-   data-sheet memory rate);
+   plain version's time, a one-call library yardstick where there is one
+   and the least time the card could take for the bytes these inputs need
+   (over the H100 SXM data-sheet memory rate).  ``delta_pack`` must be
+   bit-equal for f32, bf16 and int8; the comm substrate's threshold
+   selection is timed beside the other exact selections;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
-   item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``;
-   both kernels must be launched once per clock, the clock loop must not
-   synchronize with the host, the traces must be finite, the loss falling
-   and the ESSP staleness bound kept; a profiled run gives the per-clock
-   device time of the kernels and of the rest, and the device's idle share
-   in that same run;
-4. the default MF config on the card against the same run on the CPU:
-   integer Trace fields equal, float fields within the ulp budget.
+   item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
+   and through the comm substrate under two-pod ``essp(2)`` with int8
+   top-k shipments every 2 clocks; each kernel must be launched as often
+   as its path needs (``ring_view`` and ``vap_suffix_norms`` once per
+   clock, on the wired path ``ring_view`` twice and ``delta_pack`` once
+   per shipping clock), the clock loop must not synchronize with the
+   host, the traces must be finite, the loss falling and the (widened)
+   staleness bound kept; a profiled run gives the per-clock device time
+   of the kernels, of the threshold selection and of the rest, and the
+   device's idle share in that same run;
+4. the default MF config on the card against the same run on the CPU,
+   dense and wired: integer Trace fields and ``ship_floats`` equal, float
+   fields within the ulp budget.  A wired run's float fields are held to
+   the budget up to the first shipment whose wire values differ between
+   the two runs: a quantized value is a rounding decision, and one that
+   flips on float drift within the budget (checked) moves the run by a
+   whole quantization step, as a flipped VAP decision would.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -53,6 +64,22 @@ FULL_CLOCKS = 30
 FULL_VAP_V0 = 0.5
 SMALL_CLOCKS = 20
 SMALL_VAP_V0 = 0.3
+# The wired main path: a point of benchmarks/comm_bench.py's grid (equal
+# total cross-pod staleness of 6: s = 2, s_xpod = 3, agg_clocks - 1 = 1),
+# int8 values of the top 1/16 of each aggregated row.
+WIRED_TOPK = 0.0625
+
+
+def wired_cfg(cc):
+    return cc.compressed(cc.podded(cc.essp(2), 2, s_xpod=3, t_net_xpod=8.0),
+                         agg_clocks=2, topk_frac=WIRED_TOPK, quant="int8")
+
+
+def small_wired_cfgs(cc):
+    return {"essp3_wired_int8": cc.compressed(
+                cc.podded(cc.essp(3), 2, s_xpod=2), 2, 0.25, "int8"),
+            "ssp2_wired_bf16": cc.compressed(
+                cc.podded(cc.ssp(2), 2, s_xpod=2), 3, 0.5, "bf16")}
 
 # The card the port runs on, as torch names it, with its data-sheet peak
 # memory rate (bytes/s) and float32 rate outside the tensor cores (FLOP/s):
@@ -196,6 +223,112 @@ def check_kernels(shape, device, rates, timed: bool):
     return rec
 
 
+def pack_inputs(P, d, topk_frac, kind, quant, seed, device):
+    """``(delta, thresh, scale)`` on the card for one ``delta_pack`` case,
+    made from a seed; thresh and scale as the comm substrate computes
+    them.  ``kind``: ``normal``, ``ties`` (many |delta| equal to the
+    threshold), ``above`` (a threshold above every value), ``zeros`` (a
+    row of zeros: the int8 scale's 1e-12 clamp), ``halves`` (int8
+    quotients at exactly n + 1/2) or ``unaligned`` (a row start that is
+    not 16-byte aligned: the scalar path)."""
+    import torch
+    from repro_torch.comm import substrate
+    gd = torch.Generator(device=device).manual_seed(seed)
+    delta = 2.0 * torch.randn((P, d), generator=gd, device=device)
+    if kind == "ties":
+        delta = torch.round(delta * 2) / torch.full((), 2.0, device=device)
+    elif kind == "zeros":
+        delta[0] = 0.0
+    elif kind == "halves":          # scale 1/8 exactly, delta/s = n + 1/2
+        n = torch.randint(-127, 127, (P, d), generator=gd, device=device)
+        delta = (n + 0.5) * 0.125
+        delta[:, 0] = 127 * 0.125
+    elif kind == "unaligned":
+        buf = torch.empty(P * d + 1, device=device)
+        buf[1:] = delta.reshape(-1)
+        delta = buf[1:].view(P, d)
+    thresh = substrate.row_threshold(delta, topk_frac)
+    if kind == "above":
+        thresh = delta.abs().amax(dim=-1) * 2 + 1
+    return delta, thresh, substrate.quant_scale(delta, quant)
+
+
+def check_delta_pack(P, d, topk_frac, kind, device, rates, timed: bool):
+    """``delta_pack`` against its plain version for f32, bf16 and int8,
+    bit for bit (tolerance 0); timed at the main path's shape."""
+    import torch
+    from repro_torch.kernels import delta_pack as dp
+    from repro_torch.kernels import ref
+    rec = {"phase": "kernels", "kernel": "delta_pack", "P": P, "d": d,
+           "topk_frac": topk_frac, "case": kind}
+    for quant in ("f32", "bf16", "int8"):
+        delta, thresh, scale = pack_inputs(P, d, topk_frac, kind, quant,
+                                           seed=d + P, device=device)
+        got = dp.delta_pack(delta, thresh, scale, quant)
+        want = ref.delta_pack(delta, thresh, scale, quant)
+        torch.cuda.synchronize()
+        diff = [int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                for g, w in zip(got, want, strict=True)]
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(got, want, strict=True))
+        q = {"bits_differ": diff, "max_abs_err": err, "tol": 0.0}
+        if quant == "f32":
+            q["mass_exact"] = bool(torch.equal(got[0] + got[1], delta))
+        del got, want
+        rec[quant] = q
+        if any(diff) or q.get("mass_exact") is False:
+            emit(rec)
+            raise AssertionError(f"delta_pack disagrees with its plain "
+                                 f"version ({quant}, P={P}, d={d}, {kind})")
+        if timed:
+            bw, flops = rates
+            # delta read once, wire and residual written once, thresh and
+            # scale read once; about six operations per element
+            t_b = (3 * P * d * 4 + 2 * P * 4) / bw * 1e3
+            t_o = 6 * P * d / flops * 1e3
+            q.update(
+                ms=time_ms(lambda: dp.delta_pack(delta, thresh, scale,
+                                                 quant), 20),
+                plain_ms=time_ms(lambda: ref.delta_pack(delta, thresh, scale,
+                                                        quant), 5),
+                library_ms=None, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+        del delta, thresh, scale
+    emit(rec)
+    return rec
+
+
+def time_selection(P, d, topk_frac, device):
+    """The comm substrate's threshold selection (``row_threshold``, a
+    ``torch.topk``) on a full ``[P, d]`` row block, beside the other exact
+    selections of the k-th largest ``|delta|``: each must give the same
+    floats; their times."""
+    import torch
+    from repro_torch.comm import substrate
+    gd = torch.Generator(device=device).manual_seed(7)
+    delta = 0.01 * torch.randn((P, d), generator=gd, device=device)
+    k = substrate.topk_count(topk_frac, d)
+    others = {
+        "sort": lambda m: torch.sort(m, dim=-1).values[:, d - k],
+        "kthvalue": lambda m: torch.kthvalue(m, d - k + 1, dim=-1).values}
+    want = substrate.row_threshold(delta, topk_frac)
+    rec = {"phase": "threshold_selection", "P": P, "d": d,
+           "topk_frac": topk_frac, "k": k, "ms": {"topk": time_ms(
+               lambda: substrate.row_threshold(delta, topk_frac), 5)}}
+    for name, fn in others.items():
+        if not torch.equal(fn(delta.abs()), want):
+            emit(rec)
+            raise AssertionError(f"threshold selection {name!r} disagrees "
+                                 f"with row_threshold")
+        rec["ms"][name] = time_ms(lambda f=fn: f(delta.abs()), 5)
+    rec["quant_scale_ms"] = time_ms(
+        lambda: substrate.quant_scale(delta, "int8"), 10)
+    rec["selected_count_ms"] = time_ms(
+        lambda: substrate.selected_count(delta, want), 10)
+    emit(rec)
+    return rec
+
+
 def assert_finite(trace, what):
     import torch
     for f in ("loss_ref", "loss_view", "u_l2", "intransit_inf", "ship_floats",
@@ -204,14 +337,33 @@ def assert_finite(trace, what):
             raise AssertionError(f"{what}: Trace.{f} is not finite")
 
 
-KERNEL_NAMES = ("ring_view_kernel", "vap_suffix_norms_kernel")
+KERNEL_NAMES = ("ring_view_kernel", "vap_suffix_norms_kernel",
+                "delta_pack_vec4", "delta_pack_scalar")
+# the aten op of the comm substrate's threshold selection, whose device
+# time (its kernels included) the profiled run reports apart
+SELECTION_OP = "aten::topk"
+
+
+def expected_launches(cfg, n_clocks):
+    """Launches per kernel in ``n_clocks`` of ``simulate`` under ``cfg``:
+    the wired path views two rings per clock and packs once per shipping
+    clock."""
+    from repro_torch.comm import substrate
+    if not cfg.comm_active:
+        return {"ring_view": n_clocks, "vap_suffix_norms": n_clocks,
+                "delta_pack": 0}
+    ships = sum(substrate.ship_now(c, cfg.agg_clocks)
+                for c in range(n_clocks))
+    return {"ring_view": 2 * n_clocks, "vap_suffix_norms": n_clocks,
+            "delta_pack": ships}
 
 
 def device_split(app, cfg, n_clocks):
     """Device time per clock from a profiled run: all kernels, the port's
-    two kernels, and the five ops that take the most of it; the host time
-    per clock of the same run, and the share of it the device was idle.
-    The profiler's own host cost is inside that host time."""
+    kernels, the comm substrate's threshold selection, and the five ops
+    that take the most of it; the host time per clock of the same run, and
+    the share of it the device was idle.  The profiler's own host cost is
+    inside that host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import ps
@@ -230,14 +382,17 @@ def device_split(app, cfg, n_clocks):
     if busy == 0.0:      # the profiler saw no device time: say so
         return {"profiled_ms_per_clock": wall_ms,
                 "device_ms_per_clock": None, "kernel_ms_per_clock": None}
-    ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::")),
+    averages = prof.key_averages()
+    ops = sorted((e for e in averages if e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:5]
+    sel = sum(e.device_time_total for e in averages if e.key == SELECTION_OP)
     busy_ms = busy / 1e3 / n_clocks
+    ours_ms, sel_ms = ours / 1e3 / n_clocks, sel / 1e3 / n_clocks
     return {"profiled_ms_per_clock": wall_ms,
             "device_ms_per_clock": busy_ms,
-            "kernel_ms_per_clock": ours / 1e3 / n_clocks,
-            "rest_device_ms_per_clock": busy_ms - ours / 1e3 / n_clocks,
+            "kernel_ms_per_clock": ours_ms,
+            "selection_ms_per_clock": sel_ms,
+            "rest_device_ms_per_clock": busy_ms - ours_ms - sel_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top_ops_ms_per_clock": {
                 e.key: e.self_device_time_total / 1e3 / n_clocks
@@ -248,7 +403,8 @@ def run_main_path(app, cfg, name, n_clocks):
     """One simulate run through the entry point, with the kernel counters
     set to 0 just before and read just after (after a 2-clock warm-up run
     that loads PyTorch's kernels), then a profiled run of as many clocks
-    for the per-clock device split.
+    for the per-clock device split.  Each kernel must have been launched
+    as often as :func:`expected_launches` says.
 
     The counted run also runs under ``torch.cuda.set_sync_debug_mode``:
     each operation that makes the host wait for the device (a copy from
@@ -258,12 +414,13 @@ def run_main_path(app, cfg, name, n_clocks):
     import torch
     from repro_torch.convert import trace_to_numpy
     from repro_torch.core import ps, staleness
-    from repro_torch.kernels import ps_view
+    from repro_torch.kernels import launch
+    from repro_torch.pods import reconcile
     from repro_torch.psrun import validate
     ps.simulate(app, cfg, 2, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ps_view.reset_launches()
+    launch.reset_launches()
     syncs = []
 
     def on_warning(message, *_):
@@ -285,11 +442,11 @@ def run_main_path(app, cfg, name, n_clocks):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(ps_view.launches)
-    for k, n in launches.items():
-        if n != n_clocks:
-            raise AssertionError(f"{name}: {k} launched {n} times in "
-                                 f"{n_clocks} clocks")
+    launches = dict(launch.launches)
+    if launches != expected_launches(cfg, n_clocks):
+        raise AssertionError(f"{name}: launches {launches} in {n_clocks} "
+                             f"clocks, expected "
+                             f"{expected_launches(cfg, n_clocks)}")
     assert_finite(trace, name)
     tr = trace_to_numpy(trace)
     if not tr.loss_ref[-1] < tr.loss_ref[0]:
@@ -312,6 +469,19 @@ def run_main_path(app, cfg, name, n_clocks):
         rec["staleness_violations"] = chk["violations"]
         rec["staleness_hist"] = {int(b): float(p)
                                  for b, p in zip(bins, probs, strict=True)}
+    if cfg.comm_active:
+        div = reconcile.replica_divergence(tr, cfg)
+        if not div["ok"]:
+            raise AssertionError(f"{name}: replica divergence {div['max']} "
+                                 f"over its bound {div['bound']}")
+        stats = reconcile.reconcile_stats(tr, cfg, dim=app.dim)
+        rec["replica_divergence"] = {"max": div["max"],
+                                     "bound": div["bound"]}
+        rec["reconcile"] = {k: stats[k] for k in (
+            "eager_deliveries", "gated_pulls", "wire_floats",
+            "dense_floats", "wire_compression")}
+        rec["ship_floats_per_shipment"] = float(
+            tr.ship_floats[tr.ship_floats > 0].mean())
     split = device_split(app, cfg, n_clocks)
     rec.update(split)
     if split["device_ms_per_clock"] is not None:
@@ -321,6 +491,67 @@ def run_main_path(app, cfg, name, n_clocks):
         rec["device_idle_share_cross_run"] = (
             1.0 - split["device_ms_per_clock"] / rec["ms_per_clock"])
     return rec
+
+
+def simulate_recording_shipments(app, cfg, n_clocks):
+    """``simulate`` through the entry point, keeping each shipment's
+    ``(delta, wire)`` on the host (``substrate.pack`` is wrapped for the
+    run)."""
+    from repro_torch.comm import substrate
+    from repro_torch.core import ps
+    shipments, pack = [], substrate.pack
+
+    def recording(delta, topk_frac, quant):
+        out = pack(delta, topk_frac, quant)
+        shipments.append((delta.cpu(), out[0].cpu()))
+        return out
+
+    substrate.pack = recording
+    try:
+        trace = ps.simulate(app, cfg, n_clocks)
+    finally:
+        substrate.pack = pack
+    return trace, shipments
+
+
+def first_wire_flip(got, want, budget_ulp):
+    """The first shipment whose wire values differ between two runs, as
+    ``{"shipment", "wire_values_differ", "max_delta_drift_ulp"}``, or None
+    if every shipment is bit-equal.  The pack is a function of each delta
+    row (bit-equal on the card and the CPU, phase 2), so a row whose wire
+    differs must have a delta row that drifted, by at most the budget
+    (ulp of the delta's scale): anything else raises."""
+    import numpy as np
+    import torch
+    for i, ((dg, wg), (dw, ww)) in enumerate(zip(got, want, strict=True)):
+        differ = wg.view(torch.int32) != ww.view(torch.int32)
+        if not differ.any():
+            continue
+        rows = differ.any(dim=1)
+        drift = (dg - dw).abs().amax(dim=1)[rows]
+        spacing = float(np.spacing(np.float32(dw.abs().max())))
+        if not ((drift > 0).all() and (drift <= budget_ulp * spacing).all()):
+            raise AssertionError(f"shipment {i}: wire values differ on rows "
+                                 f"whose delta drift {drift.tolist()} is 0 "
+                                 f"or over the budget")
+        return {"shipment": i, "wire_values_differ": int(differ.sum()),
+                "max_delta_drift_ulp": float(drift.max()) / spacing}
+    return None
+
+
+def ulps_through(got, want, last_clock):
+    """``trace_max_ulp`` of the per-clock fields over clocks
+    0..``last_clock`` (``x_final``, of the end of the run, left out)."""
+    import dataclasses
+    from repro_torch.psrun import validate
+    head = [dataclasses.replace(
+        t, x_final=want.x_final,
+        **{f: getattr(t, f)[:last_clock + 1]
+           for f in validate.TRACE_FIELDS if f != "x_final"})
+        for t in (got, want)]
+    out = validate.trace_max_ulp(*head)
+    del out["x_final"]
+    return out
 
 
 def main() -> int:
@@ -341,7 +572,7 @@ def main() -> int:
     from repro_torch.apps import matfact
     from repro_torch.core import consistency as cc
     from repro_torch.core import ps
-    from repro_torch.kernels import build, ps_view
+    from repro_torch.kernels import build
     from repro_torch.psrun import validate
 
     # float32 products in full precision everywhere (the data generation's
@@ -375,6 +606,21 @@ def main() -> int:
     for shape in ((5, 1, 10_000, 1), (5, 16, 100_003, 0), (11, 8, 2000, 2),
                   (5, 4, 16, 1), (11, 8, 50_001, 4), (64, 64, 333, 5)):
         check_kernels(shape, dev, rates, timed=False)
+    wcfg = wired_cfg(cc)
+    pack_main = check_delta_pack(8, d_full, WIRED_TOPK, "normal", dev, rates,
+                                 timed=True)
+    for P, d, topk, case in ((1, 10_000, 0.3, "normal"),
+                             (4, 16, 0.25, "normal"),
+                             (8, 2000, 0.1, "normal"),
+                             (8, 100_003, WIRED_TOPK, "normal"),
+                             (4, 4096, 1.0, "normal"),
+                             (8, 100_000, WIRED_TOPK, "unaligned"),
+                             (4, 4096, 0.3, "ties"),
+                             (4, 4096, 0.3, "above"),
+                             (4, 4096, 0.5, "zeros"),
+                             (4, 4096, 0.5, "halves")):
+        check_delta_pack(P, d, topk, case, dev, rates, timed=False)
+    selection = time_selection(8, d_full, WIRED_TOPK, dev)
 
     # --- 3. main path at full width -----------------------------------------
     t0 = time.perf_counter()
@@ -383,7 +629,8 @@ def main() -> int:
     emit({"phase": "main_path_setup", "config": FULL_MF, "d": app.dim,
           "make_mf_app_s": time.perf_counter() - t0})
     main_launches, main_syncs = {}, {}
-    for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(FULL_VAP_V0))):
+    for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(FULL_VAP_V0)),
+                      ("essp2_wired_int8", wcfg)):
         rec = run_main_path(app, cfg, name, FULL_CLOCKS)
         emit(rec)
         main_launches[name] = rec["launches"]
@@ -396,23 +643,34 @@ def main() -> int:
 
     # --- 4. card against CPU ------------------------------------------------
     small = matfact.MFConfig()
-    for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(SMALL_VAP_V0))):
-        got = ps.simulate(matfact.make_mf_app(small, device=dev), cfg,
-                          SMALL_CLOCKS)
-        want = ps.simulate(matfact.make_mf_app(small, device="cpu"), cfg,
-                           SMALL_CLOCKS)
+    budget = validate.VAP_ULP_BUDGET
+    for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(SMALL_VAP_V0)),
+                      *small_wired_cfgs(cc).items()):
+        got, got_ships = simulate_recording_shipments(
+            matfact.make_mf_app(small, device=dev), cfg, SMALL_CLOCKS)
+        want, want_ships = simulate_recording_shipments(
+            matfact.make_mf_app(small, device="cpu"), cfg, SMALL_CLOCKS)
         diffs = validate.trace_max_diff(got, want)
         ulps = validate.trace_max_ulp(got, want)
+        exact = validate.INT_FIELDS + ("ship_floats",)
+        flip = first_wire_flip(got_ships, want_ships, budget)
         rec = {"phase": "card_vs_cpu", "config": name, "clocks": SMALL_CLOCKS,
-               "int_fields_equal": all(diffs[f] == 0.0
-                                       for f in validate.INT_FIELDS),
-               "max_ulp": ulps, "ulp_budget": validate.VAP_ULP_BUDGET}
-        emit(rec)
+               "int_fields_equal": all(diffs[f] == 0.0 for f in exact),
+               "loss_ref_bit_equal": diffs["loss_ref"] == 0.0,
+               "shipments": len(got_ships), "first_wire_flip": flip,
+               "max_ulp": ulps, "ulp_budget": budget}
         if not rec["int_fields_equal"]:
-            raise AssertionError(f"card vs CPU ({name}): integer fields "
-                                 f"differ: {diffs}")
+            emit(rec)
+            raise AssertionError(f"card vs CPU ({name}): integer fields or "
+                                 f"ship_floats differ: {diffs}")
+        if flip is not None:
+            # the flipped wire enters the views from the next clock on
+            flip["clock"] = (flip["shipment"] + 1) * cfg.agg_clocks - 1
+            ulps = ulps_through(got, want, flip["clock"])
+            rec["max_ulp_through_flip"] = ulps
         bad = {f: u for f, u in ulps.items() if f in validate.FLOAT_FIELDS
-               and u > validate.VAP_ULP_BUDGET}
+               and u > budget}
+        emit(rec)
         if bad:
             raise AssertionError(f"card vs CPU ({name}): {bad}")
 
@@ -430,8 +688,18 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    pk = pack_main[wcfg.quant]
+    kernels.append({
+        "name": "delta_pack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/delta_pack.cu",
+        "replaces": "src/repro/kernels/delta_pack.py:56",
+        "launches": main_launches["essp2_wired_int8"]["delta_pack"],
+        "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+        "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+        "bound_by": pk["bound_by"], "library_ms": pk["library_ms"]})
     emit({"total_s": time.perf_counter() - t_start,
-          "main_path_launches": main_launches})
+          "main_path_launches": main_launches,
+          "threshold_selection_ms": selection["ms"]})
     emit({"kernels": kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -154,7 +154,9 @@ def mf_app(cfg: MFConfig, x0, ii, jj, vv) -> PSApp:
             sl = slice(s, s + _LOSS_CHUNK)
             pred = torch.sum(L[all_i[sl]] * Rt[all_j[sl]], dim=-1)
             total = total + torch.sum(torch.square(all_v[sl] - pred))
-        return total / all_i.numel()
+        # a tensor divisor: a CUDA tensor divided by a Python scalar is a
+        # multiply by its reciprocal, not the true division of the CPU
+        return total / _f32(float(all_i.numel()), dev)
 
     local0 = {"ii": ii, "jj": jj, "vv": vv}
     return PSApp(name="matfact", dim=(n + m) * k, n_workers=P, x0=x0,

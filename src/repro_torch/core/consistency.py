@@ -60,8 +60,7 @@ class ConsistencyConfig:
     ``max_extra_delay`` (window slack of the unbounded models), and the
     two-tier knobs ``n_pods``, ``s_xpod``, ``t_net_intra``,
     ``t_net_xpod``.  ``agg_clocks``, ``topk_frac``, ``quant`` and ``wire``
-    select the comm substrate, which the port's simulator does not run
-    yet (it raises on ``comm_active``).
+    select the comm substrate (:mod:`repro_torch.comm.substrate`).
     """
 
     model: str = "essp"
@@ -186,7 +185,8 @@ def podded(cfg: ConsistencyConfig, n_pods: int, s_xpod: int = 0,
 def compressed(cfg: ConsistencyConfig, agg_clocks: int = 1,
                topk_frac: float = 1.0,
                quant: str = "f32") -> ConsistencyConfig:
-    """Route ``cfg``'s cross-pod shipment through the comm substrate
-    (``simulate`` runs it in a later slice of the port)."""
+    """Route ``cfg``'s cross-pod shipment through the comm substrate:
+    one aggregated shipment every ``agg_clocks`` clocks, of the
+    ``topk_frac`` largest coordinates, in ``quant`` wire values."""
     return cfg.replace(agg_clocks=agg_clocks, topk_frac=topk_frac,
                        quant=quant, wire=True)

@@ -37,9 +37,22 @@ fields match the JAX simulator exactly; float fields match to a stated
 ulp budget (``psrun.validate.VAP_ULP_BUDGET``), because reduction orders
 differ between the frameworks.
 
-Fleet churn (``schedule``), telemetry (``obs``), the lossy wire
-(``faults``) and the comm substrate (``cfg.comm_active``) are ported in
-later slices; passing them raises ``NotImplementedError``.
+With ``cfg.comm_active`` (the comm substrate, :mod:`repro_torch.comm`)
+the cross-pod wire stops being free, as in the JAX package: each producer
+accumulates raw updates and ships one aggregated, top-k-sparsified,
+quantized delta every ``agg_clocks`` clocks (the pack is the
+``delta_pack`` kernel on the card), with an error-feedback residual;
+cross-pod readers materialize their views from the shipped wire ring
+while intra-pod readers keep reading raw (two ``ring_view`` launches per
+clock); cross-pod visibility advances only to shipment boundaries; and
+``Trace.ship_floats`` records the bits-weighted floats of each shipment.
+The port packs only on clocks that ship, where the JAX package packs
+every clock and discards the result; the state and the trace are the
+same.
+
+Fleet churn (``schedule``), telemetry (``obs``) and the lossy wire
+(``faults``) are ported in later slices; passing them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,10 +62,12 @@ from typing import Any, Callable
 import torch
 
 from .. import rng as jrng
+from ..comm import substrate as comm
 from ..kernels import ops
 from ..kernels.ref import RING_EMPTY, RING_INVALID
 from .consistency import ConsistencyConfig
-from .delays import delivery_matrix, staleness_bound_matrix
+from .delays import delivery_matrix, pod_of, same_pod_mask, \
+    staleness_bound_matrix
 
 
 @dataclass
@@ -93,22 +108,16 @@ class Trace:
     delivered: torch.Tensor       # [T, P, P] background deliveries
     u_l2: torch.Tensor            # [T, P] l2 norm of each worker's update
     intransit_inf: torch.Tensor   # [T] max inf-norm of in-transit aggregates
-    ship_floats: torch.Tensor     # [T, P] floats each producer put on the
-    #                               cross-pod wire (dense path: d for push
-    #                               models, 0 for pull-based ssp)
+    ship_floats: torch.Tensor     # [T, P] bits-weighted floats each
+    #                               producer put on the cross-pod wire
+    #                               (comm substrate: values + sparse indices
+    #                               at shipment clocks, 0 otherwise; dense
+    #                               path: d for push models, 0 for ssp)
     live: torch.Tensor            # [T, P] worker liveness (all True: churn
     #                               is not ported yet)
     views0: torch.Tensor | None   # [T, d] worker-0 views (if record_views)
     x_final: torch.Tensor         # [d] final reference parameters
     locals_final: Any             # final worker-local state
-
-
-def dense_ship_floats(model: str, P: int, d: int, device=None):
-    """``Trace.ship_floats`` row of the dense (substrate-off) path: every
-    push-model producer ships its full ``d``-float delta each clock;
-    pull-based SSP ships nothing."""
-    fill = 0.0 if model == "ssp" else float(d)
-    return torch.full((P,), fill, dtype=torch.float32, device=device)
 
 
 def enforce_vap(cfg: ConsistencyConfig, c: int, cview, norms, W: int):
@@ -145,6 +154,12 @@ def _x_ref(base, uring, uclock):
     return base + (uring.sum(dim=1) * valid[:, None]).sum(dim=0)
 
 
+def _tier_target(in_pod, intra: int, xpod: int, like):
+    """[P, P] int32 visibility target: ``intra`` on intra-pod channels,
+    ``xpod`` across pods (filled on the device)."""
+    return torch.full_like(like, xpod).masked_fill_(in_pod, intra)
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
@@ -156,15 +171,14 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
              faults=None) -> Trace:
     """Run ``n_clocks`` of the app under the given consistency model, on
     the device of ``app.x0``.  Same contract as the JAX package's
-    ``core.ps.simulate`` in its dense flat and two-tier modes."""
+    ``core.ps.simulate`` in its dense flat and two-tier modes and under
+    the comm substrate."""
     if schedule is not None:
         _not_ported("fleet churn (schedule=ChurnSchedule)", "item 10")
     if obs is not None:
         _not_ported("telemetry (obs=ObsSpec)", "item 12")
     if faults is not None:
         _not_ported("the lossy wire (faults=WireFaults)", "item 11")
-    if cfg.comm_active:
-        _not_ported("the comm substrate (cfg.comm_active)", "item 9")
 
     P, d = app.n_workers, app.dim
     W = cfg.effective_window
@@ -183,11 +197,22 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
     producers = torch.arange(P, device=dev)[None, :]
     eye = torch.eye(P, dtype=torch.bool, device=dev)
     all_live = torch.ones((P,), dtype=torch.bool, device=dev)
-    ship_floats = dense_ship_floats(cfg.model, P, d, dev)
     local = app.local0
+    # the comm substrate routes cross-pod shipment through the wire ring
+    wired = cfg.comm_active
+    G, agg = cfg.n_pods, cfg.agg_clocks
+    if wired:
+        in_pod = same_pod_mask(P, G, dev)                   # [P(r), P(q)]
+        reader_pods = pod_of(P, G, dev)
+        zeros_d = torch.zeros((d,), dtype=f32, device=dev)
+        no_ship = torch.zeros((P,), dtype=f32, device=dev)
+        cst = comm.init_state(W, P, d, G, dev)
+    else:
+        ship_floats = comm.dense_ship_floats(cfg.model, P, d, dev)
 
     rec = {k: [] for k in ("loss_ref", "loss_view", "staleness", "forced",
-                           "delivered", "u_l2", "intransit_inf", "views0")}
+                           "delivered", "u_l2", "intransit_inf",
+                           "ship_floats", "views0")}
     for c in range(n_clocks):
         rng, k_upd, k_net = jrng.split(rng, 3).unbind(0)
 
@@ -201,7 +226,13 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
             cview = torch.full_like(cview, c - 1)
         elif cfg.model in ("ssp", "essp"):
             forced = cview < (c - s_eff - 1)
-            cview = torch.where(forced, c - 1, cview)
+            if wired:
+                # a cross-pod refresh fetches only what has shipped
+                tgt = _tier_target(in_pod, c - 1,
+                                   comm.shipped_through(c, agg), cview)
+                cview = torch.where(forced, tgt, cview)
+            else:
+                cview = torch.where(forced, c - 1, cview)
         elif cfg.model == "vap":
             cview, forced = enforce_vap(cfg, c, cview, norms, W)
         else:  # async
@@ -216,7 +247,18 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         intransit_inf = norms[kcur, producers].amax()
 
         # --- 2. materialize views ---------------------------------------
-        views = ops.ring_view(base, uring, uclock, cview)
+        if wired:
+            # intra-pod producers read the raw ring, cross-pod producers
+            # the wire ring, on the folded base of the reader's pod; a
+            # masked-out channel sees nothing (cview below every clock)
+            cv_intra = torch.where(in_pod, cview, RING_EMPTY)
+            cv_xpod = torch.where(in_pod, RING_EMPTY, cview)
+            rb = comm.reader_base(base, cst["base_pod"], cst["xbase_pod"],
+                                  reader_pods)
+            views = ((rb + ops.ring_view(zeros_d, uring, uclock, cv_intra))
+                     + ops.ring_view(zeros_d, cst["xring"], uclock, cv_xpod))
+        else:
+            views = ops.ring_view(base, uring, uclock, cview)
 
         # --- 3. worker computation --------------------------------------
         upd_keys = jrng.split(k_upd, P)
@@ -225,10 +267,32 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
 
         # --- 4. commit to server: fold oldest slot, write newest ---------
         slot = c % W
-        old_valid = uclock[slot] > RING_INVALID
-        base = base + torch.where(old_valid, 1.0, 0.0) * uring[slot].sum(0)
+        w_old = torch.where(uclock[slot] > RING_INVALID, 1.0, 0.0)
+        if wired:
+            # recycled slots fold per producer pod: raw into base_pod,
+            # wire into xbase_pod (base itself stays x0)
+            cst["base_pod"] = (cst["base_pod"]
+                               + w_old * comm.fold_pods(uring[slot], G))
+            cst["xbase_pod"] = (cst["xbase_pod"] + w_old
+                                * comm.fold_pods(cst["xring"][slot], G))
+        else:
+            base = base + w_old * uring[slot].sum(0)
         uring[slot] = u
         uclock[slot].fill_(c)       # a fill: `= c` copies from the host
+        if wired:
+            # --- 4b. comm substrate: accumulate, and ship on boundary ----
+            # acc is the state's own tensor: accumulate in place
+            cst["acc"].add_(u)
+            if comm.ship_now(c, agg):
+                delta = cst["acc"] + cst["res"]
+                wire_u, cst["res"], nnz = comm.pack(delta, cfg.topk_frac,
+                                                    cfg.quant)
+                cst["acc"].zero_()
+                cst["xring"][slot] = wire_u
+                ship_floats = comm.wire_floats(nnz, d, cfg.quant)
+            else:
+                cst["xring"][slot].zero_()
+                ship_floats = no_ship
 
         # --- 5. end-of-clock delivery (affects reads at c+1) -------------
         if cfg.model == "bsp":
@@ -238,10 +302,18 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
             delivered = torch.zeros((P, P), dtype=torch.bool, device=dev)
         else:  # essp / async / vap: delay-driven eager delivery
             delivered = delivery_matrix(k_net, cfg, P)
-            cview = torch.where(delivered, c, cview)
+            if wired:
+                # a cross-pod delivery carries the latest shipment
+                tgt = _tier_target(in_pod, c, comm.shipped_end(c, agg),
+                                   cview)
+                cview = torch.where(delivered, torch.maximum(cview, tgt),
+                                    cview)
+            else:
+                cview = torch.where(delivered, c, cview)
 
         # --- 6. record ----------------------------------------------------
-        x_ref = _x_ref(base, uring, uclock)
+        x_ref = _x_ref(base + cst["base_pod"].sum(0) if wired else base,
+                       uring, uclock)
         rec["loss_ref"].append(app.loss(x_ref, local))
         rec["loss_view"].append(app.loss(views[0], local))
         rec["staleness"].append(staleness)
@@ -249,6 +321,7 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         rec["delivered"].append(delivered)
         rec["u_l2"].append(torch.linalg.vector_norm(u, dim=-1))
         rec["intransit_inf"].append(intransit_inf)
+        rec["ship_floats"].append(ship_floats)
         if record_views:
             rec["views0"].append(views[0])
 
@@ -265,8 +338,9 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         delivered=stacked("delivered", (P, P), torch.bool),
         u_l2=stacked("u_l2", (P,), f32),
         intransit_inf=stacked("intransit_inf", (), f32),
-        ship_floats=ship_floats.expand(n_clocks, P).clone(),
+        ship_floats=stacked("ship_floats", (P,), f32),
         live=all_live.expand(n_clocks, P).clone(),
         views0=stacked("views0", (d,), f32) if record_views else None,
-        x_final=_x_ref(base, uring, uclock),
+        x_final=_x_ref(base + cst["base_pod"].sum(0) if wired else base,
+                       uring, uclock),
         locals_final=local)

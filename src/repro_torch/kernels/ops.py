@@ -1,7 +1,8 @@
 """Dispatch of the simulator's hot-path kernels by the tensors' device.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
-the hand-written kernel (``ps_view.py``), which launches or raises.  There
+the hand-written kernel (``ps_view.py``, ``delta_pack.py``), which
+launches or raises.  There
 is no backend switch and no fallback: on the card, the main path runs the
 kernels or fails.
 """
@@ -32,3 +33,12 @@ def vap_suffix_norms(uring, uclock, c: int):
         from . import ps_view
         return ps_view.vap_suffix_norms(uring, uclock, c)
     return ref.vap_suffix_norms(uring, uclock, c)
+
+
+def delta_pack(delta, thresh, scale, quant: str = "f32"):
+    """Comm-substrate shipment pack; see `ref.delta_pack` for the
+    contract."""
+    if _on_cuda(delta):
+        from . import delta_pack as dp
+        return dp.delta_pack(delta, thresh, scale, quant)
+    return ref.delta_pack(delta, thresh, scale, quant)

@@ -29,6 +29,48 @@ def ring_view(base, uring, uclock, cview):
                                         uring)
 
 
+def delta_pack(delta, thresh, scale, quant: str = "f32"):
+    """Error-feedback compression pack of per-producer delta rows.
+
+    ``delta [P, d]`` aggregated deltas, ``thresh [P]`` per-row magnitude
+    threshold (the k-th largest ``|delta|``, ``comm.substrate.row_threshold``),
+    ``scale [P]`` int8 dequant scale (absmax / 127; read only when
+    ``quant == "int8"``).  Returns ``(wire [P, d], residual [P, d])``::
+
+        mask     = |delta| >= thresh
+        wire     = mask ? Q(delta) : 0
+        residual = mask ? delta - Q(delta) : delta     (f32: mask ? 0 : delta)
+
+    Bit-equal to the JAX package's reference as XLA compiles it inside the
+    simulator's scan (and to its Pallas body):
+
+    - f32: the residual is the masked complement, never ``delta - delta``,
+      so ``wire + residual == delta`` exactly;
+    - bf16: ``Q`` rounds to the nearest even bf16; ``delta - Q(delta)`` is
+      exact in float32;
+    - int8: ``r = clamp(round_half_even(delta / s), ±127)`` with a true
+      division, the wire is ``float32(r·s)``, and the residual is ``delta
+      - r·s`` rounded once, as the fused multiply-add that XLA contracts
+      it into (``r·s`` is exact in float64, so is the difference, and the
+      cast rounds once).
+    """
+    mask = delta.abs() >= thresh[:, None]
+    zero = delta.new_zeros(())
+    if quant == "f32":
+        return torch.where(mask, delta, zero), torch.where(mask, zero, delta)
+    if quant == "bf16":
+        q = delta.to(torch.bfloat16).to(torch.float32)
+        return (torch.where(mask, q, zero),
+                torch.where(mask, delta - q, delta))
+    if quant == "int8":
+        s = scale[:, None]
+        r = torch.clamp(torch.round(delta / s), -127.0, 127.0)
+        exact = delta.double() - r.double() * s.double()
+        return (torch.where(mask, r * s, zero),
+                torch.where(mask, exact.to(torch.float32), delta))
+    raise ValueError(f"unknown quant {quant!r}")
+
+
 def ring_view_tolerance(base, uring) -> float:
     """Largest difference allowed between two ``ring_view`` results that
     add the same terms in different orders: each float32 sum of ``n =

@@ -8,7 +8,8 @@
   ``cumsum`` differs by rounding); ``ring_view`` sums the same terms in
   another order, within ``ref.ring_view_tolerance``.
 - The CUDA kernels are marked ``cuda`` and skip without a card; on the
-  card they are held against the plain versions at the same tolerances.
+  card they are held against the plain versions at the same tolerances
+  (``delta_pack`` bit for bit, at the edge cases of :func:`pack_case`).
 - The port's boundaries: no module imports ``jax`` or ``repro``, the
   default device is the card, and a CUDA tensor never reaches a plain
   version.
@@ -26,7 +27,9 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import ops, ps_view, ref
+from repro_torch.comm import substrate
+from repro_torch.kernels import delta_pack as dp
+from repro_torch.kernels import launch, ops, ps_view, ref
 
 RING_EMPTY = ref.RING_EMPTY
 # (W, P, d, empty slots): the simulator's shapes (essp W=5, vap W=11),
@@ -55,6 +58,52 @@ def _suffix_tolerance(uring):
 
 def _t(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+# delta_pack's cases: (P, d, topk_frac, what the rows hold).  The main
+# path's P = 8 and topk 0.0625, P = 1, d = 16, LDA's d = 2000, ragged d,
+# topk 1.0, ties at the threshold, a threshold above every value, a row of
+# zeros (the int8 scale's 1e-12 clamp) and exact .5 int8 quotients.
+PACK_CASES = {
+    "main": (8, 1000, 0.0625, "normal"),
+    "p1": (1, 300, 0.3, "normal"),
+    "d16": (4, 16, 0.25, "normal"),
+    "d2000": (8, 2000, 0.1, "normal"),
+    "ragged": (4, 1003, 0.3, "normal"),
+    "topk1": (4, 64, 1.0, "normal"),
+    "ties": (4, 512, 0.3, "ties"),
+    "above": (4, 128, 0.3, "above"),
+    "zeros": (4, 256, 0.5, "zeros"),
+    "halves": (4, 256, 0.5, "halves"),
+}
+
+
+def pack_case(P, d, topk_frac, kind, seed=0):
+    """``(delta, thresh, scale)`` as float32 numpy arrays for one
+    ``delta_pack`` case; thresh and scale come from the port's substrate
+    (int8 scale; the f32/bf16 kernels do not read it)."""
+    r = np.random.default_rng(seed)
+    delta = (2.0 * r.standard_normal((P, d))).astype(np.float32)
+    if kind == "ties":              # many |delta| equal to the threshold
+        delta = (np.round(delta * 2) / 2).astype(np.float32)
+    elif kind == "zeros":
+        delta[0] = 0.0
+    elif kind == "halves":          # scale 1/8 exactly, delta/s = n + 1/2
+        n = r.integers(-127, 127, (P, d))
+        delta = ((n + 0.5) * 0.125).astype(np.float32)
+        delta[:, 0] = 127 * 0.125
+    t = torch.from_numpy(delta)
+    thresh = substrate.row_threshold(t, topk_frac)
+    if kind == "above":
+        thresh = t.abs().amax(dim=-1) * 2 + 1
+    scale = substrate.quant_scale(t, "int8")
+    return delta, thresh.numpy(), scale.numpy()
+
+
+def bits(t) -> np.ndarray:
+    """The float32 bit patterns (so -0.0 and 0.0 differ)."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
 
 
 @pytest.mark.parametrize(("W", "P", "d", "n_empty"), SHAPES)
@@ -102,6 +151,17 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
         ops.ring_view(*(x.to("meta") for x in (b, u, uc, cv)))
 
 
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+def test_ops_delta_pack_cpu_goes_to_plain_version(quant):
+    delta, thresh, scale = _t(*pack_case(*PACK_CASES["ragged"]))
+    before = dict(launch.launches)
+    got = ops.delta_pack(delta, thresh, scale, quant)
+    want = ref.delta_pack(delta, thresh, scale, quant)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(bits(g), bits(w))
+    assert launch.launches == before
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The wrappers never run a plain version: a CPU tensor is refused."""
     base, uring, uclock, cview, c = _ring(4, 3, 50, 1)
@@ -110,6 +170,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ps_view.ring_view(b, u, uc, cv)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ps_view.vap_suffix_norms(u, uc, c)
+    delta, thresh, scale = _t(*pack_case(*PACK_CASES["d16"]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dp.delta_pack(delta, thresh, scale, "int8")
 
 
 def test_no_jax_or_repro_imports():
@@ -160,7 +223,8 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
     got = ps_view.ring_view(b, u, uc, cv)
     norms = ps_view.vap_suffix_norms(u, uc, c)
     torch.cuda.synchronize()
-    assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1}
+    assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1,
+                                "delta_pack": 0}
     want = ref.ring_view(b, u, uc, cv)
     assert (got - want).abs().max().item() <= ref.ring_view_tolerance(b, u)
     torch.testing.assert_close(norms, ref.vap_suffix_norms(u, uc, c),
@@ -183,20 +247,68 @@ def test_cuda_kernels_check_their_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["essp", "vap"])
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(PACK_CASES) + ["unaligned"])
+def test_cuda_delta_pack_matches_plain_version(cuda, case, quant):
+    """Bit for bit (tolerance 0), on the float4 path (d % 4 == 0) and the
+    scalar path (ragged d, or a row start that is not 16-byte aligned)."""
+    P, d, topk, kind = PACK_CASES["main" if case == "unaligned" else case]
+    delta, thresh, scale = _t(*pack_case(P, d, topk, kind, seed=3),
+                              device=cuda)
+    if case == "unaligned":         # a view one float into a buffer
+        buf = torch.empty(P * d + 1, device=cuda)
+        buf[1:] = delta.reshape(-1)
+        delta = buf[1:].view(P, d)
+    launch.reset_launches()
+    got = dp.delta_pack(delta, thresh, scale, quant)
+    torch.cuda.synchronize()
+    assert launch.launches["delta_pack"] == 1
+    want = ref.delta_pack(delta, thresh, scale, quant)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(bits(g), bits(w))
+    if quant == "f32":              # exact mass conservation
+        torch.testing.assert_close(got[0] + got[1], delta, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_delta_pack_checks_its_inputs(cuda):
+    delta, thresh, scale = _t(*pack_case(*PACK_CASES["d16"]), device=cuda)
+    with pytest.raises(ValueError, match="unknown quant"):
+        dp.delta_pack(delta, thresh, scale, "fp4")
+    with pytest.raises(TypeError, match="dtype"):
+        dp.delta_pack(delta.double(), thresh, scale, "f32")
+    with pytest.raises(ValueError, match="shape"):
+        dp.delta_pack(delta, thresh[:-1], scale, "f32")
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.delta_pack(delta.t().contiguous().t(), thresh, scale, "f32")
+    with pytest.raises(ValueError, match="is on"):
+        dp.delta_pack(delta, thresh.cpu(), scale, "f32")
+    with pytest.raises(ValueError, match=r"\[P, d\]"):
+        dp.delta_pack(delta[0], thresh, scale, "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["essp", "vap", "wired"])
 def test_cuda_clock_loop_does_not_sync(cuda, model):
     """simulate on the card never makes the host wait for the device: a
-    copy from the host or an ``.item()`` in the clock loop raises here."""
+    copy from the host or an ``.item()`` in the clock loop raises here.
+    ``wired`` runs the comm substrate (int8 shipments every 2 clocks)."""
     from repro_torch.apps import matfact
     from repro_torch.core import consistency as cc
     from repro_torch.core import ps
-    cfg = cc.essp(3) if model == "essp" else cc.vap(0.3)
+    cfg = {"essp": cc.essp(3), "vap": cc.vap(0.3),
+           "wired": cc.compressed(cc.podded(cc.essp(2), 2, s_xpod=3), 2,
+                                  0.25, "int8")}[model]
     app = matfact.make_mf_app(matfact.MFConfig(), device=cuda)
     ps.simulate(app, cfg, 2)                    # builds and loads the kernels
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
+    launch.reset_launches()
     try:
         trace = ps.simulate(app, cfg, 6)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert trace.loss_ref.shape == (6,)
+    if model == "wired":
+        assert launch.launches == {"ring_view": 12, "vap_suffix_norms": 6,
+                                   "delta_pack": 3}

@@ -157,13 +157,16 @@ def test_configs_match_jax():
 
 
 def test_unported_paths_raise(apps):
+    """Churn, telemetry and the lossy wire still raise, on the dense path
+    and on the comm substrate's, naming their roadmap item."""
     _, tapp = apps["quad"]
-    cfg = tc.compressed(tc.podded(tc.essp(1), 2), agg_clocks=2)
-    with pytest.raises(NotImplementedError, match="comm substrate"):
-        tps.simulate(tapp, cfg, 2)
-    for kw in ("schedule", "obs", "faults"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tps.simulate(tapp, tc.essp(1), 2, **{kw: object()})
+    wired = tc.compressed(tc.podded(tc.essp(1), 2), agg_clocks=2)
+    for cfg in (tc.essp(1), wired):
+        for kw, item in (("schedule", "item 10"), ("obs", "item 12"),
+                         ("faults", "item 11")):
+            with pytest.raises(NotImplementedError,
+                               match=f"not ported.*{item}"):
+                tps.simulate(tapp, cfg, 2, **{kw: object()})
 
 
 def test_enforce_vap_matches_jax():
