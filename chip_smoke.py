@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Four phases, one JSON line each (or more):
+JAX or the JAX package).  Six phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -12,9 +12,13 @@ JAX or the JAX package).  Four phases, one JSON line each (or more):
    card, at the main path's shapes and at edge shapes, with its time, the
    plain version's time, a one-call library yardstick where there is one
    and the least time the card could take for the bytes these inputs need
-   (over the H100 SXM data-sheet memory rate).  ``delta_pack`` must be
+   (over the H100 SXM data-sheet rates).  ``delta_pack`` must be
    bit-equal for f32, bf16 and int8; the comm substrate's threshold
    selection is timed beside the other exact selections;
+   ``flash_attention`` (at the models' prefill shape, beside one
+   ``scaled_dot_product_attention`` call as the library yardstick) and
+   ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
+   versions at the main path's shapes and at edge shapes;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -32,7 +36,18 @@ JAX or the JAX package).  Four phases, one JSON line each (or more):
    the budget up to the first shipment whose wire values differ between
    the two runs: a quantized value is a rounding decision, and one that
    flips on float drift within the budget (checked) moves the run by a
-   whole quantization step, as a flipped VAP decision would.
+   whole quantization step, as a flipped VAP decision would;
+5. the serving path at full width and depth (``serve_path``): qwen3-0.6b
+   and mamba2-130m with random weights from a seed, batch 8, a 2048-token
+   prompt from ``token_batch`` and 32 new tokens, through
+   ``repro_torch.launch.serve``: prefill and decode times and rates, peak
+   memory, the kernels' launches per prefill (``flash_attention`` once
+   per qwen3 layer, ``ssd`` once per mamba2 layer), no host sync in the
+   decode loop, and the device's idle share from profiled runs;
+6. both models' smoke configs on the card against the CPU
+   (``serve_card_vs_cpu``): prefill and teacher-forced decode logits within
+   the stated tolerance, greedy tokens equal wherever the CPU's top-2
+   margin exceeds it.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -42,7 +57,9 @@ to ``chiprun_out/chip_smoke.jsonl``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,9 +99,53 @@ def small_wired_cfgs(cc):
                 cc.podded(cc.ssp(2), 2, s_xpod=2), 3, 0.5, "bf16")}
 
 # The card the port runs on, as torch names it, with its data-sheet peak
-# memory rate (bytes/s) and float32 rate outside the tensor cores (FLOP/s):
-# NVIDIA H100 SXM, at its full 700 W power limit.
-CARD = ("NVIDIA H100 80GB HBM3", 3.35e12, 67e12)
+# memory rate (bytes/s), float32 rate outside the tensor cores and dense
+# bf16 tensor-core rate (FLOP/s): NVIDIA H100 SXM, at its full 700 W power
+# limit.
+CARD = ("NVIDIA H100 80GB HBM3", 3.35e12, 67e12, 989e12)
+
+# flash_attention's phase shapes: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
+# window, dtype, positions).  "main" is qwen3-0.6b's prefill (batch 8,
+# 2048-token prompt, bf16); then float32, a window, Dv != Dk, a padded Sk,
+# rows that see no key ("late_keys") and masked keys ("holes").
+ATTN_SHAPES = {
+    "main": (8, 2048, 2048, 16, 8, 128, 128, True, None, "bf16", "arange"),
+    "f32": (2, 128, 128, 4, 2, 32, 32, True, None, "f32", "arange"),
+    "f32_d128_window": (2, 300, 300, 16, 8, 128, 128, True, 64, "f32",
+                        "arange"),
+    "mqa_dv16": (2, 64, 256, 4, 1, 32, 16, True, None, "f32", "arange"),
+    "bf16_padded_sk": (2, 100, 157, 16, 8, 128, 128, True, None, "bf16",
+                       "arange"),
+    "bf16_window": (2, 512, 512, 16, 8, 128, 128, True, 128, "bf16",
+                    "arange"),
+    "no_visible_key": (2, 64, 64, 4, 2, 32, 32, True, None, "bf16",
+                       "late_keys"),
+    "holes": (2, 96, 96, 4, 2, 64, 64, False, None, "f32", "holes"),
+}
+# ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype).  "main" is
+# mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
+# d_state 128, chunk 128, bf16); then a ragged s and float32.
+SSD_SHAPES = {
+    "main": (8, 2048, 24, 64, 3, 128, 128, "bf16"),
+    "ragged": (2, 2000, 24, 64, 3, 128, 128, "bf16"),
+    "f32_ragged": (2, 300, 24, 64, 3, 128, 128, "f32"),
+    "smoke_ragged": (4, 100, 16, 32, 2, 32, 32, "bf16"),
+}
+# the JAX package's kernel-test tolerances for attention (absolute and
+# relative); ssd's is ref.ssd_tolerance
+ATTN_TOL = {"f32": 3e-5, "bf16": 6e-2}
+
+# The serving path: both ported families at full width and depth.
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+# Card against CPU on the smoke configs: logits within this share of their
+# largest magnitude.  float32: the products run in full float32 on both
+# (no TF32), in other orders.  bfloat16: both round every product to
+# bfloat16, at the same points, but a sum taken in another order can land
+# one bfloat16 step away, and two layers carry it on (the port against the
+# JAX package on the CPU stays within 0.6 %).
+SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 4, 100, 8
 
 _lines: list[str] = []
 
@@ -96,10 +157,11 @@ def emit(obj) -> None:
 
 
 def card_rates(name: str):
+    """(bytes/s, float32 FLOP/s, bf16 tensor FLOP/s) of the card."""
     if name != CARD[0]:
         raise RuntimeError(f"no data-sheet rates for {name!r}; the bounds "
                            f"are stated for {CARD[0]}")
-    return CARD[1], CARD[2]
+    return CARD[1], CARD[2], CARD[3]
 
 
 def nvidia_smi() -> str:
@@ -158,7 +220,7 @@ def kernel_bounds(uclock, cview, c, P, d, rates):
     The work depends on the data: ``ring_view`` reads only the ring rows
     that some reader sees and adds each into every reader that sees it;
     ``vap_suffix_norms`` reads only the slots that hold clocks c-W..c-1."""
-    bw, flops = rates
+    bw, flops, _ = rates
     W = uclock.numel()
     vis = visibility(uclock, cview)
     rows_seen = int(vis.amax(dim=0).sum().item())        # (w, q) rows read
@@ -281,7 +343,7 @@ def check_delta_pack(P, d, topk_frac, kind, device, rates, timed: bool):
             raise AssertionError(f"delta_pack disagrees with its plain "
                                  f"version ({quant}, P={P}, d={d}, {kind})")
         if timed:
-            bw, flops = rates
+            bw, flops, _ = rates
             # delta read once, wire and residual written once, thresh and
             # scale read once; about six operations per element
             t_b = (3 * P * d * 4 + 2 * P * 4) / bw * 1e3
@@ -351,11 +413,11 @@ def expected_launches(cfg, n_clocks):
     from repro_torch.comm import substrate
     if not cfg.comm_active:
         return {"ring_view": n_clocks, "vap_suffix_norms": n_clocks,
-                "delta_pack": 0}
+                "delta_pack": 0, "flash_attention": 0, "ssd": 0}
     ships = sum(substrate.ship_now(c, cfg.agg_clocks)
                 for c in range(n_clocks))
     return {"ring_view": 2 * n_clocks, "vap_suffix_norms": n_clocks,
-            "delta_pack": ships}
+            "delta_pack": ships, "flash_attention": 0, "ssd": 0}
 
 
 def device_split(app, cfg, n_clocks):
@@ -399,6 +461,35 @@ def device_split(app, cfg, n_clocks):
                 for e in ops}}
 
 
+@contextlib.contextmanager
+def watch_syncs():
+    """Run the body under ``torch.cuda.set_sync_debug_mode("warn")``; yields
+    a list that gets one ``(call site, function names)`` per operation that
+    made the host wait for the device (a copy from the host, ``.item()``).
+    An explicit ``torch.cuda.synchronize()`` is not one of them."""
+    import warnings
+    import torch
+    found = []
+
+    def on_warning(message, *_):
+        if "synchroniz" in str(message):      # where the op was called
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            found.append((" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                      for f in frames[:-6:-1]),
+                          [f.name for f in frames]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # set first: turning the mode on warns once about the mode itself
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = on_warning
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
 def run_main_path(app, cfg, name, n_clocks):
     """One simulate run through the entry point, with the kernel counters
     set to 0 just before and read just after (after a 2-clock warm-up run
@@ -410,7 +501,6 @@ def run_main_path(app, cfg, name, n_clocks):
     each operation that makes the host wait for the device (a copy from
     the host, ``.item()``) is recorded with its call site, and the phase
     fails after both configs if there was one."""
-    import warnings
     import torch
     from repro_torch.convert import trace_to_numpy
     from repro_torch.core import ps, staleness
@@ -421,25 +511,10 @@ def run_main_path(app, cfg, name, n_clocks):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launches()
-    syncs = []
-
-    def on_warning(message, *_):
-        if "synchroniz" in str(message):      # where the op was called
-            frames = [f for f in traceback.extract_stack()[:-1]
-                      if not f.filename.endswith("warnings.py")]
-            syncs.append(" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
-                                     for f in frames[:-6:-1]))
-
     t0 = time.perf_counter()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        # set first: turning the mode on warns once about the mode itself
-        torch.cuda.set_sync_debug_mode("warn")
-        warnings.showwarning = on_warning
-        try:
-            trace = ps.simulate(app, cfg, n_clocks, seed=0)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    with watch_syncs() as found:
+        trace = ps.simulate(app, cfg, n_clocks, seed=0)
+    syncs = [site for site, _ in found]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(launch.launches)
@@ -554,6 +629,322 @@ def ulps_through(got, want, last_clock):
     return out
 
 
+def attn_inputs(shape, seed, device):
+    """``(q, k, v, q_pos, kv_pos)`` on the card for one attention shape,
+    made from a seed; positions as `ATTN_SHAPES` names them."""
+    import torch
+    B, Sq, Sk, H, Hkv, Dk, Dv, _, _, dt, kind = shape
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gd = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gd, device=device).to(dtype)
+               for s in ((B, Sq, H, Dk), (B, Sk, Hkv, Dk), (B, Sk, Hkv, Dv)))
+    qp = (torch.arange(Sq, dtype=torch.int32, device=device)
+          + (Sk - Sq)).expand(B, Sq).contiguous()
+    kp = torch.arange(Sk, dtype=torch.int32, device=device).expand(
+        B, Sk).contiguous()
+    if kind == "late_keys":            # the first 5 queries see no key
+        kp = kp + (5 + Sk - Sq)
+    elif kind == "holes":              # a quarter of the keys masked
+        holes = torch.randperm(Sk, generator=gd, device=device)[:Sk // 4]
+        kp[:, holes] = -1
+    return q, k, v, qp, kp
+
+
+def attention_bound(q, k, v, qp, kp, causal, window, rates):
+    """Least time (ms) for attention on these inputs: the products of the
+    visible (query, key) pairs, 2·(Dk + Dv) FLOP each per head, over the
+    tensor-core (bf16) or float32 rate, against q, k, v, the positions and
+    the output read or written once over the memory rate."""
+    import torch
+    from repro_torch.kernels import ref
+    bw, f32, bf16 = rates
+    H, Dk, Dv = q.shape[2], q.shape[3], v.shape[3]
+    pairs = int(ref._block_mask(qp, kp, causal, window).sum().item())
+    ops = 2 * (Dk + Dv) * H * pairs
+    nbytes = (q.numel() + q.numel() // Dk * Dv + k.numel() + v.numel()) \
+        * q.element_size() + 4 * (qp.numel() + kp.numel())
+    t_b = nbytes / bw * 1e3
+    t_o = ops / (bf16 if q.dtype == torch.bfloat16 else f32) * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", pairs
+
+
+def check_flash_attention(name, device, rates, timed: bool):
+    """``flash_attention`` against its plain version on one shape of
+    `ATTN_SHAPES`, within ATTN_TOL (absolute and relative); timed at the
+    main path's shape beside one ``scaled_dot_product_attention`` call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    shape = ATTN_SHAPES[name]
+    causal, window, dt, kind = shape[7:]
+    q, k, v, qp, kp = attn_inputs(shape, seed=sum(shape[:7]), device=device)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(scale=scale, q_pos=qp, kv_pos=kp, causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    tol = ATTN_TOL[dt]
+    rec = {"phase": "kernels", "kernel": "flash_attention", "case": name,
+           "shape": dict(zip(("B", "Sq", "Sk", "H", "Hkv", "Dk", "Dv"),
+                             shape[:7], strict=True)),
+           "causal": causal, "window": window, "dtype": dt,
+           "max_abs_err": diff.max().item(), "tol": tol}
+    bad = bool((diff > tol + tol * want.float().abs()).any())
+    if kind == "late_keys":
+        rec["unseeing_rows_zero"] = not bool(got[:, :5].any())
+        bad = bad or not rec["unseeing_rows_zero"]
+    del got, want, diff
+    if bad:
+        emit(rec)
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version ({name}): {rec}")
+    if timed:
+        bound, by, pairs = attention_bound(q, k, v, qp, kp, causal, window,
+                                           rates)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec.update(
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20),
+            plain_ms=time_ms(lambda: ref.attention(q, k, v, **kw), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale,
+                enable_gqa=True), 20),
+            bound_ms=bound, bound_by=by, visible_pairs=pairs)
+    emit(rec)
+    return rec
+
+
+def ssd_inputs(shape, seed, device):
+    """``(x, dt, A, B, C)`` on the card for one SSD shape, made from a
+    seed: dt softplus'd and A negative, as the mamba2 block gives them."""
+    import torch
+    b, s, h, p, g, n, _, dt_ = shape
+    dtype = torch.bfloat16 if dt_ == "bf16" else torch.float32
+    gd = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gd, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gd, device=device))
+    A = -torch.exp(0.3 * torch.randn((h,), generator=gd, device=device))
+    B, C = (torch.randn((b, s, g, n), generator=gd, device=device).to(dtype)
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+def ssd_bound(shape, rates):
+    """Least time (ms) for the SSD scan: per chunk of length L, the causal
+    scores 2·n·L(L+1)/2 (bf16 on the tensor cores for bf16 inputs), then in
+    float32 the causal w·x̄ 2·p·L(L+1)/2, C·stateᵀ 2·L·p·n and the state
+    update 2·L·p·n, per (b, h); against x, dt, A, B, C, y and the state
+    read or written once."""
+    b, s, h, p, g, n, chunk, dt_ = shape
+    bw, f32, bf16 = rates
+    elem = 2 if dt_ == "bf16" else 4
+    tri = sum(L * (L + 1) // 2
+              for L in (min(chunk, s - c) for c in range(0, s, chunk)))
+    score_ops = 2 * n * tri * b * h
+    f32_ops = (2 * p * tri + 4 * p * n * s) * b * h
+    t_o = (score_ops / (bf16 if elem == 2 else f32) + f32_ops / f32) * 1e3
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * elem \
+        + 4 * (b * s * h + h + b * h * p * n)
+    t_b = nbytes / bw * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_ssd(name, device, rates, timed: bool):
+    """``ssd`` against its plain version on one shape of `SSD_SHAPES`,
+    within ``ref.ssd_tolerance``; timed at the main path's shape."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+    shape = SSD_SHAPES[name]
+    chunk = shape[6]
+    x, dt, A, B, C = ssd_inputs(shape, seed=sum(shape[:7]), device=device)
+    y, st = ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
+    y_want, st_want = ref.ssd_chunked(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    tol = ref.ssd_tolerance(y_want, x.dtype)
+    err_y = (y.float() - y_want.float()).abs().max().item()
+    err_st = (st - st_want).abs().max().item()
+    rec = {"phase": "kernels", "kernel": "ssd", "case": name,
+           "shape": dict(zip(("b", "s", "h", "p", "g", "n", "chunk"),
+                             shape[:7], strict=True)), "dtype": shape[7],
+           "max_abs_err": max(err_y, err_st), "max_abs_err_y": err_y,
+           "max_abs_err_state": err_st, "tol": tol}
+    del y, st, y_want, st_want
+    if not (err_y <= tol and err_st <= tol):
+        emit(rec)
+        raise AssertionError(f"ssd disagrees with its plain version "
+                             f"({name}): {rec}")
+    if timed:
+        bound, by = ssd_bound(shape, rates)
+        rec.update(
+            ms=time_ms(lambda: ssd_scan.ssd(x, dt, A, B, C, chunk=chunk), 10),
+            plain_ms=time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, chunk),
+                             3),
+            library_ms=None, bound_ms=bound, bound_by=by)
+    emit(rec)
+    return rec
+
+
+SERVE_KERNELS = ("fa_bf16_kernel", "fa_f32_kernel", "ssd_kernel")
+
+
+def profiled_run(model, prompts, new):
+    """Host ms and device-busy ms of one ``serve.run`` under the profiler,
+    with the port's kernels' share and the five ops that take the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.run(model, prompts, new)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = ours = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total
+            if any(k in e.name for k in SERVE_KERNELS):
+                ours += e.self_device_time_total
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms, "device_ms": busy / 1e3,
+            "kernel_ms": ours / 1e3,
+            "top_ops_ms": {e.key: e.self_device_time_total / 1e3
+                           for e in ops}}
+
+
+def serve_path(arch, device):
+    """The serving path at full width and depth through
+    ``repro_torch.launch.serve``: a warm-up run, then one counted run
+    (launch counts set to 0 just before and read just after; the whole run
+    under the sync watch), then two profiled runs (prefill alone, and
+    prefill with the decode loop) for the device's idle share."""
+    import torch
+    from repro_torch.kernels import launch
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    model = serve.make_model(arch, full=True, seed=0, device=device)
+    prompts = serve.make_prompts(model, SERVE_BATCH, SERVE_PROMPT, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = model.cfg
+    serve.run(model, prompts, 2)      # cuBLAS, and the allocator at full size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launches()
+    with watch_syncs() as found:
+        res = serve.run(model, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    launches = dict(launch.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want["ssd" if cfg.family == "ssm" else "flash_attention"] = cfg.n_layers
+    decode_syncs = [site for site, names in found if "decode_loop" in names]
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    tok, logits = res["tokens"], res["logits"]
+    rec = {"phase": "serve_path", "arch": arch, "n_params": model.n_params,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
+           "batch": B, "prompt": S, "new": new, "setup_s": setup_s,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "prefill_tokens_per_s": B * S / res["prefill_s"],
+           "decode_ms_per_step": res["decode_s"] * 1e3 / (new - 1),
+           "decode_tokens_per_s": B * (new - 1) / res["decode_s"],
+           "max_memory_allocated_bytes": peak,
+           "launches_per_prefill": launches,
+           "decode_host_syncs": len(decode_syncs),
+           "host_sync_sites": sorted({site for site, _ in found}),
+           "sample": tok[0, :8].tolist()}
+    ok = (tuple(tok.shape) == (B, new) and bool((tok >= 0).all())
+          and bool((tok < cfg.vocab_size).all())
+          and bool(torch.isfinite(logits.float()).all()))
+    if launches != want or decode_syncs or not ok:
+        emit(rec)
+        raise AssertionError(f"serve_path {arch}: launches {launches} "
+                             f"(expected {want}), decode-loop syncs "
+                             f"{decode_syncs}, tokens/logits ok: {ok}")
+    pre = profiled_run(model, prompts, 1)
+    full = profiled_run(model, prompts, new)
+    dec_wall = full["wall_ms"] - pre["wall_ms"]
+    dec_dev = full["device_ms"] - pre["device_ms"]
+    rec["profiled"] = {
+        "prefill_wall_ms": pre["wall_ms"], "prefill_device_ms":
+        pre["device_ms"], "prefill_kernel_ms": pre["kernel_ms"],
+        "prefill_device_idle_share": 1.0 - pre["device_ms"] / pre["wall_ms"],
+        "prefill_top_ops_ms": pre["top_ops_ms"],
+        "decode_wall_ms_per_step": dec_wall / (new - 1),
+        "decode_device_ms_per_step": dec_dev / (new - 1),
+        "decode_device_idle_share": 1.0 - dec_dev / dec_wall,
+        "run_device_idle_share": 1.0 - full["device_ms"] / full["wall_ms"]}
+    emit(rec)
+    del model, prompts, res
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+def serve_card_vs_cpu(arch, compute, device):
+    """The smoke config of ``arch`` (compute dtype ``compute``), with the
+    same weights on the card and on the CPU: prefill logits and
+    ``SMOKE_NEW - 1`` teacher-forced decode steps (both fed the CPU run's
+    greedy tokens) within ``SERVE_TOL`` of the logits' scale, greedy tokens
+    equal wherever the CPU's top-2 margin is wider than that, and
+    ``generate_scan`` through ``launch.serve.run`` on both."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import Model, build_model
+    from repro_torch.serve import decode
+    cfg = get_smoke_config(arch).replace(compute_dtype=compute)
+    cpu = build_model(cfg, seed=0, device="cpu")
+    card = Model(cfg, _to(cpu.params, device))
+    prompts = serve.make_prompts(cpu, SMOKE_BATCH, SMOKE_PROMPT, seed=0)
+    tol = SERVE_TOL[compute]
+    steps = []
+    caches = {m: m.init_cache(SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW)
+              for m in (cpu, card)}
+    lg_h, caches[cpu] = cpu.prefill(prompts, caches[cpu])
+    lg_c, caches[card] = card.prefill(prompts.to(device), caches[card])
+    for i in range(SMOKE_NEW):
+        want, got = lg_h[:, -1].float(), lg_c[:, -1].float().cpu()
+        scale = want.abs().max().item()
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+        same = decode.greedy_sample(lg_h) == decode.greedy_sample(lg_c).cpu()
+        steps.append({"rel_err": (got - want).abs().max().item() / scale,
+                      "clear_margins": int(clear.sum()),
+                      "tokens_differ_where_clear": int((clear & ~same)
+                                                       .sum())})
+        if i + 1 == SMOKE_NEW:
+            break
+        tok = decode.greedy_sample(lg_h)[:, None]
+        lg_h, caches[cpu] = cpu.decode_step(tok, caches[cpu])
+        lg_c, caches[card] = card.decode_step(tok.to(device), caches[card])
+    gen_h = serve.run(cpu, prompts, SMOKE_NEW)["tokens"]
+    gen_c = serve.run(card, prompts.to(device), SMOKE_NEW)["tokens"].cpu()
+    rec = {"phase": "serve_card_vs_cpu", "arch": arch, "compute": compute,
+           "batch": SMOKE_BATCH, "prompt": SMOKE_PROMPT, "tol": tol,
+           "max_rel_err": max(s["rel_err"] for s in steps),
+           "tokens_differ_where_clear": sum(s["tokens_differ_where_clear"]
+                                            for s in steps),
+           "clear_margins": sum(s["clear_margins"] for s in steps),
+           "steps": len(steps),
+           "generate_tokens_equal": float((gen_h == gen_c).float().mean())}
+    emit(rec)
+    if rec["max_rel_err"] > tol or rec["tokens_differ_where_clear"]:
+        raise AssertionError(f"serve card vs CPU ({arch}, {compute}): {rec}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -621,6 +1012,14 @@ def main() -> int:
                              (4, 4096, 0.5, "halves")):
         check_delta_pack(P, d, topk, case, dev, rates, timed=False)
     selection = time_selection(8, d_full, WIRED_TOPK, dev)
+    attn_main = check_flash_attention("main", dev, rates, timed=True)
+    for name in ATTN_SHAPES:
+        if name != "main":
+            check_flash_attention(name, dev, rates, timed=False)
+    ssd_main = check_ssd("main", dev, rates, timed=True)
+    for name in SSD_SHAPES:
+        if name != "main":
+            check_ssd(name, dev, rates, timed=False)
 
     # --- 3. main path at full width -----------------------------------------
     t0 = time.perf_counter()
@@ -674,6 +1073,14 @@ def main() -> int:
         if bad:
             raise AssertionError(f"card vs CPU ({name}): {bad}")
 
+    # --- 5. serving path at full width ---------------------------------------
+    served = {arch: serve_path(arch, dev) for arch in SERVE_ARCHS}
+
+    # --- 6. serving, card against CPU -----------------------------------------
+    for arch in SERVE_ARCHS:
+        for compute in ("bfloat16", "float32"):
+            serve_card_vs_cpu(arch, compute, dev)
+
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
     source = "src/repro_torch/kernels/csrc/ps_view.cu"
@@ -697,8 +1104,23 @@ def main() -> int:
         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
         "bound_by": pk["bound_by"], "library_ms": pk["library_ms"]})
+    for name, rec, src, replaces, arch in (
+            ("flash_attention", attn_main, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:93", "qwen3-0.6b"),
+            ("ssd", ssd_main, "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:79", "mamba2-130m")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces,
+            "launches": served[arch]["launches_per_prefill"][name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     emit({"total_s": time.perf_counter() - t_start,
           "main_path_launches": main_launches,
+          "serve_launches_per_prefill": {
+              a: r["launches_per_prefill"] for a, r in served.items()},
           "threshold_selection_ms": selection["ms"]})
     emit({"kernels": kernels})
     emit(smi)

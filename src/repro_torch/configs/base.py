@@ -1,0 +1,80 @@
+"""Model configuration dataclasses of the ported families.
+
+The counterpart of the JAX package's ``configs/base.py``, for the families
+the port serves so far (dense and ssm).  ``pdtype``/``cdtype`` are
+``torch.dtype``s.  The MoE, MLA, encoder and vision configs wait for the
+slices that port those families (ROADMAP queue 1, item 16); their fields
+stay on ``ModelConfig`` as ``None`` so a config reads the same in both
+packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    n_heads: int = 16
+    n_kv_heads: int = 16              # GQA: kv groups
+    head_dim: int | None = None       # default d_model // n_heads
+    qk_norm: bool = False             # qwen3-style per-head RMSNorm on q,k
+    rope_theta: float = 10000.0
+    causal: bool = True
+    window: int | None = None         # sliding-window size (None = full)
+    mla: object | None = None         # MLA is not ported (must stay None)
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    chunk: int = 128                  # SSD chunk length
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"             # dense|moe|ssm|hybrid|vlm|audio
+    n_layers: int = 12
+    d_model: int = 768
+    d_ff: int = 3072                  # dense-MLP hidden
+    vocab_size: int = 32000
+    attn: AttnConfig | None = field(default_factory=AttnConfig)
+    moe: object | None = None
+    mamba: MambaConfig | None = None
+    attn_every: int | None = None
+    encoder: object | None = None
+    vision: object | None = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "swiglu"               # swiglu | gelu
+    max_seq_len: int = 131072
+    # numerics / execution policy
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True                # no counterpart in eager serving
+    scan_layers: bool = True          # the port always loops over layers
+    source: str = ""
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def head_dim(self) -> int:
+        a = self.attn
+        if a is None:
+            return 0
+        return a.head_dim if a.head_dim is not None else self.d_model // a.n_heads
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)

@@ -3,7 +3,8 @@
 The port never imports JAX; the caller hands over numpy arrays (what
 ``np.asarray`` gives for a JAX array) and gets tensors back, and the
 reverse for traces.  The parity tests use this to start both simulators
-from the very same ``x0`` and ``local0``.
+from the very same ``x0`` and ``local0``, and both model zoos from the
+very same weights.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from .apps.matfact import MFConfig, mf_app
 from .core.ps import PSApp, Trace
 from .device import resolve_device
+from .models.params import map_specs
+from .models.registry import Model, model_specs
 
 
 def to_tensors(arrays, device=None):
@@ -57,3 +60,35 @@ def trace_to_numpy(trace: Trace) -> Trace:
     """The same `Trace` with every tensor moved to the host as numpy."""
     return Trace(**{f.name: _to_numpy(getattr(trace, f.name))
                     for f in dataclasses.fields(trace)})
+
+
+def _flatten(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}/{k}"))
+    return out
+
+
+def model_params_from_jax(cfg, params_np, device=None) -> Model:
+    """The port's `Model` of ``cfg`` holding the JAX package's parameter
+    tree ``params_np`` (nested dicts of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives).  Every path of the port's
+    spec tree must be in ``params_np`` with the spec's shape, and no path
+    may be left over."""
+    dev = resolve_device(device)
+    want = _flatten(map_specs(lambda _p, ps: ps, model_specs(cfg)))
+    got = _flatten(params_np)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter paths differ: missing {missing}, "
+                         f"left over {extra}")
+    for path, ps in want.items():
+        if tuple(np.shape(got[path])) != ps.shape:
+            raise ValueError(f"{path}: shape {np.shape(got[path])}, "
+                             f"expected {ps.shape}")
+    tensors = map_specs(lambda path, ps: torch.from_numpy(
+        np.array(got[path], dtype=np.float32, copy=True)).to(
+            device=dev, dtype=ps.dtype), model_specs(cfg))
+    return Model(cfg, tensors)

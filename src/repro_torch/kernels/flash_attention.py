@@ -1,0 +1,80 @@
+"""Launch wrapper of the hand-written CUDA kernel in
+``csrc/flash_attention.cu``.
+
+It replaces the Pallas kernel of ``repro/kernels/flash_attention.py``:
+GQA attention with an online softmax, positional masks (causal, sliding
+window, ``kv_pos < 0``), KV tiles with no visible key skipped, and
+``Dk != Dv``.  bf16 inputs run their products on the tensor cores
+(``mma.sync``, float32 accumulate), float32 inputs in full float32 on the
+CUDA cores.  The wrapper checks device, dtype, shape, alignment and
+contiguity, allocates the output, launches on the current stream, raises
+on a non-zero ``cudaError_t`` and counts the launch in
+``launch.launches``.  The plain version is ``ref.attention``;
+``ops.attention`` picks between the two by the tensor's device.
+
+Limits: head sizes ``(Dk, Dv)`` in :data:`HEAD_DIMS`, ``H % Hkv == 0``,
+``B`` and ``H`` up to 65535, any ``Sq, Sk >= 1`` (the kernel masks the
+ragged edge as the TPU wrapper's padding does: ``q_pos = 2**30`` past
+``Sq``, ``kv_pos = -1`` past ``Sk``).  The JAX package falls back to its
+reference on shapes its kernel does not take; this wrapper raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .launch import check, launches, load_lib, raise_on, require_cuda, stream
+
+HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (128, 128))
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_YZ = 65535
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                            _i, _i, _i, ctypes.c_float, _i, _i, _vp]}
+
+
+def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
+                    window=None):
+    """Attention of ``q [B,Sq,H,Dk]`` over ``k [B,Sk,Hkv,Dk]``,
+    ``v [B,Sk,Hkv,Dv]`` at int32 positions ``q_pos [B,Sq]``,
+    ``kv_pos [B,Sk]`` -> ``[B,Sq,H,Dv]`` in q's dtype, on the card;
+    contract of ``ref.attention``."""
+    require_cuda(q)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be [B, S, heads, head_dim]")
+    B, Sq, H, Dk = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (Dk, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head sizes (Dk={Dk}, Dv={Dv}) are outside the "
+                         f"kernel's limits {HEAD_DIMS}")
+    if not (Sq >= 1 and Sk >= 1 and Hkv >= 1 and H % Hkv == 0
+            and B <= MAX_GRID_YZ and H <= MAX_GRID_YZ):
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} is "
+                         f"outside the kernel's limits (H % Hkv == 0, B and "
+                         f"H <= {MAX_GRID_YZ})")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected one of {DTYPES}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    dev = q.device
+    check("q", q, q.dtype, (B, Sq, H, Dk), dev)
+    check("k", k, q.dtype, (B, Sk, Hkv, Dk), dev)
+    check("v", v, q.dtype, (B, Sk, Hkv, Dv), dev)
+    check("q_pos", q_pos, torch.int32, (B, Sq), dev)
+    check("kv_pos", kv_pos, torch.int32, (B, Sk), dev)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    lib = load_lib("flash_attention", _ARGTYPES, "fa_error_string")
+    with torch.cuda.device(dev):
+        err = lib.fa_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, Dk, Dv,
+            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
+            -1 if window is None else int(window), stream(dev))
+    raise_on(lib, err, "flash_attention")
+    launches["flash_attention"] += 1
+    return out

@@ -20,7 +20,8 @@ import torch
 from . import build
 
 # Launches per kernel since the last reset_launches().
-launches = {"ring_view": 0, "vap_suffix_norms": 0, "delta_pack": 0}
+launches = {"ring_view": 0, "vap_suffix_norms": 0, "delta_pack": 0,
+            "flash_attention": 0, "ssd": 0}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,8 @@
-"""Dispatch of the simulator's hot-path kernels by the tensors' device.
+"""Dispatch of the port's hot-path kernels by the tensors' device.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
-the hand-written kernel (``ps_view.py``, ``delta_pack.py``), which
-launches or raises.  There
+the hand-written kernel (``ps_view.py``, ``delta_pack.py``,
+``flash_attention.py``, ``ssd_scan.py``), which launches or raises.  There
 is no backend switch and no fallback: on the card, the main path runs the
 kernels or fails.
 """
@@ -42,3 +42,27 @@ def delta_pack(delta, thresh, scale, quant: str = "f32"):
         from . import delta_pack as dp
         return dp.delta_pack(delta, thresh, scale, quant)
     return ref.delta_pack(delta, thresh, scale, quant)
+
+
+def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None):
+    """Blocked attention; see `ref.attention` for the contract."""
+    if _on_cuda(q):
+        from . import flash_attention as fa
+        return fa.flash_attention(q, k, v, scale=scale, q_pos=q_pos,
+                                  kv_pos=kv_pos, causal=causal, window=window)
+    return ref.attention(q, k, v, scale=scale, q_pos=q_pos, kv_pos=kv_pos,
+                         causal=causal, window=window)
+
+
+def ssd(x, dt, A, B, C, chunk=128):
+    """Mamba-2 SSD chunked scan; see `ref.ssd_chunked` for the contract."""
+    if _on_cuda(x):
+        from . import ssd_scan
+        return ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
+    return ref.ssd_chunked(x, dt, A, B, C, chunk)
+
+
+def ssd_decode(x, dt, A, B, C, state):
+    """One-token SSD step: always the plain version (a few small ops), as
+    in the JAX package; see `ref.ssd_recurrent`."""
+    return ref.ssd_recurrent(x, dt, A, B, C, state)

@@ -100,3 +100,184 @@ def vap_suffix_norms(uring, uclock, c: int):
         suffix = suffix + torch.einsum("w,wqd->qd", sel, uring)     # one row
         norms.append(suffix.abs().amax(dim=-1))
     return torch.stack(norms)
+
+
+# ==========================================================================
+# attention (the model zoo's prefill; kernel: flash_attention.py)
+# ==========================================================================
+NEG_INF = torch.finfo(torch.float32).min / 2
+
+
+def _block_mask(q_pos, kv_pos, causal, window):
+    """[B,Sq,Sk] visibility of kv positions (pad slots have kv_pos < 0)."""
+    valid = (kv_pos >= 0)[:, None, :]
+    if causal:
+        valid = valid & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        valid = valid & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    return valid
+
+
+def attention_dense(q, k, v, *, scale, q_pos, kv_pos, causal=True,
+                    window=None):
+    """Naive quadratic oracle. q [B,Sq,H,Dk], k [B,Sk,Hkv,Dk],
+    v [B,Sk,Hkv,Dv] -> [B,Sq,H,Dv]; logits accumulate in float32."""
+    B, Sq, H, Dk = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, Dk)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float()) * scale
+    mask = _block_mask(q_pos, kv_pos, causal, window)       # [B,Sq,Sk]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None,
+              kv_chunk=1024, q_chunk=2048):
+    """Blocked flash-style attention: online softmax over KV chunks, an
+    outer loop over Q chunks; never more than ``[B,Hkv,rep,q_chunk,
+    kv_chunk]`` logits at a time.
+
+    The contract of the CUDA ``flash_attention``: shapes as
+    `attention_dense`, Dk and Dv may differ; products of the input dtype
+    accumulate in float32, ``p`` is rounded to V's dtype before the PV
+    product, a query that sees no key returns 0, and the output has q's
+    dtype.  (The JAX package's ``assume_prefix`` shortcut is off on its
+    default path and is not ported.)"""
+    Sq = q.shape[1]
+    if Sq <= q_chunk:
+        return _attention_impl(q, k, v, scale=scale, q_pos=q_pos,
+                               kv_pos=kv_pos, causal=causal, window=window,
+                               kv_chunk=kv_chunk)
+    return torch.cat([_attention_impl(
+        q[:, i:i + q_chunk], k, v, scale=scale, q_pos=q_pos[:, i:i + q_chunk],
+        kv_pos=kv_pos, causal=causal, window=window, kv_chunk=kv_chunk)
+        for i in range(0, Sq, q_chunk)], dim=1)
+
+
+def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
+                    kv_chunk):
+    B, Sq, H, Dk = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    rep = H // Hkv
+    C = min(kv_chunk, Sk)
+    qg = q.reshape(B, Sq, Hkv, rep, Dk).float()
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, rep, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    # the last chunk may be short: the JAX reference pads it with masked
+    # keys (kv_pos = -1), which add nothing
+    for c0 in range(0, Sk, C):
+        kb, vb = k[:, c0:c0 + C], v[:, c0:c0 + C]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()) * scale
+        mask = _block_mask(q_pos, kv_pos[:, c0:c0 + C], causal,
+                           window)[:, None, None]           # [B,1,1,Sq,C]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.exp(torch.where(m <= NEG_INF, NEG_INF, m - m_safe))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+# ==========================================================================
+# Mamba-2 SSD (state-space duality) chunked scan (kernel: ssd_scan.py)
+# ==========================================================================
+def ssd_chunked(x, dt, A, B, C, chunk):
+    """SSD forward (matches Mamba-2's ``ssd_minimal_discrete``).
+
+    x  [b, s, h, p]   per-head inputs (p = headdim)
+    dt [b, s, h]      softplus-activated step sizes (>= 0), float32
+    A  [h]            negative state decay rates (A < 0), float32
+    B  [b, s, g, n]   input projections (g groups, n = d_state)
+    C  [b, s, g, n]   output projections
+    Returns y [b, s, h, p] in x's dtype and the final state [b, h, p, n]
+    in float32.  A ragged ``s`` is padded with dt = 0, x = 0 positions,
+    which leave the carried state as it was.  As in the JAX reference,
+    the scores ``C·Bᵀ`` have B's dtype (bfloat16 on the models' path).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    nc = s // chunk
+    rep = h // g
+
+    xbar = x * dt[..., None]                                # float32
+    da = dt * A[None, None, :]                              # [b,s,h]
+    xc = xbar.reshape(b, nc, chunk, h, p)
+    dac = da.reshape(b, nc, chunk, h)
+    Bh = torch.repeat_interleave(B.reshape(b, nc, chunk, g, n), rep, dim=3)
+    Ch = torch.repeat_interleave(C.reshape(b, nc, chunk, g, n), rep, dim=3)
+
+    cum = torch.cumsum(dac, dim=2)                          # [b,nc,l,h]
+    scores = torch.einsum("bclhn,bcmhn->bclmh", Ch, Bh)     # l=query m=key
+    # the exponent is clamped at 0: the upper triangle is masked below
+    decay = torch.exp(torch.clamp(
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], max=0.0))
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    w = torch.where(causal[None, None, :, :, None], scores * decay, 0.0)
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", w, xc)
+
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)       # [b,nc,l,h]
+    state_c = torch.einsum("bclhn,bclhp->bchpn",
+                           Bh.float() * decay_to_end[..., None], xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # [b,nc,h]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + state_c[:, c]
+    prev_states = torch.stack(prev, dim=1)                  # [b,nc,h,p,n]
+
+    y_inter = torch.einsum("bclhn,bchpn->bclhp",
+                           Ch.float() * torch.exp(cum)[..., None],
+                           prev_states)
+    y = (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
+    return y[:, :s_orig], state
+
+
+def ssd_recurrent(x, dt, A, B, C, state):
+    """Single-token SSD decode step.
+
+    x [b,h,p], dt [b,h], B/C [b,g,n], state [b,h,p,n] -> (y, state'),
+    both float32 (the JAX reference's type promotion)."""
+    g = B.shape[1]
+    h = x.shape[1]
+    rep = h // g
+    Bh = torch.repeat_interleave(B, rep, dim=1).float()     # [b,h,n]
+    Ch = torch.repeat_interleave(C, rep, dim=1).float()
+    decay = torch.exp(dt * A[None, :])[..., None, None]     # [b,h,1,1]
+    upd = (dt[..., None] * x)[..., None] * Bh[:, :, None, :]
+    state = state * decay + upd
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y, state
+
+
+def ssd_tolerance(y_ref, dtype) -> float:
+    """Largest difference allowed between two SSD results that take the
+    same sums in other orders, at the scale of ``y_ref``: the in-chunk
+    cumulative decay (in order, in parallel, or through float64 on the
+    CPU), the score and state contractions over a chunk and ``d_state``.  float32: 1e-4 of the scale (the JAX kernel test's bound);
+    bfloat16 outputs: 1e-2, which also covers one bfloat16 rounding of the
+    output and of the scores (the reference rounds ``C·Bᵀ`` to bfloat16,
+    the kernel accumulates it in float32)."""
+    scale = max(1.0, float(y_ref.abs().max()))
+    return scale * (1e-2 if dtype == torch.bfloat16 else 1e-4)

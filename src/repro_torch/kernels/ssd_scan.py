@@ -1,0 +1,94 @@
+"""Launch wrapper of the hand-written CUDA kernel in ``csrc/ssd_scan.cu``.
+
+It replaces the Pallas kernel of ``repro/kernels/ssd_scan.py``: the
+Mamba-2 SSD chunked scan (the intra-chunk dual form, the inter-chunk
+state carried across chunks), returning ``y`` and the final state.  The
+wrapper checks device, dtype, shape and contiguity, picks how many rows
+of the chunk's score matrix the kernel keeps in shared memory at once,
+allocates both outputs, launches on the current stream, raises on a
+non-zero ``cudaError_t`` and counts the launch in ``launch.launches``.
+The plain version is ``ref.ssd_chunked``; ``ops.ssd`` picks between the
+two by the tensor's device.
+
+Limits: ``p % 4 == 0``, ``n % 16 == 0``, ``chunk % 16 == 0``, ``g | h``,
+and a chunk whose tiles fit in a CTA's shared memory (at ``p = 64``,
+``n = 128``, ``chunk = 128``: 207 KB in bf16, 221 KB in float32 of the
+H100's 227 KB).  Any ``s >= 1``: the kernel reads rows past ``s`` as
+``dt = 0, x = 0`` (the reference's padding) and does not store them.  The
+JAX package falls back to its reference where ``s % chunk != 0``; this
+wrapper does not.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .launch import check, launches, load_lib, raise_on, require_cuda, stream
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "ssd_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _vp] + [_i] * 9 + [_vp],
+    "ssd_smem_bytes": [_i, _i, _i, _i, _i],
+    "ssd_max_smem": [_i],
+}
+
+
+def _lib():
+    lib = load_lib("ssd_scan", _ARGTYPES, "ssd_error_string")
+    lib.ssd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def score_rows(lib, device, p: int, n: int, chunk: int, bf16: bool) -> int:
+    """The most rows of a chunk's score matrix whose tiles, with the
+    state, ``x̄``, B and C, fit in a CTA's shared memory (the chunk, or
+    the chunk halved while it stays a multiple of 16)."""
+    limit = lib.ssd_max_smem(device.index if device.index is not None
+                             else torch.cuda.current_device())
+    rb = chunk
+    while lib.ssd_smem_bytes(p, n, chunk, rb, int(bf16)) > limit:
+        if rb % 32:
+            raise ValueError(f"an SSD chunk of {chunk} at p={p}, n={n} "
+                             f"does not fit in {limit} bytes of shared "
+                             f"memory")
+        rb //= 2
+    return rb
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """``(y [b,s,h,p], state [b,h,p,n])`` of the SSD scan on the card;
+    contract of ``ref.ssd_chunked``."""
+    require_cuda(x)
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError("x must be [b, s, h, p] and B, C [b, s, g, n]")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if not (s >= 1 and g >= 1 and h % g == 0 and p % 4 == 0 and p >= 4
+            and n % 16 == 0 and n >= 16 and chunk % 16 == 0 and chunk >= 16):
+        raise ValueError(f"x {tuple(x.shape)}, B {tuple(B.shape)}, chunk "
+                         f"{chunk} is outside the kernel's limits (g | h, "
+                         f"p % 4 == 0, n % 16 == 0, chunk % 16 == 0)")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}, expected one of {DTYPES}")
+    dev = x.device
+    check("x", x, x.dtype, (b, s, h, p), dev)
+    check("dt", dt, torch.float32, (b, s, h), dev)
+    check("A", A, torch.float32, (h,), dev)
+    check("B", B, x.dtype, (b, s, g, n), dev)
+    check("C", C, x.dtype, (b, s, g, n), dev)
+    bf16 = x.dtype == torch.bfloat16
+    lib = _lib()
+    rb = score_rows(lib, dev, p, n, chunk, bf16)
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ssd_forward(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                              B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                              state.data_ptr(), b, s, h, p, g, n, chunk, rb,
+                              int(bf16), stream(dev))
+    raise_on(lib, err, "ssd")
+    launches["ssd"] += 1
+    return y, state

@@ -9,7 +9,12 @@
   another order, within ``ref.ring_view_tolerance``.
 - The CUDA kernels are marked ``cuda`` and skip without a card; on the
   card they are held against the plain versions at the same tolerances
-  (``delta_pack`` bit for bit, at the edge cases of :func:`pack_case`).
+  (``delta_pack`` bit for bit, at the edge cases of :func:`pack_case`;
+  ``flash_attention`` within 3e-5 in float32 and 6e-2 in bfloat16, the
+  JAX package's kernel-test tolerances; ``ssd`` within
+  ``ref.ssd_tolerance``).  The plain versions of those two are held
+  against the JAX package in ``test_torch_attention.py`` and
+  ``test_torch_ssd.py``.
 - The port's boundaries: no module imports ``jax`` or ``repro``, the
   default device is the card, and a CUDA tensor never reaches a plain
   version.
@@ -29,7 +34,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.comm import substrate
 from repro_torch.kernels import delta_pack as dp
-from repro_torch.kernels import launch, ops, ps_view, ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import launch, ops, ps_view, ref, ssd_scan
 
 RING_EMPTY = ref.RING_EMPTY
 # (W, P, d, empty slots): the simulator's shapes (essp W=5, vap W=11),
@@ -224,7 +230,8 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
     norms = ps_view.vap_suffix_norms(u, uc, c)
     torch.cuda.synchronize()
     assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1,
-                                "delta_pack": 0}
+                                "delta_pack": 0, "flash_attention": 0,
+                                "ssd": 0}
     want = ref.ring_view(b, u, uc, cv)
     assert (got - want).abs().max().item() <= ref.ring_view_tolerance(b, u)
     torch.testing.assert_close(norms, ref.vap_suffix_norms(u, uc, c),
@@ -311,4 +318,148 @@ def test_cuda_clock_loop_does_not_sync(cuda, model):
     assert trace.loss_ref.shape == (6,)
     if model == "wired":
         assert launch.launches == {"ring_view": 12, "vap_suffix_norms": 6,
-                                   "delta_pack": 3}
+                                   "delta_pack": 3, "flash_attention": 0,
+                                   "ssd": 0}
+
+
+# flash_attention's cases on the card: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
+# window, dtype, positions).  The JAX kernel test's cases, the models'
+# head size 128 in both dtypes, ragged Sq and Sk, a window, rows that see
+# no key ("late_keys": every key sits 5 positions after the queries
+# start) and masked keys in the middle ("holes": kv_pos = -1).
+FA_CASES = {
+    "f32": (2, 128, 128, 4, 2, 32, 32, True, None, "f32", "arange"),
+    "f32_d64_ragged": (1, 200, 200, 8, 8, 64, 64, True, None, "f32",
+                       "arange"),
+    "mqa_dv16": (2, 64, 256, 4, 1, 32, 16, True, None, "f32", "arange"),
+    "window": (2, 128, 128, 4, 2, 32, 32, True, 48, "f32", "arange"),
+    "noncausal": (2, 128, 128, 4, 2, 32, 32, False, None, "f32", "arange"),
+    "f32_d128_window": (1, 70, 90, 4, 2, 128, 128, True, 16, "f32",
+                        "arange"),
+    "bf16": (2, 128, 128, 8, 4, 64, 64, True, None, "bf16", "arange"),
+    "bf16_d128_ragged": (2, 100, 157, 16, 8, 128, 128, True, None, "bf16",
+                         "arange"),
+    "bf16_window_dv16": (2, 96, 200, 4, 2, 32, 16, True, 40, "bf16",
+                         "arange"),
+    "no_visible_key": (2, 64, 64, 4, 2, 32, 32, True, None, "bf16",
+                       "late_keys"),
+    "holes": (2, 96, 96, 4, 2, 64, 64, True, None, "f32", "holes"),
+}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+FA_TOL = {"f32": 3e-5, "bf16": 6e-2}
+
+
+def attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dtype, positions, seed=0):
+    """``(q, k, v, q_pos, kv_pos)`` as numpy arrays (float32 and int32)."""
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, Sq, H, Dk)).astype(np.float32)
+    k = r.standard_normal((B, Sk, Hkv, Dk)).astype(np.float32)
+    v = r.standard_normal((B, Sk, Hkv, Dv)).astype(np.float32)
+    qp = np.broadcast_to(np.arange(Sk - Sq, Sk), (B, Sq)).astype(np.int32)
+    kp = np.broadcast_to(np.arange(Sk), (B, Sk)).astype(np.int32).copy()
+    if positions == "late_keys":
+        kp += 5 + Sk - Sq
+    elif positions == "holes":
+        kp[:, r.choice(Sk, Sk // 4, replace=False)] = -1
+    return q, k, v, np.ascontiguousarray(qp), kp
+
+
+def ssd_case(b, s, h, p, g, n, seed=0):
+    """``(x, dt, A, B, C)`` as float32 numpy arrays, dt softplus'd and A
+    negative as the models give them."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(r.standard_normal((b, s, h)))).astype(np.float32)
+    A = (-np.exp(0.3 * r.standard_normal(h))).astype(np.float32)
+    B = r.standard_normal((b, s, g, n)).astype(np.float32)
+    C = r.standard_normal((b, s, g, n)).astype(np.float32)
+    return x, dt, A, B, C
+
+
+# ssd's cases on the card: (b, s, h, p, g, n, chunk, dtype).  The JAX
+# kernel test's cases, ragged s, the models' width (h 24, p 64, g 3,
+# n 128, chunk 128) in bf16, and in float32 where the score block is cut
+# to fit shared memory.
+SSD_CASES = {
+    "f32": (2, 128, 4, 32, 2, 32, 32, "f32"),
+    "f32_p64": (1, 256, 8, 64, 1, 64, 64, "f32"),
+    "bf16": (2, 128, 4, 32, 4, 32, 32, "bf16"),
+    "bf16_ragged": (2, 100, 4, 32, 2, 32, 32, "bf16"),
+    "bf16_full_width": (1, 300, 24, 64, 3, 128, 128, "bf16"),
+    "f32_full_width_ragged": (1, 300, 6, 64, 3, 128, 128, "f32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FA_CASES))
+def test_cuda_flash_attention_matches_plain_version(cuda, case):
+    B, Sq, Sk, H, Hkv, Dk, Dv, causal, window, dt, kind = FA_CASES[case]
+    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind),
+                         device=cuda)
+    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    scale = 1.0 / np.sqrt(Dk)
+    launch.reset_launches()
+    got = fa.flash_attention(q, k, v, scale=scale, q_pos=qp, kv_pos=kp,
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch.launches["flash_attention"] == 1
+    want = ref.attention(q, k, v, scale=scale, q_pos=qp, kv_pos=kp,
+                         causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dt],
+                               atol=FA_TOL[dt])
+    if kind == "late_keys":             # rows that see no key return 0
+        assert not got[:, :5].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_checks_its_inputs(cuda):
+    q, k, v, qp, kp = _t(*attn_case(1, 16, 16, 2, 1, 32, 32, "f32",
+                                    "arange"), device=cuda)
+    kw = dict(scale=0.2, q_pos=qp, kv_pos=kp)
+    with pytest.raises(ValueError, match="head sizes"):
+        fa.flash_attention(q[..., :24], k[..., :24], v, **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.double(), k.double(), v.double(), **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, k, v, scale=0.2, q_pos=qp.long(), kv_pos=kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, **kw)
+    with pytest.raises(ValueError, match="limits"):
+        fa.flash_attention(q[:, :, :1].expand(1, 16, 3, 32).contiguous(),
+                           k.expand(1, 16, 2, 32).contiguous(),
+                           v.expand(1, 16, 2, 32).contiguous(), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_cuda_ssd_matches_plain_version(cuda, case):
+    b, s, h, p, g, n, chunk, dt_ = SSD_CASES[case]
+    x, dt, A, B, C = _t(*ssd_case(b, s, h, p, g, n), device=cuda)
+    x, B, C = (t.to(DTYPES[dt_]) for t in (x, B, C))
+    launch.reset_launches()
+    y, state = ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch.launches["ssd"] == 1
+    y_want, st_want = ref.ssd_chunked(x, dt, A, B, C, chunk)
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    tol = ref.ssd_tolerance(y_want, x.dtype)
+    assert (y.float() - y_want.float()).abs().max().item() <= tol
+    assert (state - st_want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_checks_its_inputs(cuda):
+    x, dt, A, B, C = _t(*ssd_case(1, 64, 4, 32, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan.ssd(x, dt, A, B, C, chunk=24)
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan.ssd(x[..., :30].contiguous(), dt, A, B, C, chunk=32)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_scan.ssd(x.bfloat16(), dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan.ssd(x, dt[:, :-1], A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2),
+                     C, chunk=32)
