@@ -122,18 +122,18 @@ ATTN_SHAPES = {
                        "late_keys"),
     "holes": (2, 96, 96, 4, 2, 64, 64, False, None, "f32", "holes"),
 }
-# ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype).  "main" is
+# ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
-# d_state 128, chunk 128, bf16); then a ragged s and float32.
+# d_state 128, chunk 128, bf16); then a ragged s, float32, and dt in
+# mamba2's init range ("mamba"), where the state carries across chunks (at
+# dt = softplus(N(0, 1)) a 128-long chunk decays it by about e^-100).
 SSD_SHAPES = {
-    "main": (8, 2048, 24, 64, 3, 128, 128, "bf16"),
-    "ragged": (2, 2000, 24, 64, 3, 128, 128, "bf16"),
-    "f32_ragged": (2, 300, 24, 64, 3, 128, 128, "f32"),
-    "smoke_ragged": (4, 100, 16, 32, 2, 32, 32, "bf16"),
+    "main": (8, 2048, 24, 64, 3, 128, 128, "bf16", "softplus"),
+    "carry": (2, 2048, 24, 64, 3, 128, 128, "bf16", "mamba"),
+    "ragged": (2, 2000, 24, 64, 3, 128, 128, "bf16", "softplus"),
+    "f32_ragged": (2, 300, 24, 64, 3, 128, 128, "f32", "softplus"),
+    "smoke_ragged": (4, 100, 16, 32, 2, 32, 32, "bf16", "softplus"),
 }
-# the JAX package's kernel-test tolerances for attention (absolute and
-# relative); ssd's is ref.ssd_tolerance
-ATTN_TOL = {"f32": 3e-5, "bf16": 6e-2}
 
 # The serving path: both ported families at full width and depth.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
@@ -670,8 +670,10 @@ def attention_bound(q, k, v, qp, kp, causal, window, rates):
 
 def check_flash_attention(name, device, rates, timed: bool):
     """``flash_attention`` against its plain version on one shape of
-    `ATTN_SHAPES`, within ATTN_TOL (absolute and relative); timed at the
-    main path's shape beside one ``scaled_dot_product_attention`` call."""
+    `ATTN_SHAPES`, within ``ref.attention_tolerance``; timed at the
+    main path's shape beside one ``scaled_dot_product_attention`` call,
+    where the limit must also fail a planted fault (one key tile
+    dropped)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -684,18 +686,36 @@ def check_flash_attention(name, device, rates, timed: bool):
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    atol, rtol = ref.attention_tolerance(q.dtype)
     diff = (got.float() - want.float()).abs()
-    tol = ATTN_TOL[dt]
     rec = {"phase": "kernels", "kernel": "flash_attention", "case": name,
            "shape": dict(zip(("B", "Sq", "Sk", "H", "Hkv", "Dk", "Dv"),
                              shape[:7], strict=True)),
            "causal": causal, "window": window, "dtype": dt,
-           "max_abs_err": diff.max().item(), "tol": tol}
-    bad = bool((diff > tol + tol * want.float().abs()).any())
+           "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol}
+    bad = bool((diff > atol + rtol * want.float().abs()).any())
     if kind == "late_keys":
         rec["unseeing_rows_zero"] = not bool(got[:, :5].any())
         bad = bad or not rec["unseeing_rows_zero"]
-    del got, want, diff
+    del got, diff
+    if timed and not bad:
+        # the limit must fail a kernel that drops one key tile: keys 0-63
+        # masked for the second half of the queries (rows that see over a
+        # thousand keys), against the sound output
+        h = q.shape[1] // 2
+        kp_drop = kp.clone()
+        kp_drop[:, :64] = -1
+        dropped = ref.attention(q[:, h:], k, v, **dict(
+            kw, q_pos=qp[:, h:], kv_pos=kp_drop))
+        fdiff = (dropped.float() - want[:, h:].float()).abs()
+        rec["planted_fault_dropped_tile_err"] = fdiff.max().item()
+        seen = bool((fdiff > atol + rtol * want[:, h:].float().abs()).any())
+        del dropped, fdiff
+        if not seen:
+            emit(rec)
+            raise AssertionError(f"flash_attention's limit passes a dropped "
+                                 f"key tile ({name}): {rec}")
+    del want
     if bad:
         emit(rec)
         raise AssertionError(f"flash_attention disagrees with its plain "
@@ -717,14 +737,19 @@ def check_flash_attention(name, device, rates, timed: bool):
 
 def ssd_inputs(shape, seed, device):
     """``(x, dt, A, B, C)`` on the card for one SSD shape, made from a
-    seed: dt softplus'd and A negative, as the mamba2 block gives them."""
+    seed: dt softplus'd (or log-uniform in mamba2's dt init range [1e-3,
+    1e-1]) and A negative, as the mamba2 block gives them."""
     import torch
-    b, s, h, p, g, n, _, dt_ = shape
+    b, s, h, p, g, n, _, dt_, dt_kind = shape
     dtype = torch.bfloat16 if dt_ == "bf16" else torch.float32
     gd = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=gd, device=device).to(dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, s, h), generator=gd, device=device))
+    if dt_kind == "mamba":
+        dt = torch.exp(math.log(1e-3) + math.log(1e2) * torch.rand(
+            (b, s, h), generator=gd, device=device))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=gd, device=device))
     A = -torch.exp(0.3 * torch.randn((h,), generator=gd, device=device))
     B, C = (torch.randn((b, s, g, n), generator=gd, device=device).to(dtype)
             for _ in range(2))
@@ -736,15 +761,20 @@ def ssd_bound(shape, rates):
     scores 2·n·L(L+1)/2 (bf16 on the tensor cores for bf16 inputs), then in
     float32 the causal w·x̄ 2·p·L(L+1)/2, C·stateᵀ 2·L·p·n and the state
     update 2·L·p·n, per (b, h); against x, dt, A, B, C, y and the state
-    read or written once."""
-    b, s, h, p, g, n, chunk, dt_ = shape
+    read or written once.  Tensor cores and CUDA cores may overlap, so the
+    operation time is the larger of the bf16 and the float32 time (their
+    sum in float32 inputs, which run both on the CUDA cores)."""
+    b, s, h, p, g, n, chunk, dt_, _ = shape
     bw, f32, bf16 = rates
     elem = 2 if dt_ == "bf16" else 4
     tri = sum(L * (L + 1) // 2
               for L in (min(chunk, s - c) for c in range(0, s, chunk)))
     score_ops = 2 * n * tri * b * h
     f32_ops = (2 * p * tri + 4 * p * n * s) * b * h
-    t_o = (score_ops / (bf16 if elem == 2 else f32) + f32_ops / f32) * 1e3
+    if elem == 2:
+        t_o = max(score_ops / bf16, f32_ops / f32) * 1e3
+    else:
+        t_o = (score_ops + f32_ops) / f32 * 1e3
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * elem \
         + 4 * (b * s * h + h + b * h * p * n)
     t_b = nbytes / bw * 1e3
@@ -752,8 +782,11 @@ def ssd_bound(shape, rates):
 
 
 def check_ssd(name, device, rates, timed: bool):
-    """``ssd`` against its plain version on one shape of `SSD_SHAPES`,
-    within ``ref.ssd_tolerance``; timed at the main path's shape."""
+    """``ssd`` against its plain version on one shape of `SSD_SHAPES`: y
+    within ``ref.ssd_tolerance``, the final state within
+    ``ref.ssd_state_tolerance``, which must fail two planted faults (the
+    state rounded to bf16; with dt in mamba2's range, the state carried
+    into the last chunk dropped); timed at the main path's shape."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
     shape = SSD_SHAPES[name]
@@ -763,17 +796,31 @@ def check_ssd(name, device, rates, timed: bool):
     y_want, st_want = ref.ssd_chunked(x, dt, A, B, C, chunk)
     torch.cuda.synchronize()
     tol = ref.ssd_tolerance(y_want, x.dtype)
+    tol_st = ref.ssd_state_tolerance(st_want)
     err_y = (y.float() - y_want.float()).abs().max().item()
     err_st = (st - st_want).abs().max().item()
+    faults = {"bf16_state": (st_want.bfloat16().float() - st_want)
+              .abs().max().item()}
+    if shape[8] == "mamba":
+        last = slice(-((shape[1] - 1) % chunk + 1), None)
+        alone = ref.ssd_chunked(x[:, last], dt[:, last], A, B[:, last],
+                                C[:, last], chunk)[1]
+        faults["no_carry"] = (alone - st_want).abs().max().item()
     rec = {"phase": "kernels", "kernel": "ssd", "case": name,
            "shape": dict(zip(("b", "s", "h", "p", "g", "n", "chunk"),
                              shape[:7], strict=True)), "dtype": shape[7],
-           "max_abs_err": max(err_y, err_st), "max_abs_err_y": err_y,
-           "max_abs_err_state": err_st, "tol": tol}
+           "dt": shape[8], "max_abs_err": max(err_y, err_st),
+           "max_abs_err_y": err_y, "max_abs_err_state": err_st, "tol": tol,
+           "state_scale": st_want.abs().max().item(), "tol_state": tol_st,
+           "planted_fault_state_err": faults}
     del y, st, y_want, st_want
-    if not (err_y <= tol and err_st <= tol):
+    if not (err_y <= tol and err_st <= tol_st):
         emit(rec)
         raise AssertionError(f"ssd disagrees with its plain version "
+                             f"({name}): {rec}")
+    if min(faults.values()) <= tol_st:
+        emit(rec)
+        raise AssertionError(f"ssd's state limit passes a planted fault "
                              f"({name}): {rec}")
     if timed:
         bound, by = ssd_bound(shape, rates)

@@ -272,12 +272,34 @@ def ssd_recurrent(x, dt, A, B, C, state):
 
 
 def ssd_tolerance(y_ref, dtype) -> float:
-    """Largest difference allowed between two SSD results that take the
-    same sums in other orders, at the scale of ``y_ref``: the in-chunk
+    """Largest difference allowed between two SSD outputs ``y`` that take
+    the same sums in other orders, at the scale of ``y_ref``: the in-chunk
     cumulative decay (in order, in parallel, or through float64 on the
-    CPU), the score and state contractions over a chunk and ``d_state``.  float32: 1e-4 of the scale (the JAX kernel test's bound);
-    bfloat16 outputs: 1e-2, which also covers one bfloat16 rounding of the
-    output and of the scores (the reference rounds ``C·Bᵀ`` to bfloat16,
-    the kernel accumulates it in float32)."""
+    CPU), the score and state contractions over a chunk and ``d_state``.
+    float32: 1e-4 of the scale (the JAX kernel test's bound); bfloat16
+    outputs: 1e-2, which also covers one bfloat16 rounding of the output
+    and of the scores (the reference rounds ``C·Bᵀ`` to bfloat16, the
+    kernel accumulates it in float32).  The final state has its own
+    limit, `ssd_state_tolerance`."""
     scale = max(1.0, float(y_ref.abs().max()))
     return scale * (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def ssd_state_tolerance(state_ref) -> float:
+    """Largest difference allowed between two SSD final states (float32
+    in every dtype: ``x̄``, the decays and the state products stay
+    float32), at the scale of ``state_ref``: 2e-5, five times the widest
+    sound reading (4.2e-6 of scale, the in-chunk cumsum taken in other
+    orders) and a hundredth of one bfloat16 rounding of the state."""
+    return 2e-5 * max(1.0, float(state_ref.abs().max()))
+
+
+def attention_tolerance(dtype) -> tuple[float, float]:
+    """``(atol, rtol)`` between the CUDA ``flash_attention`` and
+    `attention` on the same inputs.  float32: 3e-5 (the JAX kernel test's
+    bound).  bfloat16: 2e-2 absolute, under a typical output entry at a
+    thousand visible keys (their mean of unit values, ~0.05), so a key
+    tile dropped or misweighted fails; 1e-2 relative covers one bfloat16
+    rounding of a large output and of ``p``, which the two round from
+    float32 values that differ."""
+    return (2e-2, 1e-2) if dtype == torch.bfloat16 else (3e-5, 3e-5)

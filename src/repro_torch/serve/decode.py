@@ -47,12 +47,7 @@ def generate_scan(model: Model, prompt_tokens, max_new: int,
     return torch.cat([tok[:, None], rest], dim=1).to(torch.int32)
 
 
-def generate(model: Model, prompt_tokens, max_new: int,
-             max_len: int | None = None, temperature: float = 0.0):
-    """Prefill on the prompt then greedily decode ``max_new`` tokens (the
-    same tokens as `generate_scan`).  Sampling at a temperature needs
-    ``categorical`` in ``repro_torch.rng`` (ROADMAP queue 1, item 1)."""
-    if temperature:
-        raise NotImplementedError("sampling at a temperature is not ported "
-                                  "(ROADMAP queue 1, item 1: categorical)")
-    return generate_scan(model, prompt_tokens, max_new, max_len)
+# The JAX package's ``generate``, greedy: the tokens of `generate_scan`.
+# Sampling at a temperature waits for ``categorical`` in
+# ``repro_torch.rng`` (ROADMAP queue 1, item 1).
+generate = generate_scan

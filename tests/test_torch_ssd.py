@@ -11,8 +11,10 @@ in-chunk cumsum is parallel in JAX, accumulates in float64 in torch's CPU
 ``cumsum`` and in order in the CUDA kernel); 1e-2 in bfloat16, which also
 covers the bfloat16 rounding of the scores (JAX's reference and the
 port's plain version round ``C·Bᵀ`` to bfloat16, the Pallas and CUDA
-kernels accumulate it in float32).  The decode step has no reduction
-that differs but its einsum: 1e-5 of scale.
+kernels accumulate it in float32).  The final state is float32 on every
+path and has its own limit (``ref.ssd_state_tolerance``): 2e-5 of the
+largest ``|state|``.  The decode step has no reduction that differs but
+its einsum: 1e-5 of scale.
 """
 import jax
 import jax.numpy as jnp
@@ -41,10 +43,17 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def _inputs(b, s, h, p, g, n, seed=0):
+def _inputs(b, s, h, p, g, n, seed=0, mamba_dt=False):
+    """float32 inputs; dt is softplus(N(0, 1)), or with ``mamba_dt``
+    log-uniform in [1e-3, 1e-1] (mamba2's dt init range), where the state
+    carries across chunks instead of decaying by ~e^-L within one."""
     r = np.random.default_rng(seed)
     x = r.standard_normal((b, s, h, p)).astype(np.float32)
-    dt = np.log1p(np.exp(r.standard_normal((b, s, h)))).astype(np.float32)
+    if mamba_dt:
+        dt = np.exp(r.uniform(np.log(1e-3), np.log(1e-1), (b, s, h)))
+    else:
+        dt = np.log1p(np.exp(r.standard_normal((b, s, h))))
+    dt = dt.astype(np.float32)
     A = (-np.exp(0.3 * r.standard_normal(h))).astype(np.float32)
     B = r.standard_normal((b, s, g, n)).astype(np.float32)
     C = r.standard_normal((b, s, g, n)).astype(np.float32)
@@ -65,7 +74,8 @@ def _check(got, want):
     yw, stw = (np.asarray(a, np.float32) for a in want)
     tol = ref.ssd_tolerance(torch.from_numpy(yw), y.dtype)
     assert np.abs(y.float().numpy() - yw).max() <= tol
-    assert np.abs(st.numpy() - stw).max() <= tol
+    tol_st = ref.ssd_state_tolerance(torch.from_numpy(stw))
+    assert np.abs(st.numpy() - stw).max() <= tol_st
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -85,6 +95,19 @@ def test_ssd_chunked_ragged_matches_jax_ref(case):
     got = ref.ssd_chunked(*tx, chunk)
     assert got[0].shape == (b, s, h, p)
     _check(got, jref.ssd_chunked(*jx, chunk))
+
+
+@pytest.mark.parametrize("d", ["f32", "bf16"])
+def test_ssd_chunked_carries_state_like_jax(d):
+    b, s, h, p, g, n, chunk = 2, 256, 4, 32, 2, 32, 32
+    jx, tx = _both(*_inputs(b, s, h, p, g, n, seed=3, mamba_dt=True), d)
+    got = ref.ssd_chunked(*tx, chunk)
+    _check(got, jssd(*jx, chunk=chunk, interpret=True))
+    _check(got, jref.ssd_chunked(*jx, chunk))
+    # the carry is held: the last chunk alone ends in another state
+    last = ref.ssd_chunked(*(t[:, -chunk:] if t.dim() > 1 else t
+                             for t in tx), chunk)[1]
+    assert (last - got[1]).abs().max() > 100 * ref.ssd_state_tolerance(got[1])
 
 
 @pytest.mark.parametrize("d", ["f32", "bf16"])
