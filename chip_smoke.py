@@ -18,7 +18,15 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
    ``flash_attention`` (at the models' prefill shape, beside one
    ``scaled_dot_product_attention`` call as the library yardstick) and
    ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
-   versions at the main path's shapes and at edge shapes;
+   versions at the main path's shapes and at edge shapes, and at the
+   shapes of the JAX package's ``kernels`` suite; ``mf_sgd_block``
+   (``check_mf_sgd``) is driven through ``ops.mf_sgd_block`` at the
+   dense block of the full-width MF data (``main``, NaN at every
+   unobserved rating) and at the ``kernels`` suite's shape, with the
+   launch counts set to 0 just before and read just after, then held to
+   its plain version within ``ref.mf_sgd_tolerance`` (which must fail
+   three planted faults at ``main``), bit-equal across two calls, at
+   edge shapes too;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -121,6 +129,9 @@ ATTN_SHAPES = {
     "no_visible_key": (2, 64, 64, 4, 2, 32, 32, True, None, "bf16",
                        "late_keys"),
     "holes": (2, 96, 96, 4, 2, 64, 64, False, None, "f32", "holes"),
+    # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
+    "kernels_bench": (1, 512, 512, 8, 4, 64, 64, True, None, "f32",
+                      "arange"),
 }
 # ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
@@ -133,7 +144,28 @@ SSD_SHAPES = {
     "ragged": (2, 2000, 24, 64, 3, 128, 128, "bf16", "softplus"),
     "f32_ragged": (2, 300, 24, 64, 3, 128, 128, "f32", "softplus"),
     "smoke_ragged": (4, 100, 16, 32, 2, 32, 32, "bf16", "softplus"),
+    # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
+    "kernels_bench": (1, 1024, 8, 64, 1, 64, 128, "f32", "softplus"),
 }
+# mf_sgd_block's phase cases: (N, M, K, density, gamma, lam), inputs
+# N(0, 1) from a seed with NaN at every unobserved rating.  "main" is the
+# dense block of the full-width MF data (FULL_MF, built by `mf_block`),
+# "kernels_bench" the JAX package's kernels suite's shape; then the JAX
+# kernel test's shapes, ragged N and M, the smallest block, K past 128
+# and at the kernel's limit of 256, an empty and a full block.
+MF_CASES = {
+    "kernels_bench": (512, 512, 32, 0.2, 0.1, 1e-3),
+    "jax_256_256_16": (256, 256, 16, 0.3, 0.1, 1e-3),
+    "jax_128_384_32": (128, 384, 32, 0.3, 0.1, 1e-3),
+    "jax_128_128_8": (128, 128, 8, 0.3, 0.1, 1e-3),
+    "ragged": (100, 300, 12, 0.3, 0.1, 1e-3),
+    "one": (1, 1, 1, 1.0, 0.1, 1e-3),
+    "k130": (70, 150, 130, 0.3, 0.1, 1e-3),
+    "k256": (200, 300, 256, 0.3, 0.1, 1e-3),
+    "empty": (100, 300, 12, 0.0, 0.1, 1e-3),
+    "full": (130, 270, 20, 1.0, 0.1, 1e-3),
+}
+MF_TILE = 128       # the column tile planted fault (b) leaves out
 
 # The serving path: both ported families at full width and depth.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
@@ -170,6 +202,20 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip()
     return out.splitlines()[0].strip()
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: the entry
+    function (mangled name), its registers and its spills."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -413,11 +459,13 @@ def expected_launches(cfg, n_clocks):
     from repro_torch.comm import substrate
     if not cfg.comm_active:
         return {"ring_view": n_clocks, "vap_suffix_norms": n_clocks,
-                "delta_pack": 0, "flash_attention": 0, "ssd": 0}
+                "delta_pack": 0, "flash_attention": 0, "ssd": 0,
+                "mf_sgd_block": 0}
     ships = sum(substrate.ship_now(c, cfg.agg_clocks)
                 for c in range(n_clocks))
     return {"ring_view": 2 * n_clocks, "vap_suffix_norms": n_clocks,
-            "delta_pack": ships, "flash_attention": 0, "ssd": 0}
+            "delta_pack": ships, "flash_attention": 0, "ssd": 0,
+            "mf_sgd_block": 0}
 
 
 def device_split(app, cfg, n_clocks):
@@ -833,6 +881,157 @@ def check_ssd(name, device, rates, timed: bool):
     return rec
 
 
+def mf_block(device):
+    """The dense block of the full-width MF app's own data (`FULL_MF`):
+    ``L`` and ``R`` unpacked from ``x0``, ``mask[ii, jj]`` set,
+    ``D[ii, jj] = vv`` and NaN at every unobserved rating; the app's
+    ``lr`` and ``lam`` as gamma and lam."""
+    import torch
+    from repro_torch.apps import matfact
+    cfg = matfact.MFConfig(**FULL_MF)
+    n, m, k = cfg.n_rows, cfg.n_cols, cfg.rank
+    x0, ii, jj, vv = matfact.mf_data(cfg, device=device)
+    i, j = ii.reshape(-1).long(), jj.reshape(-1).long()
+    D = torch.full((n, m), float("nan"), device=device)
+    mask = torch.zeros((n, m), dtype=torch.bool, device=device)
+    mask[i, j] = True
+    D[i, j] = vv.reshape(-1)
+    L = x0[:n * k].reshape(n, k).clone()
+    R = x0[n * k:].reshape(k, m).clone()
+    return (L, R, D, mask), cfg.lr, cfg.lam
+
+
+def mf_inputs(case, device):
+    """``((L, R, D, mask), gamma, lam)`` on the card for one case of
+    `MF_CASES`, made from a seed, or `mf_block` for ``main``."""
+    import torch
+    if case == "main":
+        return mf_block(device)
+    N, M, K, density, gamma, lam = MF_CASES[case]
+    gd = torch.Generator(device=device).manual_seed(N * M + K)
+    L = torch.randn((N, K), generator=gd, device=device)
+    R = torch.randn((K, M), generator=gd, device=device)
+    mask = torch.rand((N, M), generator=gd, device=device) < density
+    D = torch.where(mask, torch.randn((N, M), generator=gd, device=device),
+                    float("nan"))
+    return (L, R, D, mask), gamma, lam
+
+
+def mf_bounds(L, R, mask, rates):
+    """Least time (ms) for `mf_sgd_block` on these inputs, and the bound of
+    a dense-product design.  Only observed entries carry work: the mask is
+    read whole, D only where observed, L and R once, dL, dR and the loss
+    written once, against 6·K·nnz FLOP (one product for each residual,
+    then its share of E Rᵀ and Lᵀ E) over the float32 rate.  The dense
+    bound counts 6·K·N·M FLOP and all of D."""
+    bw, f32, _ = rates
+    N, K = L.shape
+    M = R.shape[1]
+    nnz = int(mask.sum().item())
+    factors = 4 * 2 * (N * K + K * M) + 4      # L, R in; dL, dR, loss out
+    out = {}
+    for name, nbytes, ops in (
+            ("data", N * M + 4 * nnz + factors, 6 * K * nnz),
+            ("dense", 5 * N * M + factors, 6 * K * N * M)):
+        t_b, t_o = nbytes / bw * 1e3, ops / f32 * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out, nnz
+
+
+def check_mf_sgd(case, device, rates, timed: bool):
+    """``mf_sgd_block`` through ``ops.mf_sgd_block`` on one case, with the
+    launch counts set to 0 just before and read just after (one launch,
+    of this kernel only), then against its plain version: each output
+    within ``ref.mf_sgd_tolerance``, finite, bit-equal across two calls.
+    On ``main`` the limit must also fail three planted faults made with
+    the plain version: (a) the mask ignored, unobserved ratings read as
+    0; (b) the first `MF_TILE` columns of E left out of both products;
+    (c) the λ term dropped.  Timed on ``main`` and ``kernels_bench``,
+    beside the plain version and the three ``torch.matmul`` products
+    alone."""
+    import torch
+    from repro_torch.kernels import launch, mf_sgd, ops, ref
+    (L, R, D, mask), gamma, lam = mf_inputs(case, device)
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    got = ops.mf_sgd_block(L, R, D, mask, gamma, lam)
+    torch.cuda.synchronize()
+    launches = dict(launch.launches)
+    again = mf_sgd.mf_sgd_block(L, R, D, mask, gamma, lam)
+    want = ref.mf_sgd_block(L, R, D, mask, gamma, lam)
+    tol = ref.mf_sgd_tolerance(L, R, D, mask, gamma, lam)
+    torch.cuda.synchronize()
+    names = ("dL", "dR", "loss")
+    err = {n: (g - w).abs().max().item()
+           for n, g, w in zip(names, got, want, strict=True)}
+    N, K = L.shape
+    rec = {"phase": "kernels", "kernel": "mf_sgd_block", "case": case,
+           "shape": {"N": N, "M": R.shape[1], "K": K}, "gamma": gamma,
+           "lam": lam, "observed": int(mask.sum().item()),
+           "launches": launches,
+           "max_abs_err": max(err["dL"], err["dR"]),
+           "loss_err": err["loss"], "err": err,
+           "tol": dict(zip(names, tol, strict=True)),
+           "loss": want[2].item(),
+           "plan": dict(zip(("split_rows", "split_cols", "tile",
+                             "loss_partials"),
+                            mf_sgd.plan(N, R.shape[1], K, L.device),
+                            strict=True)),
+           "bit_equal_twice": all(torch.equal(g, a) for g, a in
+                                  zip(got, again, strict=True)),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    want_launches = {k: 0 for k in launches}
+    want_launches["mf_sgd_block"] = 1
+    bad = (launches != want_launches or not rec["bit_equal_twice"]
+           or not rec["finite"]
+           or any(err[n] > t for n, t in zip(names, tol, strict=True)))
+    del got, again
+    if case == "main" and not bad:
+        E = ref.mf_residual(L, R, D, mask)
+        E[:, :MF_TILE] = 0.0
+        faults = {
+            "mask_ignored": lambda: ref.mf_sgd_block(
+                L, R, torch.where(mask, D, 0.0), torch.ones_like(mask),
+                gamma, lam),
+            "tile_dropped": lambda: ref.mf_update(L, R, E, mask, gamma, lam),
+            "no_lambda": lambda: ref.mf_sgd_block(L, R, D, mask, gamma, 0.0)}
+        rec["planted_fault_err_over_tol"] = {}
+        for name, fault in faults.items():
+            f = fault()
+            rec["planted_fault_err_over_tol"][name] = max(
+                (a - b).abs().max().item() / t
+                for a, b, t in zip(f[:2], want[:2], tol[:2], strict=True))
+            del f
+        del E
+        if min(rec["planted_fault_err_over_tol"].values()) <= 1.0:
+            emit(rec)
+            raise AssertionError(f"mf_sgd_block's limit passes a planted "
+                                 f"fault: {rec}")
+    del want
+    if bad:
+        emit(rec)
+        raise AssertionError(f"mf_sgd_block disagrees with its plain "
+                             f"version ({case}): {rec}")
+    if timed:
+        bounds, nnz = mf_bounds(L, R, mask, rates)
+        E = ref.mf_residual(L, R, D, mask)
+        reps = 5 if case == "main" else 50
+        rec.update(
+            ms=time_ms(lambda: ops.mf_sgd_block(L, R, D, mask, gamma, lam),
+                       reps),
+            plain_ms=time_ms(lambda: ref.mf_sgd_block(L, R, D, mask, gamma,
+                                                      lam), reps),
+            matmul_ms=time_ms(lambda: (L @ R, E @ R.t(), L.t() @ E), reps),
+            library_ms=None, bound_ms=bounds["data"][0],
+            bound_by=bounds["data"][1], dense_bound_ms=bounds["dense"][0],
+            dense_bound_by=bounds["dense"][1])
+        del E
+    emit(rec)
+    del L, R, D, mask
+    torch.cuda.empty_cache()
+    return rec
+
+
 SERVE_KERNELS = ("fa_bf16_kernel", "fa_f32_kernel", "ssd_kernel")
 
 
@@ -1025,10 +1224,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     rates = card_rates(kind)
     build_s = build.build()
-    ptxas = []
-    for log in sorted(build._build_dir().glob("*.log")):
-        ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln]
+    ptxas = [line for log in sorted(build._build_dir().glob("*.log"))
+             for line in ptxas_report(log.read_text())]
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "bandwidth_Bps": rates[0],
@@ -1067,6 +1264,9 @@ def main() -> int:
     for name in SSD_SHAPES:
         if name != "main":
             check_ssd(name, dev, rates, timed=False)
+    mf_main = check_mf_sgd("main", dev, rates, timed=True)
+    for name in MF_CASES:
+        check_mf_sgd(name, dev, rates, timed=name == "kernels_bench")
 
     # --- 3. main path at full width -----------------------------------------
     t0 = time.perf_counter()
@@ -1164,6 +1364,14 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    kernels.append({
+        "name": "mf_sgd_block", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",
+        "replaces": "src/repro/kernels/mf_sgd.py:87",
+        "launches": mf_main["launches"]["mf_sgd_block"],
+        "max_abs_err": mf_main["max_abs_err"], "ms": mf_main["ms"],
+        "plain_ms": mf_main["plain_ms"], "bound_ms": mf_main["bound_ms"],
+        "bound_by": mf_main["bound_by"], "library_ms": mf_main["library_ms"]})
     emit({"total_s": time.perf_counter() - t_start,
           "main_path_launches": main_launches,
           "serve_launches_per_prefill": {

@@ -2,7 +2,9 @@
 
 - :data:`launches`, the one launch counter of all kernels: a wrapper adds
   one to its kernel's entry where it launches it, and nowhere else, so a
-  run can show that its path went through the kernels;
+  run can show that its path went through the kernels (``mf_sgd_block``
+  counts one per call: its two passes and the epilogue are one launch of
+  the library's entry point);
 - :func:`load_lib`, the built library of one ``csrc/*.cu`` source with
   its entry points' C signatures declared;
 - :func:`check`, the device, dtype, shape and contiguity check of one
@@ -21,7 +23,7 @@ from . import build
 
 # Launches per kernel since the last reset_launches().
 launches = {"ring_view": 0, "vap_suffix_norms": 0, "delta_pack": 0,
-            "flash_attention": 0, "ssd": 0}
+            "flash_attention": 0, "ssd": 0, "mf_sgd_block": 0}
 
 
 def reset_launches() -> None:

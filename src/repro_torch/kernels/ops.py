@@ -2,7 +2,8 @@
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
 the hand-written kernel (``ps_view.py``, ``delta_pack.py``,
-``flash_attention.py``, ``ssd_scan.py``), which launches or raises.  There
+``flash_attention.py``, ``ssd_scan.py``, ``mf_sgd.py``), which launches
+or raises.  There
 is no backend switch and no fallback: on the card, the main path runs the
 kernels or fails.
 """
@@ -42,6 +43,16 @@ def delta_pack(delta, thresh, scale, quant: str = "f32"):
         from . import delta_pack as dp
         return dp.delta_pack(delta, thresh, scale, quant)
     return ref.delta_pack(delta, thresh, scale, quant)
+
+
+def mf_sgd_block(L, R, D, mask, gamma, lam):
+    """One MF-SGD step over a dense block of ratings; see
+    `ref.mf_sgd_block` for the contract.  Unlike the JAX dispatch, no
+    shape falls back to the plain version on the card."""
+    if _on_cuda(L):
+        from . import mf_sgd
+        return mf_sgd.mf_sgd_block(L, R, D, mask, gamma, lam)
+    return ref.mf_sgd_block(L, R, D, mask, gamma, lam)
 
 
 def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None):

@@ -303,3 +303,95 @@ def attention_tolerance(dtype) -> tuple[float, float]:
     rounding of a large output and of ``p``, which the two round from
     float32 values that differ."""
     return (2e-2, 1e-2) if dtype == torch.bfloat16 else (3e-5, 3e-5)
+
+
+# ==========================================================================
+# MF-SGD dense-block update (the paper's hot loop; kernel: mf_sgd.py)
+# ==========================================================================
+# The longest chain of float32 additions that either implementation takes
+# in the loss's sum of squares (see `mf_sgd_tolerance`).
+MF_LOSS_CHAIN = 2048
+
+
+def _f32(x, device) -> torch.Tensor:
+    # filled on the device (no host copy); a Python float rounds to
+    # float32 as JAX rounds its weakly typed scalars
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def mf_residual(L, R, D, mask):
+    """``E = where(mask, D − L@R, 0)``: the mask selects, so a NaN or Inf
+    of ``D`` at an unobserved entry never reaches ``E``."""
+    return torch.where(mask, D - L @ R, L.new_zeros(()))
+
+
+def mf_update(L, R, E, mask, gamma, lam):
+    """``(dL, dR, loss)`` from the residual ``E`` of `mf_residual`::
+
+        dL   = γ (E Rᵀ − (λ·rowcount) L)
+        dR   = γ (Lᵀ E − (λ·colcount) R)
+        loss = ΣE² / max(Σmask, 1)
+
+    with the JAX reference's association ``(λ·count)·L``, integer counts
+    converted once to float32, and the loss a true division by a count
+    tensor (on CUDA, ``t / python_float`` multiplies by the reciprocal)."""
+    dev = L.device
+    g, lm = _f32(gamma, dev), _f32(lam, dev)
+    rowc = mask.sum(dim=1, keepdim=True).to(torch.float32)        # [N,1]
+    colc = mask.sum(dim=0, keepdim=True).to(torch.float32)        # [1,M]
+    cnt = torch.clamp(mask.sum(), min=1).to(torch.float32)
+    dL = g * (E @ R.t() - (lm * rowc) * L)
+    dR = g * (L.t() @ E - (lm * colc) * R)
+    return dL, dR, torch.sum(E * E) / cnt
+
+
+def mf_sgd_block(L, R, D, mask, gamma, lam):
+    """One SGD step over a dense block of ratings.
+
+    ``L [N,K]``, ``R [K,M]``, ``D [N,M]`` float32 ratings, valid where
+    ``mask [N,M]`` (bool) is set; ``gamma`` and ``lam`` Python floats.
+    Returns ``(dL [N,K], dR [K,M], loss [])``: the paper's update summed
+    over every observed entry of the block and the mean squared error
+    (contract of the JAX package's ``kernels/ref.py::mf_sgd_block``)."""
+    return mf_update(L, R, mf_residual(L, R, D, mask), mask, gamma, lam)
+
+
+def mf_sgd_tolerance(L, R, D, mask, gamma, lam) -> tuple[float, float, float]:
+    """``(tol_dL, tol_dR, tol_loss)``: the largest differences allowed
+    between two `mf_sgd_block` results that take the same float32 sums in
+    other orders (full float32 products, no TF32), each the largest over
+    the entries of an elementwise bound:
+
+    - ``L@R``: a float32 sum of ``K`` products is within ``K·eps·Σ|L||R|``
+      of the exact sum in any order, so two orders give residuals within
+      ``δE = 2K·eps·(|L|@|R|) + 2eps·|E|`` (the second term the rounding of
+      ``D − L@R``), where observed;
+    - ``E Rᵀ`` (``Lᵀ E``): adding an exact zero is exact, so a row's
+      (column's) sum takes ``rowcount`` (``colcount``) rounded additions in
+      any order or tree: within ``δE @ |R|ᵀ + 2·rowcount·eps·(|E| @ |R|ᵀ)``;
+    - the ``γ(· − (λ·count)·L)`` epilogue rounds the same operands twice
+      more: ``4eps`` of its magnitude;
+    - the loss sums non-negative terms, whose float32 sum is within
+      (longest chain of additions)·eps of the exact one: the kernel adds
+      at most 64 squares per tile, one term per tile and two trees, and
+      PyTorch's reductions a per-thread run and trees, both under
+      `MF_LOSS_CHAIN` terms at the sizes run; plus ``2|E|δE`` per entry.
+    """
+    eps = torch.finfo(torch.float32).eps
+    K = L.shape[1]
+    aL, aR = L.abs(), R.abs()
+    E = mf_residual(L, R, D, mask)
+    aE = E.abs()
+    zero = L.new_zeros(())
+    dE = torch.where(mask, 2 * K * eps * (aL @ aR) + 2 * eps * aE, zero)
+    rowc = mask.sum(dim=1, keepdim=True).to(torch.float32)
+    colc = mask.sum(dim=0, keepdim=True).to(torch.float32)
+    ER, LE = aE @ aR.t(), aL.t() @ aE
+    tol_dL = gamma * (dE @ aR.t() + 2 * eps * rowc * ER
+                      + 4 * eps * (ER + lam * rowc * aL))
+    tol_dR = gamma * (aL.t() @ dE + 2 * eps * colc * LE
+                      + 4 * eps * (LE + lam * colc * aR))
+    cnt = max(int(mask.sum()), 1)
+    tol_loss = (2 * (aE * dE).sum() + 2 * MF_LOSS_CHAIN * eps
+                * (E * E).sum()) / cnt
+    return float(tol_dL.max()), float(tol_dR.max()), float(tol_loss)

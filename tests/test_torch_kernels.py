@@ -12,9 +12,11 @@
   (``delta_pack`` bit for bit, at the edge cases of :func:`pack_case`;
   ``flash_attention`` within ``ref.attention_tolerance``; ``ssd``'s
   output within ``ref.ssd_tolerance`` and its state within
-  ``ref.ssd_state_tolerance``).  The plain versions of those two are held
-  against the JAX package in ``test_torch_attention.py`` and
-  ``test_torch_ssd.py``.
+  ``ref.ssd_state_tolerance``; ``mf_sgd_block`` within
+  ``ref.mf_sgd_tolerance`` and bit-equal across two calls).  The plain
+  versions of the last three are held against the JAX package in
+  ``test_torch_attention.py``, ``test_torch_ssd.py`` and
+  ``test_torch_mf_sgd.py``.
 - The port's boundaries: no module imports ``jax`` or ``repro``, the
   default device is the card, and a CUDA tensor never reaches a plain
   version.
@@ -35,7 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.comm import substrate
 from repro_torch.kernels import delta_pack as dp
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import launch, ops, ps_view, ref, ssd_scan
+from repro_torch.kernels import launch, mf_sgd, ops, ps_view, ref, ssd_scan
 
 RING_EMPTY = ref.RING_EMPTY
 # (W, P, d, empty slots): the simulator's shapes (essp W=5, vap W=11),
@@ -231,7 +233,7 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
     torch.cuda.synchronize()
     assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1,
                                 "delta_pack": 0, "flash_attention": 0,
-                                "ssd": 0}
+                                "ssd": 0, "mf_sgd_block": 0}
     want = ref.ring_view(b, u, uc, cv)
     assert (got - want).abs().max().item() <= ref.ring_view_tolerance(b, u)
     torch.testing.assert_close(norms, ref.vap_suffix_norms(u, uc, c),
@@ -319,7 +321,7 @@ def test_cuda_clock_loop_does_not_sync(cuda, model):
     if model == "wired":
         assert launch.launches == {"ring_view": 12, "vap_suffix_norms": 6,
                                    "delta_pack": 3, "flash_attention": 0,
-                                   "ssd": 0}
+                                   "ssd": 0, "mf_sgd_block": 0}
 
 
 # flash_attention's cases on the card: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
@@ -473,3 +475,74 @@ def test_cuda_ssd_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan.ssd(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2),
                      C, chunk=32)
+
+
+# mf_sgd_block's cases on the card: (N, M, K, density).  The JAX kernel
+# test's shapes, kernels_bench's, ragged N and M, the smallest block, K
+# past 128 (64-wide tiles, K padded to 192) and K = 256, an empty and a
+# full block.
+MF_CASES = {
+    "jax_256_256_16": (256, 256, 16, 0.3),
+    "jax_128_384_32": (128, 384, 32, 0.3),
+    "jax_128_128_8": (128, 128, 8, 0.3),
+    "kernels_bench": (512, 512, 32, 0.2),
+    "ragged": (100, 300, 12, 0.3),
+    "one": (1, 1, 1, 1.0),
+    "k130": (70, 150, 130, 0.3),
+    "k256": (200, 300, 256, 0.3),
+    "empty": (100, 300, 12, 0.0),
+    "full": (130, 270, 20, 1.0),
+}
+
+
+def mf_case(N, M, K, density, seed=0):
+    """``(L, R, D, mask)``, numpy, from a seed; NaN in D where unobserved."""
+    r = np.random.default_rng(seed)
+    L = r.standard_normal((N, K)).astype(np.float32)
+    R = r.standard_normal((K, M)).astype(np.float32)
+    mask = r.random((N, M)) < density
+    D = np.where(mask, r.standard_normal((N, M)), np.nan).astype(np.float32)
+    return L, R, D, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MF_CASES))
+def test_cuda_mf_sgd_matches_plain_version(cuda, case):
+    """Within ``ref.mf_sgd_tolerance`` of the plain version, NaN-free with
+    NaN at every unobserved rating, and bit-equal across two calls."""
+    L, R, D, mask = _t(*mf_case(*MF_CASES[case], seed=4), device=cuda)
+    launch.reset_launches()
+    got = mf_sgd.mf_sgd_block(L, R, D, mask, 0.1, 1e-3)
+    again = mf_sgd.mf_sgd_block(L, R, D, mask, 0.1, 1e-3)
+    torch.cuda.synchronize()
+    assert launch.launches["mf_sgd_block"] == 2
+    want = ref.mf_sgd_block(L, R, D, mask, 0.1, 1e-3)
+    tol = ref.mf_sgd_tolerance(L, R, D, mask, 0.1, 1e-3)
+    for g, a, w, t in zip(got, again, want, tol, strict=True):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= t
+        np.testing.assert_array_equal(bits(g), bits(a))
+    if MF_CASES[case][3] == 0.0:
+        assert got[2].item() == 0.0 and not got[0].any()
+
+
+@pytest.mark.cuda
+def test_cuda_mf_sgd_checks_its_inputs(cuda):
+    L, R, D, mask = _t(*mf_case(16, 24, 4, 0.5), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        mf_sgd.mf_sgd_block(L.double(), R, D, mask, 0.1, 1e-3)
+    with pytest.raises(TypeError, match="dtype"):
+        mf_sgd.mf_sgd_block(L, R, D, mask.to(torch.uint8), 0.1, 1e-3)
+    with pytest.raises(ValueError, match="shape"):
+        mf_sgd.mf_sgd_block(L, R, D[:, :-1], mask, 0.1, 1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        mf_sgd.mf_sgd_block(L, R, D.t().contiguous().t(), mask, 0.1, 1e-3)
+    with pytest.raises(ValueError, match="is on"):
+        mf_sgd.mf_sgd_block(L, R, D.cpu(), mask, 0.1, 1e-3)
+    with pytest.raises(ValueError, match="limits"):
+        mf_sgd.mf_sgd_block(torch.zeros((4, 257), device=cuda),
+                            torch.zeros((257, 6), device=cuda),
+                            torch.zeros((4, 6), device=cuda),
+                            torch.ones((4, 6), dtype=torch.bool, device=cuda),
+                            0.1, 1e-3)
