@@ -18,15 +18,17 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
    ``flash_attention`` (at the models' prefill shape, beside one
    ``scaled_dot_product_attention`` call as the library yardstick) and
    ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
-   versions at the main path's shapes and at edge shapes, and at the
-   shapes of the JAX package's ``kernels`` suite; ``mf_sgd_block``
-   (``check_mf_sgd``) is driven through ``ops.mf_sgd_block`` at the
-   dense block of the full-width MF data (``main``, NaN at every
-   unobserved rating) and at the ``kernels`` suite's shape, with the
-   launch counts set to 0 just before and read just after, then held to
-   its plain version within ``ref.mf_sgd_tolerance`` (which must fail
-   three planted faults at ``main``), bit-equal across two calls, at
-   edge shapes too;
+   versions at the main path's shapes and at edge shapes (each record
+   naming the kernel that ran, ``variant``; at ``main`` the wgmma
+   kernel's tile classes and ptxas line, and two planted faults the limit
+   must fail), and at the shapes of the JAX package's ``kernels`` suite;
+   ``mf_sgd_block`` (``check_mf_sgd``) is driven through
+   ``ops.mf_sgd_block`` at the dense block of the full-width MF data
+   (``main``, NaN at every unobserved rating) and at the ``kernels``
+   suite's shape, with the launch counts set to 0 just before and read
+   just after, then held to its plain version within
+   ``ref.mf_sgd_tolerance`` (which must fail three planted faults at
+   ``main``), bit-equal across two calls, at edge shapes too;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -51,7 +53,8 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
    ``repro_torch.launch.serve``: prefill and decode times and rates, peak
    memory, the kernels' launches per prefill (``flash_attention`` once
    per qwen3 layer, ``ssd`` once per mamba2 layer), no host sync in the
-   decode loop, and the device's idle share from profiled runs;
+   decode loop, and the device's idle share and each kernel's device ms
+   per prefill from profiled runs;
 6. both models' smoke configs on the card against the CPU
    (``serve_card_vs_cpu``): prefill and teacher-forced decode logits within
    the stated tolerance, greedy tokens equal wherever the CPU's top-2
@@ -115,7 +118,11 @@ CARD = ("NVIDIA H100 80GB HBM3", 3.35e12, 67e12, 989e12)
 # flash_attention's phase shapes: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
 # window, dtype, positions).  "main" is qwen3-0.6b's prefill (batch 8,
 # 2048-token prompt, bf16); then float32, a window, Dv != Dk, a padded Sk,
-# rows that see no key ("late_keys") and masked keys ("holes").
+# rows that see no key ("late_keys"), masked keys ("holes") and keys at a
+# random permutation of their slots ("shuffled").  The "bf16_d*" cases
+# test the wgmma kernel's tile classes (skip, full, partial): holes,
+# shuffled keys, a window of 100 cutting through its 128-key tiles, a
+# short query block over long keys, ragged Sq = Sk = 333.
 ATTN_SHAPES = {
     "main": (8, 2048, 2048, 16, 8, 128, 128, True, None, "bf16", "arange"),
     "f32": (2, 128, 128, 4, 2, 32, 32, True, None, "f32", "arange"),
@@ -129,10 +136,25 @@ ATTN_SHAPES = {
     "no_visible_key": (2, 64, 64, 4, 2, 32, 32, True, None, "bf16",
                        "late_keys"),
     "holes": (2, 96, 96, 4, 2, 64, 64, False, None, "f32", "holes"),
+    "bf16_d128_holes": (2, 256, 256, 4, 2, 128, 128, True, None, "bf16",
+                        "holes"),
+    "bf16_d128_noncausal": (2, 200, 300, 4, 2, 128, 128, False, None,
+                            "bf16", "arange"),
+    "bf16_d128_window100": (2, 384, 384, 4, 2, 128, 128, True, 100, "bf16",
+                            "arange"),
+    "bf16_d128_shuffled": (2, 256, 384, 4, 2, 128, 128, True, None, "bf16",
+                           "shuffled"),
+    "bf16_d64_late_keys": (2, 200, 200, 4, 2, 64, 64, True, None, "bf16",
+                           "late_keys"),
+    "bf16_d128_sq64_sk2048": (1, 64, 2048, 4, 2, 128, 128, True, None,
+                              "bf16", "arange"),
+    "bf16_d128_ragged333": (1, 333, 333, 4, 2, 128, 128, True, None, "bf16",
+                            "arange"),
     # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
     "kernels_bench": (1, 512, 512, 8, 4, 64, 64, True, None, "f32",
                       "arange"),
 }
+ATTN_TILE = 128     # the wgmma kernel's query block and KV tile
 # ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
 # d_state 128, chunk 128, bf16); then a ragged s, float32, and dt in
@@ -695,6 +717,9 @@ def attn_inputs(shape, seed, device):
     elif kind == "holes":              # a quarter of the keys masked
         holes = torch.randperm(Sk, generator=gd, device=device)[:Sk // 4]
         kp[:, holes] = -1
+    elif kind == "shuffled":           # each batch row's keys permuted
+        kp = torch.stack([torch.randperm(Sk, generator=gd, device=device)
+                          for _ in range(B)]).to(torch.int32)
     return q, k, v, qp, kp
 
 
@@ -716,12 +741,51 @@ def attention_bound(q, k, v, qp, kp, causal, window, rates):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", pairs
 
 
+def wgmma_ptxas() -> list[str]:
+    """The ptxas lines (registers, shared memory, spills) of the wgmma
+    attention kernel, from the build's log."""
+    from repro_torch.kernels import build
+    log = (build._build_dir() / "flash_attention.log").read_text()
+    return [ln for ln in ptxas_report(log) if "fa_wgmma_kernel" in ln]
+
+
+def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol):
+    """Max error of two faults made with the plain version, each of which
+    the limit must fail: (a) one key tile dropped (keys 0-63 masked for
+    the second half of the queries, rows that see over a thousand keys);
+    (b) a partial tile treated as full (every query's position rounded up
+    to the end of its 128-block, so it sees the whole diagonal tile)."""
+    from repro_torch.kernels import ref
+    h = q.shape[1] // 2
+    kp_drop = kp.clone()
+    kp_drop[:, :64] = -1
+    faults = {
+        "planted_fault_dropped_tile_err": (
+            ref.attention(q[:, h:], k, v, **dict(kw, q_pos=qp[:, h:],
+                                                 kv_pos=kp_drop)),
+            want[:, h:]),
+        "planted_fault_partial_as_full_err": (
+            ref.attention(q, k, v, **dict(
+                kw, q_pos=qp // ATTN_TILE * ATTN_TILE + ATTN_TILE - 1)),
+            want)}
+    errs, missed = {}, []
+    for key, (bad, ref_out) in faults.items():
+        fdiff = (bad.float() - ref_out.float()).abs()
+        errs[key] = fdiff.max().item()
+        if not bool((fdiff > atol + rtol * ref_out.float().abs()).any()):
+            missed.append(key)
+        del bad, fdiff
+    return errs, missed
+
+
 def check_flash_attention(name, device, rates, timed: bool):
     """``flash_attention`` against its plain version on one shape of
-    `ATTN_SHAPES`, within ``ref.attention_tolerance``; timed at the
-    main path's shape beside one ``scaled_dot_product_attention`` call,
-    where the limit must also fail a planted fault (one key tile
-    dropped)."""
+    `ATTN_SHAPES`, within ``ref.attention_tolerance``, with the kernel
+    that ran (``variant``); timed at the main path's shape beside one
+    ``scaled_dot_product_attention`` call, where the limit must also fail
+    two planted faults (one key tile dropped, a partial tile treated as
+    full) and the wgmma kernel's tile classes and ptxas line are
+    recorded."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -740,6 +804,7 @@ def check_flash_attention(name, device, rates, timed: bool):
            "shape": dict(zip(("B", "Sq", "Sk", "H", "Hkv", "Dk", "Dv"),
                              shape[:7], strict=True)),
            "causal": causal, "window": window, "dtype": dt,
+           "variant": fa.last_variant,
            "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol}
     bad = bool((diff > atol + rtol * want.float().abs()).any())
     if kind == "late_keys":
@@ -747,22 +812,13 @@ def check_flash_attention(name, device, rates, timed: bool):
         bad = bad or not rec["unseeing_rows_zero"]
     del got, diff
     if timed and not bad:
-        # the limit must fail a kernel that drops one key tile: keys 0-63
-        # masked for the second half of the queries (rows that see over a
-        # thousand keys), against the sound output
-        h = q.shape[1] // 2
-        kp_drop = kp.clone()
-        kp_drop[:, :64] = -1
-        dropped = ref.attention(q[:, h:], k, v, **dict(
-            kw, q_pos=qp[:, h:], kv_pos=kp_drop))
-        fdiff = (dropped.float() - want[:, h:].float()).abs()
-        rec["planted_fault_dropped_tile_err"] = fdiff.max().item()
-        seen = bool((fdiff > atol + rtol * want[:, h:].float().abs()).any())
-        del dropped, fdiff
-        if not seen:
+        errs, missed = planted_attention_faults(q, k, v, qp, kp, kw, want,
+                                                atol, rtol)
+        rec.update(errs)
+        if missed:
             emit(rec)
-            raise AssertionError(f"flash_attention's limit passes a dropped "
-                                 f"key tile ({name}): {rec}")
+            raise AssertionError(f"flash_attention's limit passes planted "
+                                 f"faults {missed} ({name}): {rec}")
     del want
     if bad:
         emit(rec)
@@ -779,6 +835,13 @@ def check_flash_attention(name, device, rates, timed: bool):
                 qt, kt, vt, is_causal=causal, scale=scale,
                 enable_gqa=True), 20),
             bound_ms=bound, bound_by=by, visible_pairs=pairs)
+        cls = ref.attention_tile_classes(qp, kp, causal, window, ATTN_TILE,
+                                         ATTN_TILE)
+        rec["tile_classes_per_head"] = {
+            n: int((cls == c).sum()) for n, c in (
+                ("skip", ref.TILE_SKIP), ("full", ref.TILE_FULL),
+                ("partial", ref.TILE_PARTIAL))}
+        rec["ptxas"] = wgmma_ptxas()
     emit(rec)
     return rec
 
@@ -1032,13 +1095,17 @@ def check_mf_sgd(case, device, rates, timed: bool):
     return rec
 
 
-SERVE_KERNELS = ("fa_bf16_kernel", "fa_f32_kernel", "ssd_kernel")
+# The port's kernels on the serving path, by the name each kernel's
+# device events carry.
+SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
+                                     "fa_f32_kernel"),
+                 "ssd": ("ssd_kernel",)}
 
 
 def profiled_run(model, prompts, new):
     """Host ms and device-busy ms of one ``serve.run`` under the profiler,
-    with the port's kernels' share and the five ops that take the most
-    device time."""
+    with the port's kernels' share (in all and per kernel) and the five
+    ops that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
@@ -1048,17 +1115,20 @@ def profiled_run(model, prompts, new):
         serve.run(model, prompts, new)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = ours = 0.0
+    busy = 0.0
+    per_kernel = dict.fromkeys(SERVE_KERNELS, 0.0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy += e.self_device_time_total
-            if any(k in e.name for k in SERVE_KERNELS):
-                ours += e.self_device_time_total
+            for name, fns in SERVE_KERNELS.items():
+                if any(fn in e.name for fn in fns):
+                    per_kernel[name] += e.self_device_time_total
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:5]
     return {"wall_ms": wall_ms, "device_ms": busy / 1e3,
-            "kernel_ms": ours / 1e3,
+            "kernel_ms": sum(per_kernel.values()) / 1e3,
+            "kernel_ms_by_name": {k: v / 1e3 for k, v in per_kernel.items()},
             "top_ops_ms": {e.key: e.self_device_time_total / 1e3
                            for e in ops}}
 
@@ -1120,6 +1190,7 @@ def serve_path(arch, device):
     rec["profiled"] = {
         "prefill_wall_ms": pre["wall_ms"], "prefill_device_ms":
         pre["device_ms"], "prefill_kernel_ms": pre["kernel_ms"],
+        "prefill_kernel_ms_by_name": pre["kernel_ms_by_name"],
         "prefill_device_idle_share": 1.0 - pre["device_ms"] / pre["wall_ms"],
         "prefill_top_ops_ms": pre["top_ops_ms"],
         "decode_wall_ms_per_step": dec_wall / (new - 1),
@@ -1364,6 +1435,8 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if "variant" in rec:
+            kernels[-1]["variant"] = rec["variant"]
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",
@@ -1373,6 +1446,11 @@ def main() -> int:
         "plain_ms": mf_main["plain_ms"], "bound_ms": mf_main["bound_ms"],
         "bound_by": mf_main["bound_by"], "library_ms": mf_main["library_ms"]})
     emit({"total_s": time.perf_counter() - t_start,
+          "serve_prefill": {a: {
+              "prefill_ms": r["prefill_ms"],
+              "prefill_tokens_per_s": r["prefill_tokens_per_s"],
+              "profiled_kernel_ms": r["profiled"]["prefill_kernel_ms_by_name"]}
+              for a, r in served.items()},
           "main_path_launches": main_launches,
           "serve_launches_per_prefill": {
               a: r["launches_per_prefill"] for a, r in served.items()},

@@ -12,31 +12,47 @@
 // What bounds it: at the models' prefill shape (B 8, S 2048, H 16, Hkv 8,
 // D 128, causal) the visible pairs need 137.5 GFLOP of bf16 products
 // against 201 MB of q/k/v/out, so the tensor cores bound it (0.139 ms on
-// an H100 SXM at 989 TFLOP/s), not memory (0.06 ms).  The design keeps the
-// products on the tensor cores and off device memory:
+// an H100 SXM at 989 TFLOP/s), not memory (0.06 ms).  Three kernels, one
+// picked by a fixed rule from (dtype, Dk, Dv) (`variant_of`):
 //
-// - One CTA per (query block, head, batch), i.e. per (b*H, q-block), not
-//   per (b*Hkv, q-block) as the TPU kernel does: the CTA's shape then does
-//   not depend on rep = H/Hkv (any GQA ratio), and the rep CTAs of one KV
-//   head are launched next to each other, so their K/V tiles are read from
-//   L2 rather than device memory.  Query blocks run heaviest first
-//   (causal: the last block sees the most keys).
-// - bf16: 4 warps x 16 query rows; S = Q K^T and O += P V on the tensor
-//   cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); Q's fragments
-//   stay in registers, K is staged in shared memory row-major and V
-//   transposed, both with 8 elements of padding per row so fragment reads
-//   hit 32 distinct banks.  P is rounded to bf16 for the PV product, as the
-//   TPU kernel does (flash_attention.py:80-81).
-// - f32: the products run in full float32 on the CUDA cores (no TF32): 32
-//   query rows x 32 keys per tile, 4 threads per query row.
-// - A KV tile with no visible (query, key) pair in the CTA is skipped
-//   before it is loaded (`pl.when(jnp.any(valid))`, :61).
-// - Ragged Sq and Sk are masked here: a query row past Sq has position
-//   2^30 and is not stored, a key past Sk has position -1 (what the TPU
-//   wrapper's padding, :105-112, gives), so the wrapper copies nothing.
+// - bf16 at (64, 64) and (128, 128), the models' head sizes:
+//   `fa_wgmma_kernel`, built from Hopper's asynchronous units.  One CTA of
+//   three warpgroups per (query block of 128, head, batch): a producer
+//   warpgroup (registers cut to 40 with setmaxnreg) whose one thread
+//   issues every TMA copy, and two consumer warpgroups (232 registers) of
+//   64 query rows each.  Q stays in shared memory; K and V tiles of 128
+//   keys go through a two-stage ring guarded by full/empty mbarriers, so
+//   the next tile loads while this one is multiplied.  S = Q K^T is
+//   wgmma m64n128k16 with both operands K-major in shared memory; O += P V
+//   takes P from registers (the S accumulator rounded to bf16 is wgmma's A
+//   fragment) and reads V MN-major, so V is never transposed.  TMA writes
+//   every tile with 128-byte swizzle in 64-column boxes, the layout the
+//   wgmma descriptors name.  Each KV tile is classed once per CTA from its
+//   position range against the block's: skipped (not loaded), full (no
+//   mask) or partial (the element mask); the softmax is one FFMA and an
+//   exp2 per score on full tiles.  Ragged Sq and Sk come from the tensor
+//   maps: rows past the end load as zeros, keys past Sk are masked, and
+//   the TMA store writes no row past Sq.  Tensor maps are built per call
+//   with cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint.
+// - bf16 at (32, 16) and (32, 32): `fa_bf16_kernel`, 4 warps x 16 query
+//   rows, mma.sync m16n8k16 with K and a transposed V staged in padded
+//   shared memory.
+// - float32: `fa_f32_kernel`, full float32 products on the CUDA cores (no
+//   TF32), 32 query rows x 32 keys per tile, 4 threads per query row.
 //
-// Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t.
+// All three run query blocks heaviest first (causal: the last block sees
+// the most keys) and place the rep = H/Hkv CTAs of one KV head next to
+// each other, so their K/V tiles are read from L2 rather than device
+// memory.  The older two skip a KV tile with no visible (query, key) pair
+// before loading it (`pl.when(jnp.any(valid))`, :61) and mask ragged Sq
+// and Sk in the kernel: a query row past Sq has position 2^30 and is not
+// stored, a key past Sk has position -1 (the TPU wrapper's padding,
+// :105-112), so the wrapper copies nothing.
+//
+// Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t,
+// fa_variant names the kernel it runs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -400,37 +416,661 @@ __global__ void __launch_bounds__(128) fa_f32_kernel(
   }
 }
 
-template <int DK, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* qpos, const int* kpos, void* out, int B, int Sq,
-                   int Sk, int H, int Hkv, int bf16, float scale, int causal,
-                   int window, cudaStream_t stream) {
-  if (bf16) {
-    const dim3 grid((Sq + 63) / 64, H, B);
-    fa_bf16_kernel<DK, DV><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), qpos, kpos,
-        static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal,
-        window);
-  } else {
-    constexpr int smem = f32_smem_bytes<DK, DV>();
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_f32_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
-    fa_f32_kernel<DK, DV><<<grid, 128, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), Sq,
-        Sk, H, Hkv, scale, causal, window);
+// ---------------------------------------------------------------------------
+// bf16, (Dk, Dv) in {(64, 64), (128, 128)}: TMA, wgmma, a warp-specialised
+// producer
+// ---------------------------------------------------------------------------
+// Hopper's asynchronous units, through PTX: mbarriers, TMA copies between
+// device memory and shared memory, and warpgroup products (wgmma).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
+
+// One box of a 4-d tensor map into shared memory; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// One box from shared memory into a 4-d tensor map; rows outside the
+// tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma shared-memory operand with 128-byte swizzle, as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes it: rows of 128 bytes, 8-row groups of
+// 1024 bytes, every tile 1024-byte aligned.  K-major operands (Q, K) step
+// 32 bytes per 16-wide slice of the depth inside a 64-column box; the
+// MN-major operand (V) steps 8-row groups along the depth (SBO) and
+// 64-column boxes along N (LBO).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+enum : uint8_t { TILE_SKIP = 0, TILE_FULL = 1, TILE_PARTIAL = 2 };
+constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
+
+// The class of a KV tile for a query block, from the range [kmin, kmax] of
+// its keys' non-negative positions, whether any key is masked (kv_pos < 0
+// or past Sk), and the range [qmin, qmax] of the block's query positions
+// (rows past Sq left out): no pair visible (skip), every pair visible
+// (full, no mask applied), or the element mask needed (partial).  The
+// plain version is ref.attention_tile_classes.
+__device__ __forceinline__ uint8_t tile_class(int kmin, int kmax, bool neg,
+                                              int qmin, int qmax, int causal,
+                                              int window) {
+  if (kmin > kmax || (causal && kmin > qmax) ||
+      (window > 0 && kmax <= qmin - window))
+    return TILE_SKIP;
+  if (!neg && (!causal || kmax <= qmin) &&
+      (window <= 0 || kmin > qmax - window))
+    return TILE_FULL;
+  return TILE_PARTIAL;
+}
+
+// Shared memory of the wgmma kernel, from a 1024-byte aligned base: Q
+// (resident), a ring of STAGES K and V tiles, the mbarriers (Q; K full,
+// V full and empty per stage), the block's query range and one class per
+// KV tile.  Each tile is D / 64 boxes of 128 rows x 128 bytes.
+template <int D>
+struct WgLayout {
+  static constexpr int BQ = 128, BK = 128, STAGES = 2, BOX = 128 * 128;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int QR_OFF = BAR_OFF + 8 * (1 + 3 * STAGES);
+  static constexpr int CLS_OFF = QR_OFF + 8;
+  static constexpr int bytes(int n_kb) { return 1024 + CLS_OFF + n_kb; }
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, int Sq, int Sk, int H, int Hkv, int B,
+    float scale, int causal, int window) {
+  using L = WgLayout<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sq = base;
+  const uint32_t qbar = base + L::BAR_OFF;
+  int* qrange = reinterpret_cast<int*>(gbase + L::QR_OFF);
+  uint8_t* cls = gbase + L::CLS_OFF;
+#define FULL_K(s) (qbar + 8 * (1 + (s)))
+#define FULL_V(s) (qbar + 8 * (1 + ST + (s)))
+#define EMPTY(s) (qbar + 8 * (1 + 2 * ST + (s)))
+
+  const int n_qb = (Sq + BQ - 1) / BQ, n_kb = (Sk + BK - 1) / BK;
+  // heaviest query block first; the H heads of one (block, batch) are
+  // neighbours, so the rep = H / Hkv heads of a KV head share its tiles in L2
+  const int hb = blockIdx.x % (H * B);
+  const int h = hb % H, b = hb / H;
+  const int q0 = (n_qb - 1 - static_cast<int>(blockIdx.x / (H * B))) * BQ;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL_K(s), 1);
+      mbar_init(FULL_V(s), 1);
+      mbar_init(EMPTY(s), 256);  // every consumer thread releases the stage
+    }
+    qrange[0] = INT_HI;
+    qrange[1] = INT_LO;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (tid < BQ) {  // the block's query range, rows past Sq left out
+    int lo = INT_HI, hi = INT_LO;
+    if (q0 + tid < Sq) lo = hi = qpos[(long long)b * Sq + q0 + tid];
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (lane == 0) {
+      atomicMin(&qrange[0], lo);
+      atomicMax(&qrange[1], hi);
+    }
+  }
+  __syncthreads();
+  {  // one class per KV tile, a warp per tile; producer and consumers read
+     // the same table, so they agree on the tiles that go through the ring
+    const int qmin = qrange[0], qmax = qrange[1];
+    for (int t = warp; t < n_kb; t += 12) {
+      int lo = INT_HI, hi = INT_LO;
+      bool neg = false;
+#pragma unroll
+      for (int e = 0; e < BK / 32; ++e) {
+        const int j = t * BK + lane * (BK / 32) + e;
+        const int kp = j < Sk ? kpos[(long long)b * Sk + j] : -1;
+        if (kp < 0) {
+          neg = true;
+        } else {
+          lo = min(lo, kp);
+          hi = max(hi, kp);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      neg = __any_sync(0xffffffffu, neg);
+      if (lane == 0)
+        cls[t] = tile_class(lo, hi, neg, qmin, qmax, causal, window);
+    }
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: one thread issues every TMA copy ----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(sq + c * L::BOX, &tm_q, qbar, c * 64, h, q0, b);
+      int i = 0;
+      for (int t = 0; t < n_kb; ++t) {
+        if (cls[t] == TILE_SKIP) continue;
+        const int s = i % ST;
+        mbar_wait(EMPTY(s), ((i / ST) & 1) ^ 1);
+        const uint32_t sk = base + L::K_OFF + s * L::KV_BYTES;
+        const uint32_t sv = base + L::V_OFF + s * L::KV_BYTES;
+        mbar_expect_tx(FULL_K(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sk + c * L::BOX, &tm_k, FULL_K(s), c * 64, hk, t * BK,
+                      b);
+        mbar_expect_tx(FULL_V(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sv + c * L::BOX, &tm_v, FULL_V(s), c * 64, hk, t * BK,
+                      b);
+        ++i;
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups, 64 query rows each ---------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int r0 = 64 * w + 16 * wl + gr, r1 = r0 + 8;  // rows of the block
+  const int qp0 = q0 + r0 < Sq ? qpos[(long long)b * Sq + q0 + r0] : PAD_QPOS;
+  const int qp1 = q0 + r1 < Sq ? qpos[(long long)b * Sq + q0 + r1] : PAD_QPOS;
+  const float sl = scale * 1.4426950408889634f;  // scores in log2 units
+  const float asl = fabsf(sl);
+  const uint32_t qa = sq + w * 64 * 128;  // this warpgroup's rows of Q
+
+  // m (in log2 units) and this thread's share of l, for rows r0 and r1
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float o[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) o[n] = 0.f;
+  float s[BK / 2];
+  uint32_t pf[BK / 16][4];
+
+  mbar_wait(qbar, 0);
+  int i = 0;
+  for (int t = 0; t < n_kb; ++t) {
+    const uint8_t c = cls[t];
+    if (c == TILE_SKIP) continue;
+    const int st = i % ST;
+    const uint32_t ph = (i / ST) & 1;
+    const uint32_t sk = base + L::K_OFF + st * L::KV_BYTES;
+    const uint32_t sv = base + L::V_OFF + st * L::KV_BYTES;
+
+    // a partial tile's element mask, before S holds registers: bit 4j + e
+    // (row r0) and 4j + 2 + e (row r1) for key 8j + 2tq + e of the tile
+    uint64_t vis = ~0ull;
+    if (c == TILE_PARTIAL) {
+      vis = 0ull;
+      const int* kp_row = kpos + (long long)b * Sk;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t * BK + 8 * j + 2 * tq + e;
+          const int kp = col < Sk ? __ldg(kp_row + col) : -1;
+          vis |= static_cast<uint64_t>(visible(qp0, kp, causal, window))
+                 << (4 * j + e);
+          vis |= static_cast<uint64_t>(visible(qp1, kp, causal, window))
+                 << (4 * j + 2 + e);
+        }
+      }
+    }
+
+    // S = Q K^T: both operands K-major in shared memory
+    mbar_wait(FULL_K(st), ph);
+    fence_regs<BK / 2>(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::BOX + (kk % 4) * 32;
+      wgmma_ss_m64n128(s, sw128_desc(qa + off, 16, 1024),
+                       sw128_desc(sk + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<BK / 2>(s);
+
+    // row maxima: S's registers 4j..4j+3 hold keys 8j + 2tq + {0, 1} of
+    // rows r0 (4j, 4j+1) and r1 (4j+2, 4j+3)
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    if (c == TILE_PARTIAL) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        s[e] = (vis >> e) & 1ull ? s[e] * sl : NEG_INF;
+        if (e & 2)
+          mx1 = fmaxf(mx1, s[e]);
+        else
+          mx0 = fmaxf(mx0, s[e]);
+      }
+    } else if (sl >= 0.f) {  // max(s * sl) = max(s) * sl
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 *= asl;
+      mx1 *= asl;
+    } else {                 // max(s * sl) = max(-s) * |sl|
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(-s[4 * j], -s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(-s[4 * j + 2], -s[4 * j + 3]));
+      }
+      mx0 *= asl;
+      mx1 *= asl;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
+    const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
+    const float corr0 = m0 <= NEG_INF ? 0.f : exp2f(m0 - ms0);
+    const float corr1 = m1 <= NEG_INF ? 0.f : exp2f(m1 - ms1);
+    if (c == TILE_PARTIAL) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        s[e] = (vis >> e) & 1ull ? exp2f(s[e] - ((e & 2) ? ms1 : ms0)) : 0.f;
+    } else {                 // one FFMA and exp2 per score
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        s[e] = exp2f(fmaf(s[e], sl, -((e & 2) ? ms1 : ms0)));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= corr0;
+      o[4 * n + 1] *= corr0;
+      o[4 * n + 2] *= corr1;
+      o[4 * n + 3] *= corr1;
+    }
+    // P rounded to bf16 as wgmma's register A operand: keys 16kk..16kk+15
+    // are S's column groups 2kk and 2kk + 1, in mma's A fragment order
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V: V read MN-major (transposed by wgmma), 16 keys per step
+    mbar_wait(FULL_V(st), ph);
+    fence_regs<D / 2>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = sw128_desc(sv + kk * 16 * 128, L::BOX, 1024);
+      if constexpr (D == 128)
+        wgmma_rs_m64n128(o, pf[kk], dv);
+      else
+        wgmma_rs_m64n64(o, pf[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<D / 2>(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e])::"memory");
+    mbar_arrive(EMPTY(st));
+    ++i;
+  }
+
+  // ---- epilogue: O / l in bf16 through shared memory, one TMA store ----
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  // this warpgroup's rows of Q are read out: O takes their place, in the
+  // 128-byte swizzle the output's tensor map expects
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int box = n / 8, ch = n % 8;
+    uint8_t* p0 = gbase + box * L::BOX + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
+    uint8_t* p1 = gbase + box * L::BOX + r1 * 128 + ((ch ^ (r1 & 7)) << 4);
+    *reinterpret_cast<uint32_t*>(p0 + 4 * tq) =
+        pack_bf16(o[4 * n] / l0, o[4 * n + 1] / l0);
+    *reinterpret_cast<uint32_t*>(p1 + 4 * tq) =
+        pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+  if ((tid & 127) == 0 && q0 + 64 * w < Sq) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_store_4d(&tm_o, qa + c * L::BOX, c * 64, h, q0 + 64 * w, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+#undef FULL_K
+#undef FULL_V
+#undef EMPTY
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A contiguous bf16 [B, S, heads, D] tensor as a 4-d map over (D, heads,
+// S, B) with its own strides, boxes of 64 columns x `rows` rows of one
+// head, 128-byte swizzle; rows outside [0, S) read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
+                     int heads, int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const int* qpos, const int* kpos, void* out, int B,
+                         int Sq, int Sk, int H, int Hkv, float scale,
+                         int causal, int window, cudaStream_t stream) {
+  using L = WgLayout<D>;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, B, Sq, H, D, L::BQ)) != cudaSuccess ||
+      (err = make_map(&tk, k, B, Sk, Hkv, D, L::BK)) != cudaSuccess ||
+      (err = make_map(&tv, v, B, Sk, Hkv, D, L::BK)) != cudaSuccess ||
+      (err = make_map(&to, out, B, Sq, H, D, 64)) != cudaSuccess)
+    return err;
+  const long long n_kb = (Sk + L::BK - 1) / L::BK;
+  const long long blocks = (long long)((Sq + L::BQ - 1) / L::BQ) * H * B;
+  if (L::bytes(0) + n_kb > 232448 || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int smem = L::bytes(static_cast<int>(n_kb));
+  err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  fa_wgmma_kernel<D><<<static_cast<unsigned>(blocks), 384, smem, stream>>>(
+      tq, tk, tv, to, qpos, kpos, Sq, Sk, H, Hkv, B, scale, causal, window);
   return cudaGetLastError();
+}
+
+template <int DK, int DV>
+cudaError_t launch_mma_sync(const void* q, const void* k, const void* v,
+                            const int* qpos, const int* kpos, void* out,
+                            int B, int Sq, int Sk, int H, int Hkv,
+                            float scale, int causal, int window,
+                            cudaStream_t stream) {
+  const dim3 grid((Sq + 63) / 64, H, B);
+  fa_bf16_kernel<DK, DV><<<grid, 128, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), qpos, kpos,
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int DK, int DV>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const int* qpos, const int* kpos, void* out, int B,
+                       int Sq, int Sk, int H, int Hkv, float scale,
+                       int causal, int window, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<DK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_f32_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
+  fa_f32_kernel<DK, DV><<<grid, 128, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), Sq,
+      Sk, H, Hkv, scale, causal, window);
+  return cudaGetLastError();
+}
+
+enum Variant { V_NONE = -1, V_WGMMA = 0, V_MMA_SYNC = 1, V_F32 = 2 };
+
+// The fixed rule (flash_attention.py's docstring states it): bf16 at
+// (64, 64) and (128, 128) -> the wgmma kernel; bf16 at (32, 16) and
+// (32, 32) -> the mma.sync kernel; float32 at any compiled head size ->
+// the CUDA-core kernel.
+int variant_of(int bf16, int dk, int dv) {
+  const bool wide = (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
+  const bool narrow = dk == 32 && (dv == 16 || dv == 32);
+  if (bf16) return wide ? V_WGMMA : narrow ? V_MMA_SYNC : V_NONE;
+  return wide || narrow ? V_F32 : V_NONE;
 }
 
 }  // namespace
 
 extern "C" {
+
+int fa_variant(int bf16, int dk, int dv) { return variant_of(bf16, dk, dv); }
 
 int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
                const void* kpos, void* out, int B, int Sq, int Sk, int H,
@@ -439,17 +1079,22 @@ int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_CASE(DK, DV)                                                     \
-  if (dk == DK && dv == DV)                                                 \
-    return launch<DK, DV>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, bf16,   \
-                          scale, causal, window, st);
-  // the head sizes compiled in (flash_attention.HEAD_DIMS)
-  FA_CASE(32, 16)
-  FA_CASE(32, 32)
-  FA_CASE(64, 64)
-  FA_CASE(128, 128)
-#undef FA_CASE
-  return cudaErrorInvalidValue;
+#define FA_ARGS q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, scale, causal, window, st
+  switch (variant_of(bf16, dk, dv)) {
+    case V_WGMMA:
+      return dk == 64 ? launch_wgmma<64>(FA_ARGS) : launch_wgmma<128>(FA_ARGS);
+    case V_MMA_SYNC:
+      return dv == 16 ? launch_mma_sync<32, 16>(FA_ARGS)
+                      : launch_mma_sync<32, 32>(FA_ARGS);
+    case V_F32:
+      if (dk == 32) return dv == 16 ? launch_f32<32, 16>(FA_ARGS)
+                                    : launch_f32<32, 32>(FA_ARGS);
+      return dk == 64 ? launch_f32<64, 64>(FA_ARGS)
+                      : launch_f32<128, 128>(FA_ARGS);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FA_ARGS
 }
 
 const char* fa_error_string(int err) {

@@ -1,19 +1,33 @@
-"""Launch wrapper of the hand-written CUDA kernel in
+"""Launch wrapper of the hand-written CUDA kernels in
 ``csrc/flash_attention.cu``.
 
-It replaces the Pallas kernel of ``repro/kernels/flash_attention.py``:
+They replace the Pallas kernel of ``repro/kernels/flash_attention.py``:
 GQA attention with an online softmax, positional masks (causal, sliding
 window, ``kv_pos < 0``), KV tiles with no visible key skipped, and
-``Dk != Dv``.  bf16 inputs run their products on the tensor cores
-(``mma.sync``, float32 accumulate), float32 inputs in full float32 on the
-CUDA cores.  The wrapper checks device, dtype, shape, alignment and
-contiguity, allocates the output, launches on the current stream, raises
-on a non-zero ``cudaError_t`` and counts the launch in
-``launch.launches``.  The plain version is ``ref.attention``;
-``ops.attention`` picks between the two by the tensor's device.
+``Dk != Dv``.  ``fa_forward`` picks one of three kernels by a fixed rule
+from the dtype and the head sizes ``(Dk, Dv)``; the name of the one that
+ran is :data:`last_variant` after each call, and :func:`variant` gives it
+beforehand:
+
+- ``"wgmma_tma"``: bf16 at ``(64, 64)`` and ``(128, 128)`` (the models'
+  head sizes): TMA loads into a two-stage ring driven by a producer
+  warpgroup, ``wgmma`` products for two consumer warpgroups, float32
+  accumulate; tensor maps built per call through
+  ``cudaGetDriverEntryPoint``;
+- ``"mma_sync"``: bf16 at ``(32, 16)`` and ``(32, 32)``: ``mma.sync``
+  products, float32 accumulate;
+- ``"f32_cuda_cores"``: float32 at every head size of :data:`HEAD_DIMS`,
+  in full float32 on the CUDA cores.
+
+There is no fallback between them: a refused launch raises.  The wrapper
+checks device, dtype, shape, alignment and contiguity, allocates the
+output, launches on the current stream, raises on a non-zero
+``cudaError_t`` and counts the launch in ``launch.launches``.  The plain
+version is ``ref.attention``; ``ops.attention`` picks between the two by
+the tensor's device.
 
 Limits: head sizes ``(Dk, Dv)`` in :data:`HEAD_DIMS`, ``H % Hkv == 0``,
-``B`` and ``H`` up to 65535, any ``Sq, Sk >= 1`` (the kernel masks the
+``B`` and ``H`` up to 65535, any ``Sq, Sk >= 1`` (the kernels mask the
 ragged edge as the TPU wrapper's padding does: ``q_pos = 2**30`` past
 ``Sq``, ``kv_pos = -1`` past ``Sk``).  The JAX package falls back to its
 reference on shapes its kernel does not take; this wrapper raises.
@@ -30,9 +44,25 @@ HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (128, 128))
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
+VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores")
+
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                            _i, _i, _i, ctypes.c_float, _i, _i, _vp]}
+                            _i, _i, _i, ctypes.c_float, _i, _i, _vp],
+             "fa_variant": [_i, _i, _i]}
+
+# The kernel the last call launched (one of VARIANTS).
+last_variant = None
+
+
+def variant(dtype, Dk: int, Dv: int) -> str:
+    """The kernel ``fa_forward`` runs for this dtype and these head
+    sizes, as the library's own rule gives it."""
+    lib = load_lib("flash_attention", _ARGTYPES, "fa_error_string")
+    v = lib.fa_variant(int(dtype == torch.bfloat16), Dk, Dv)
+    if v < 0:
+        raise ValueError(f"no kernel for {dtype} at (Dk={Dk}, Dv={Dv})")
+    return VARIANTS[v]
 
 
 def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
@@ -77,4 +107,6 @@ def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
             -1 if window is None else int(window), stream(dev))
     raise_on(lib, err, "flash_attention")
     launches["flash_attention"] += 1
+    global last_variant
+    last_variant = variant(q.dtype, Dk, Dv)
     return out

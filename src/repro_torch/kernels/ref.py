@@ -118,6 +118,54 @@ def _block_mask(q_pos, kv_pos, causal, window):
     return valid
 
 
+TILE_SKIP, TILE_FULL, TILE_PARTIAL = 0, 1, 2
+
+
+def attention_tile_classes(q_pos, kv_pos, causal, window, bq, bk):
+    """[B, ceil(Sq/bq), ceil(Sk/bk)] int8 class of each (query block, KV
+    tile), the rule of the CUDA ``flash_attention``'s wgmma kernel.  From
+    the range [kmin, kmax] of a tile's non-negative key positions, whether
+    any key is masked (``kv_pos < 0``, or past Sk), and the range [qmin,
+    qmax] of the block's query positions (rows past Sq left out):
+
+    - ``TILE_SKIP``: no key, or causal and kmin > qmax, or a window and
+      kmax <= qmin - window: no pair can be visible;
+    - ``TILE_FULL``: no masked key, (not causal or kmax <= qmin) and (no
+      window or kmin > qmax - window): every pair is visible;
+    - ``TILE_PARTIAL``: the element mask is applied.
+
+    Positions compare in int32, as the element mask does."""
+    B, Sq = q_pos.shape
+    Sk = kv_pos.shape[1]
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    hi, lo = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+    qp = torch.nn.functional.pad(q_pos, (0, nq * bq - Sq), value=hi)
+    qin = torch.nn.functional.pad(torch.ones_like(q_pos, dtype=torch.bool),
+                                  (0, nq * bq - Sq), value=False)
+    qp, qin = qp.reshape(B, nq, bq), qin.reshape(B, nq, bq)
+    qmin = torch.where(qin, qp, hi).amin(-1)[:, :, None]
+    qmax = torch.where(qin, qp, lo).amax(-1)[:, :, None]
+    kp = torch.nn.functional.pad(kv_pos, (0, nk * bk - Sk),
+                                 value=-1).reshape(B, nk, bk)
+    neg = (kp < 0).any(-1)[:, None, :]
+    kmin = torch.where(kp >= 0, kp, hi).amin(-1)[:, None, :]
+    kmax = torch.where(kp >= 0, kp, lo).amax(-1)[:, None, :]
+    skip = kmin > kmax
+    full = ~neg
+    if causal:
+        skip = skip | (kmin > qmax)
+        full = full & (kmax <= qmin)
+    if window is not None:
+        w = torch.tensor(window, dtype=torch.int32)
+        skip = skip | (kmax <= qmin - w)
+        full = full & (kmin > qmax - w)
+    out = torch.full((B, nq, nk), TILE_PARTIAL, dtype=torch.int8,
+                     device=q_pos.device)
+    out[full.expand(B, nq, nk)] = TILE_FULL
+    out[skip.expand(B, nq, nk)] = TILE_SKIP
+    return out
+
+
 def attention_dense(q, k, v, *, scale, q_pos, kv_pos, causal=True,
                     window=None):
     """Naive quadratic oracle. q [B,Sq,H,Dk], k [B,Sk,Hkv,Dk],

@@ -129,3 +129,69 @@ def test_flash_wrapper_refuses_cpu_tensors():
 
 def test_jax_is_on_the_cpu():
     assert jax.default_backend() == "cpu"
+
+
+def _positions(kind, B, Sq, Sk, seed=0):
+    """``(q_pos, kv_pos)`` int32: queries at the last Sq positions, keys
+    at ``arange`` with a quarter masked ("holes"), a random permutation
+    per batch row ("shuffled"), or every key 5 positions after the first
+    query ("late_keys")."""
+    r = np.random.default_rng(seed)
+    qp = np.broadcast_to(np.arange(Sk - Sq, Sk), (B, Sq)).astype(np.int32)
+    kp = np.broadcast_to(np.arange(Sk), (B, Sk)).astype(np.int32).copy()
+    if kind == "holes":
+        kp[:, r.choice(Sk, Sk // 4, replace=False)] = -1
+    elif kind == "shuffled":
+        kp = np.stack([r.permutation(Sk) for _ in range(B)]).astype(np.int32)
+    elif kind == "late_keys":
+        kp += 5 + Sk - Sq
+    return torch.from_numpy(np.ascontiguousarray(qp)), torch.from_numpy(kp)
+
+
+# (B, Sq, Sk, causal, window, positions, bq, bk): the kernel's tiles
+# (128 x 128) on holes, shuffled keys, a window cutting through tiles,
+# ragged Sq and Sk, and smaller tiles
+TILE_CASES = {
+    "holes": (2, 256, 256, True, None, "holes", 128, 128),
+    "shuffled": (2, 256, 384, True, None, "shuffled", 128, 128),
+    "window100": (2, 384, 384, True, 100, "arange", 128, 128),
+    "ragged333": (1, 333, 333, True, None, "arange", 128, 128),
+    "noncausal_holes": (2, 200, 300, False, None, "holes", 128, 128),
+    "late_keys": (2, 200, 200, True, None, "late_keys", 128, 128),
+    "shuffled_window_small_tiles": (2, 100, 150, True, 40, "shuffled", 32,
+                                    16),
+    "sq64_sk2048_window": (1, 64, 2048, True, 300, "arange", 128, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_classes_are_sound(case):
+    """A skipped tile holds no visible (query, key) pair and a full tile
+    only visible pairs (rows past Sq and keys past Sk left out, no key
+    past Sk in a full tile), against ``ref._block_mask``."""
+    B, Sq, Sk, causal, window, kind, bq, bk = TILE_CASES[case]
+    qp, kp = _positions(kind, B, Sq, Sk, seed=5)
+    cls = ref.attention_tile_classes(qp, kp, causal, window, bq, bk)
+    assert cls.shape == (B, -(-Sq // bq), -(-Sk // bk))
+    mask = ref._block_mask(qp, kp, causal, window)
+    seen = set()
+    for b, i, j in np.ndindex(*cls.shape):
+        blk = mask[b, i * bq:(i + 1) * bq, j * bk:(j + 1) * bk]
+        c = int(cls[b, i, j])
+        seen.add(c)
+        if c == ref.TILE_SKIP:
+            assert not blk.any(), (b, i, j)
+        elif c == ref.TILE_FULL:
+            assert blk.all() and (j + 1) * bk <= Sk, (b, i, j)
+    assert ref.TILE_PARTIAL in seen
+
+
+def test_tile_classes_at_the_prefill_shape():
+    """Causal ``arange`` positions: tiles before the diagonal are full,
+    the diagonal partial, the rest skipped (qwen3's 2048-token prefill)."""
+    qp, kp = _positions("arange", 2, 2048, 2048)
+    cls = ref.attention_tile_classes(qp, kp, True, None, 128, 128)
+    i, j = np.indices((16, 16))
+    want = np.where(j < i, ref.TILE_FULL,
+                    np.where(j == i, ref.TILE_PARTIAL, ref.TILE_SKIP))
+    assert (cls.numpy() == want[None]).all()

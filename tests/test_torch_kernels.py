@@ -328,7 +328,12 @@ def test_cuda_clock_loop_does_not_sync(cuda, model):
 # window, dtype, positions).  The JAX kernel test's cases, the models'
 # head size 128 in both dtypes, ragged Sq and Sk, a window, rows that see
 # no key ("late_keys": every key sits 5 positions after the queries
-# start) and masked keys in the middle ("holes": kv_pos = -1).
+# start), masked keys in the middle ("holes": kv_pos = -1) and keys at a
+# random permutation of their slots ("shuffled"); the bf16 cases at head
+# sizes 64 and 128 run the wgmma kernel, which classes each KV tile as
+# skipped, full or partial (holes, shuffled keys, a window of 100 that
+# cuts through its 128-key tiles, a short query block over long keys, and
+# ragged Sq = Sk = 333 test that rule).
 FA_CASES = {
     "f32": (2, 128, 128, 4, 2, 32, 32, True, None, "f32", "arange"),
     "f32_d64_ragged": (1, 200, 200, 8, 8, 64, 64, True, None, "f32",
@@ -346,6 +351,20 @@ FA_CASES = {
     "no_visible_key": (2, 64, 64, 4, 2, 32, 32, True, None, "bf16",
                        "late_keys"),
     "holes": (2, 96, 96, 4, 2, 64, 64, True, None, "f32", "holes"),
+    "bf16_d128_holes": (2, 256, 256, 4, 2, 128, 128, True, None, "bf16",
+                        "holes"),
+    "bf16_d128_noncausal": (2, 200, 300, 4, 2, 128, 128, False, None,
+                            "bf16", "arange"),
+    "bf16_d128_window100": (2, 384, 384, 4, 2, 128, 128, True, 100, "bf16",
+                            "arange"),
+    "bf16_d128_shuffled": (2, 256, 384, 4, 2, 128, 128, True, None, "bf16",
+                           "shuffled"),
+    "bf16_d64_late_keys": (2, 200, 200, 4, 2, 64, 64, True, None, "bf16",
+                           "late_keys"),
+    "bf16_d128_sq64_sk2048": (1, 64, 2048, 4, 2, 128, 128, True, None,
+                              "bf16", "arange"),
+    "bf16_d128_ragged333": (1, 333, 333, 4, 2, 128, 128, True, None, "bf16",
+                            "arange"),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -362,6 +381,8 @@ def attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dtype, positions, seed=0):
         kp += 5 + Sk - Sq
     elif positions == "holes":
         kp[:, r.choice(Sk, Sk // 4, replace=False)] = -1
+    elif positions == "shuffled":
+        kp = np.stack([r.permutation(Sk) for _ in range(B)]).astype(np.int32)
     return q, k, v, np.ascontiguousarray(qp), kp
 
 
@@ -419,6 +440,28 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
                                atol=atol)
     if kind == "late_keys":             # rows that see no key return 0
         assert not got[:, :5].any()
+    want_variant = ("f32_cuda_cores" if dt == "f32" else "wgmma_tma"
+                    if (Dk, Dv) in ((64, 64), (128, 128)) else "mma_sync")
+    assert fa.last_variant == want_variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16_d128_window100", "bf16_d128_holes",
+                                  "f32", "bf16_window_dv16"])
+def test_cuda_flash_attention_is_deterministic(cuda, case):
+    """Two calls on the same inputs give bit-equal outputs (no atomics,
+    a fixed order of sums)."""
+    B, Sq, Sk, H, Hkv, Dk, Dv, causal, window, dt, kind = FA_CASES[case]
+    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind),
+                         device=cuda)
+    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    kw = dict(scale=1.0 / np.sqrt(Dk), q_pos=qp, kv_pos=kp, causal=causal,
+              window=window)
+    a = fa.flash_attention(q, k, v, **kw)
+    b = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda
