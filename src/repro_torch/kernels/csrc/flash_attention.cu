@@ -16,38 +16,46 @@
 // picked by a fixed rule from (dtype, Dk, Dv) (`variant_of`):
 //
 // - bf16 at (64, 64) and (128, 128), the models' head sizes:
-//   `fa_wgmma_kernel`, built from Hopper's asynchronous units.  One CTA of
-//   three warpgroups per (query block of 128, head, batch): a producer
-//   warpgroup (registers cut to 40 with setmaxnreg) whose one thread
-//   issues every TMA copy, and two consumer warpgroups (232 registers) of
-//   64 query rows each.  Q stays in shared memory; K and V tiles of 128
-//   keys go through a two-stage ring guarded by full/empty mbarriers, so
-//   the next tile loads while this one is multiplied.  S = Q K^T is
-//   wgmma m64n128k16 with both operands K-major in shared memory; O += P V
+//   `fa_wgmma_kernel`, built from Hopper's asynchronous units.  A
+//   persistent grid (one CTA per SM) walks the work items, one per (query
+//   block of 128, head, batch), in a snake over rounds of the grid so that
+//   the causal work evens out.  Each CTA has three warpgroups: a producer
+//   (registers cut to 40 with setmaxnreg) whose one warp classes each KV
+//   tile as it comes and whose one thread issues every TMA copy, and two
+//   consumer warpgroups (232 registers) of 64 query rows each.  Q is
+//   double-buffered, so the next item's Q loads during this one; K and V
+//   tiles of 128 keys go through a ring guarded by full/empty mbarriers,
+//   and a slot per stage names the tile it holds.  S = Q K^T is wgmma
+//   m64n128k16 with both operands K-major in shared memory; O += P V
 //   takes P from registers (the S accumulator rounded to bf16 is wgmma's A
-//   fragment) and reads V MN-major, so V is never transposed.  TMA writes
-//   every tile with 128-byte swizzle in 64-column boxes, the layout the
-//   wgmma descriptors name.  Each KV tile is classed once per CTA from its
-//   position range against the block's: skipped (not loaded), full (no
-//   mask) or partial (the element mask); the softmax is one FFMA and an
+//   fragment) and reads V MN-major, so V is never transposed.  Each
+//   consumer issues tile i's S product with tile i-1's PV product and runs
+//   tile i's softmax while the PV runs; the two consumers take turns at
+//   issuing (named barriers), so one's softmax overlaps the other's
+//   products.  TMA writes every tile with 128-byte swizzle in 64-column
+//   boxes, the layout the wgmma descriptors name.  A KV tile is skipped
+//   (not loaded), full (no mask) or partial (the element mask) from its
+//   position range against the block's; the softmax is one FFMA and an
 //   exp2 per score on full tiles.  Ragged Sq and Sk come from the tensor
 //   maps: rows past the end load as zeros, keys past Sk are masked, and
-//   the TMA store writes no row past Sq.  Tensor maps are built per call
-//   with cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint.
+//   the TMA store of O writes no row past Sq.  Tensor maps are built per
+//   call with cuTensorMapEncodeTiled, found through
+//   cudaGetDriverEntryPoint.
 // - bf16 at (32, 16) and (32, 32): `fa_bf16_kernel`, 4 warps x 16 query
 //   rows, mma.sync m16n8k16 with K and a transposed V staged in padded
 //   shared memory.
 // - float32: `fa_f32_kernel`, full float32 products on the CUDA cores (no
 //   TF32), 32 query rows x 32 keys per tile, 4 threads per query row.
 //
-// All three run query blocks heaviest first (causal: the last block sees
-// the most keys) and place the rep = H/Hkv CTAs of one KV head next to
-// each other, so their K/V tiles are read from L2 rather than device
-// memory.  The older two skip a KV tile with no visible (query, key) pair
+// The older two launch one CTA per (query block, head, batch), heaviest
+// query block first (causal: the last block sees the most keys), with the
+// rep = H/Hkv CTAs of one KV head next to each other so their K/V tiles
+// are read from L2; the wgmma kernel's items keep that order within each
+// KV head.  The older two skip a KV tile with no visible (query, key) pair
 // before loading it (`pl.when(jnp.any(valid))`, :61) and mask ragged Sq
 // and Sk in the kernel: a query row past Sq has position 2^30 and is not
 // stored, a key past Sk has position -1 (the TPU wrapper's padding,
-// :105-112), so the wrapper copies nothing.
+// :105-112).  None of the three needs the wrapper to copy anything.
 //
 // Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t,
 // fa_variant names the kernel it runs.
@@ -508,9 +516,6 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // Keeps the compiler from moving reads or writes of wgmma's registers
 // across the asynchronous product's issue or wait.
 template <int N>
@@ -594,6 +599,170 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
         "r"(1));
 }
 
+// A partial tile's element mask: bit 4j + e (row qp0) and 4j + 2 + e (row
+// qp1) for key 8j + 2tq + e of the tile starting at key k0, the layout of
+// wgmma's m64n128 accumulator.
+__device__ __forceinline__ uint64_t tile_mask(const int* kp_row, int k0,
+                                              int Sk, int tq, int qp0,
+                                              int qp1, int causal,
+                                              int window) {
+  uint64_t vis = 0ull;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + 8 * j + 2 * tq + e;
+      const int kp = col < Sk ? __ldg(kp_row + col) : -1;
+      vis |= static_cast<uint64_t>(visible(qp0, kp, causal, window))
+             << (4 * j + e);
+      vis |= static_cast<uint64_t>(visible(qp1, kp, causal, window))
+             << (4 * j + 2 + e);
+    }
+  }
+  return vis;
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (a weight below 2^-126 adds nothing a bf16 P can hold).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 128-key tile for this thread's two rows: S's
+// registers 4j..4j+3 hold keys 8j + 2tq + {0, 1} of row 0 (4j, 4j+1) and
+// row 1 (4j+2, 4j+3).  Turns s into P (float32), updates m (log2 units)
+// and this thread's share of l, and gives each row's rescale factor.
+// Scores are scaled by sl = scale * log2(e); a full tile takes one FFMA
+// and one exp2 per score, a partial one applies `vis` first.  Maxima and
+// sums run as four independent chains per row.
+__device__ __forceinline__ void softmax_tile(float* s, bool partial,
+                                             uint64_t vis, float sl,
+                                             float* m, float* l,
+                                             float* corr) {
+  float mx[2][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) mx[0][a] = mx[1][a] = NEG_INF;
+  if (partial) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      s[e] = (vis >> e) & 1ull ? s[e] * sl : NEG_INF;
+      mx[(e >> 1) & 1][(e >> 2) & 3] = fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3],
+                                             s[e]);
+    }
+  } else {  // max(s * sl) = max(s) * sl, or max(-s) * -sl if sl < 0
+    if (sl >= 0.f) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        mx[(e >> 1) & 1][(e >> 2) & 3] =
+            fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], s[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        mx[(e >> 1) & 1][(e >> 2) & 3] =
+            fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], -s[e]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      mx[0][a] *= fabsf(sl);
+      mx[1][a] *= fabsf(sl);
+    }
+  }
+  float mx0 = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  float mx1 = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+  const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
+  const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
+  corr[0] = m[0] <= NEG_INF ? 0.f : ex2(m[0] - ms0);
+  corr[1] = m[1] <= NEG_INF ? 0.f : ex2(m[1] - ms1);
+  if (partial) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      s[e] = (vis >> e) & 1ull ? ex2(s[e] - ((e & 2) ? ms1 : ms0)) : 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      s[e] = ex2(fmaf(s[e], sl, -((e & 2) ? ms1 : ms0)));
+  }
+  float sm[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) sm[(e >> 1) & 1][(e >> 2) & 3] += s[e];
+  l[0] = l[0] * corr[0] + ((sm[0][0] + sm[0][1]) + (sm[0][2] + sm[0][3]));
+  l[1] = l[1] * corr[1] + ((sm[1][0] + sm[1][1]) + (sm[1][2] + sm[1][3]));
+  m[0] = mn0;
+  m[1] = mn1;
+}
+
+// P rounded to bf16 as wgmma's register A operand: keys 16kk..16kk+15 are
+// S's column groups 2kk and 2kk + 1, in mma's A fragment order.
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*pf)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q K^T for one warpgroup's 64 rows: both operands K-major in shared
+// memory, 16 columns of the depth per step, 64-column boxes 16 KB apart.
+template <int D>
+__device__ __forceinline__ void qk_issue(float* s, uint32_t qa,
+                                         uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 128 * 128 + (kk % 4) * 32;
+    wgmma_ss_m64n128(s, sw128_desc(qa + off, 16, 1024),
+                     sw128_desc(sk + off, 16, 1024), kk > 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps P's registers, wgmma's A operand, from reuse until the product
+// that reads them has been waited for.
+__device__ __forceinline__ void fence_pf(uint32_t (*pf)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e])::"memory");
+}
+
+// O += P V for a 128-key tile: P from registers, V MN-major in shared
+// memory (transposed by wgmma), 16 keys per step, 8-key groups 1024 bytes
+// apart (SBO) and 64-column boxes 16 KB apart (LBO).
+template <int D>
+__device__ __forceinline__ void pv_issue(float* o, uint32_t (*pf)[4],
+                                         uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dv = sw128_desc(sv + kk * 16 * 128, 128 * 128, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_m64n128(o, pf[kk], dv);
+    else
+      wgmma_rs_m64n64(o, pf[kk], dv);
+  }
+}
+
+// The consumer warpgroups' turns at the tensor cores: warpgroup w waits on
+// named barrier 3 + w until the other has passed it the turn.
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int to) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + to) : "memory");
+}
+
 enum : uint8_t { TILE_SKIP = 0, TILE_FULL = 1, TILE_PARTIAL = 2 };
 constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
 
@@ -615,21 +784,38 @@ __device__ __forceinline__ uint8_t tile_class(int kmin, int kmax, bool neg,
   return TILE_PARTIAL;
 }
 
-// Shared memory of the wgmma kernel, from a 1024-byte aligned base: Q
-// (resident), a ring of STAGES K and V tiles, the mbarriers (Q; K full,
-// V full and empty per stage), the block's query range and one class per
-// KV tile.  Each tile is D / 64 boxes of 128 rows x 128 bytes.
+// Shared memory of the wgmma kernel, from a 1024-byte aligned base: two Q
+// buffers (one item's Q while the next one's loads), a ring of STAGES K
+// and V tiles, the mbarriers (Q full and Q empty per buffer; K full,
+// V full, K empty and V empty per stage), one slot per Q buffer naming
+// its item (b, h, q0; w = 0 ends the work) and one per stage naming the
+// tile it holds (index and class; index -1 ends the item).  Each tile is
+// D / 64 boxes of 128 rows x 128 bytes.
 template <int D>
 struct WgLayout {
-  static constexpr int BQ = 128, BK = 128, STAGES = 2, BOX = 128 * 128;
+  // D = 128: 2 x 32 KB of Q and 2 x 64 KB of K and V, 192 KB; D = 64:
+  // four stages, 160 KB.  (At D = 128, three stages with one Q buffer
+  // measured no faster.)
+  static constexpr int BQ = 128, BK = 128, BOX = 128 * 128;
+  static constexpr int STAGES = D == 128 ? 2 : 4, QBUF = 2;
   static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
-  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int K_OFF = QBUF * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int QR_OFF = BAR_OFF + 8 * (1 + 3 * STAGES);
-  static constexpr int CLS_OFF = QR_OFF + 8;
-  static constexpr int bytes(int n_kb) { return 1024 + CLS_OFF + n_kb; }
+  static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 * QBUF + 4 * STAGES);
+  static constexpr int SLOT_OFF = ISLOT_OFF + 16 * QBUF;
+  static constexpr int BYTES = 1024 + SLOT_OFF + 8 * STAGES;
 };
+
+// The work items in order: the rep = H / Hkv heads of one KV head next to
+// each other, then the query blocks of that KV head and batch row,
+// heaviest first, then the next KV head, so that the CTAs at work read the
+// K/V tiles of a few KV heads, which stay in L2.  CTA j of P takes items
+// j, 2P - 1 - j, 2P + j, 4P - 1 - j, ... (a snake over the rounds of P,
+// which evens out the CTAs' causal work).
+__device__ __forceinline__ int item_of(int k, int j, int P) {
+  return k * P + ((k & 1) ? P - 1 - j : j);
+}
 
 template <int D>
 __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
@@ -640,308 +826,301 @@ __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
     const int* __restrict__ kpos, int Sq, int Sk, int H, int Hkv, int B,
     float scale, int causal, int window) {
   using L = WgLayout<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES, QB = L::QBUF;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - raw);
-  const uint32_t sq = base;
-  const uint32_t qbar = base + L::BAR_OFF;
-  int* qrange = reinterpret_cast<int*>(gbase + L::QR_OFF);
-  uint8_t* cls = gbase + L::CLS_OFF;
-#define FULL_K(s) (qbar + 8 * (1 + (s)))
-#define FULL_V(s) (qbar + 8 * (1 + ST + (s)))
-#define EMPTY(s) (qbar + 8 * (1 + 2 * ST + (s)))
+  const uint32_t bar = base + L::BAR_OFF;
+  int4* islot = reinterpret_cast<int4*>(gbase + L::ISLOT_OFF);
+  int2* slot = reinterpret_cast<int2*>(gbase + L::SLOT_OFF);
+#define Q_BUF(q) (base + (q) * L::Q_BYTES)
+#define FULL_Q(q) (bar + 8 * (q))
+#define EMPTY_Q(q) (bar + 8 * (QB + (q)))
+#define FULL_K(s) (bar + 8 * (2 * QB + (s)))
+#define FULL_V(s) (bar + 8 * (2 * QB + ST + (s)))
+#define EMPTY_K(s) (bar + 8 * (2 * QB + 2 * ST + (s)))
+#define EMPTY_V(s) (bar + 8 * (2 * QB + 3 * ST + (s)))
 
   const int n_qb = (Sq + BQ - 1) / BQ, n_kb = (Sk + BK - 1) / BK;
-  // heaviest query block first; the H heads of one (block, batch) are
-  // neighbours, so the rep = H / Hkv heads of a KV head share its tiles in L2
-  const int hb = blockIdx.x % (H * B);
-  const int h = hb % H, b = hb / H;
-  const int q0 = (n_qb - 1 - static_cast<int>(blockIdx.x / (H * B))) * BQ;
-  const int hk = h / (H / Hkv);
+  const int n_items = n_qb * H * B, rep = H / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
-    mbar_init(qbar, 1);
+    for (int q = 0; q < QB; ++q) {
+      mbar_init(FULL_Q(q), 1);
+      mbar_init(EMPTY_Q(q), 2);  // one thread of each consumer warpgroup
+    }
     for (int s = 0; s < ST; ++s) {
       mbar_init(FULL_K(s), 1);
       mbar_init(FULL_V(s), 1);
-      mbar_init(EMPTY(s), 256);  // every consumer thread releases the stage
+      mbar_init(EMPTY_K(s), 256);  // every consumer thread releases K
+      mbar_init(EMPTY_V(s), 256);  // and V of the stage
     }
-    qrange[0] = INT_HI;
-    qrange[1] = INT_LO;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     fence_proxy_async();
   }
   __syncthreads();
-  if (tid < BQ) {  // the block's query range, rows past Sq left out
-    int lo = INT_HI, hi = INT_LO;
-    if (q0 + tid < Sq) lo = hi = qpos[(long long)b * Sq + q0 + tid];
+
+  if (warp < 4) {
+    // ---- producer warpgroup: for each item one warp loads Q, classes
+    // each KV tile as it comes and sends the tiles that are not skipped
+    // through the ring (one thread issues every TMA copy), then an end of
+    // item; the slots tell the consumers what each buffer holds ----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0, n = 0;  // stages sent, items sent
+    for (int item; (item = item_of(n, blockIdx.x, gridDim.x)) < n_items;
+         ++n) {
+      const int g = item / rep / n_qb;  // (batch row, KV head)
+      const int hk = g % Hkv, b = g / Hkv;
+      const int h = hk * rep + item % rep;
+      const int q0 = (n_qb - 1 - item / rep % n_qb) * BQ;
+      if (lane == 0) {
+        const int q = n % QB;
+        mbar_wait(EMPTY_Q(q), ((n / QB) & 1) ^ 1);
+        islot[q] = make_int4(b, h, q0, 1);
+        mbar_expect_tx(FULL_Q(q), L::Q_BYTES);
 #pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (lane == 0) {
-      atomicMin(&qrange[0], lo);
-      atomicMax(&qrange[1], hi);
-    }
-  }
-  __syncthreads();
-  {  // one class per KV tile, a warp per tile; producer and consumers read
-     // the same table, so they agree on the tiles that go through the ring
-    const int qmin = qrange[0], qmax = qrange[1];
-    for (int t = warp; t < n_kb; t += 12) {
-      int lo = INT_HI, hi = INT_LO;
-      bool neg = false;
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(Q_BUF(q) + c * L::BOX, &tm_q, FULL_Q(q), c * 64, h, q0,
+                      b);
+      }
+      int qmin = INT_HI, qmax = INT_LO;  // the block's rows before Sq
 #pragma unroll
-      for (int e = 0; e < BK / 32; ++e) {
-        const int j = t * BK + lane * (BK / 32) + e;
-        const int kp = j < Sk ? kpos[(long long)b * Sk + j] : -1;
-        if (kp < 0) {
-          neg = true;
-        } else {
-          lo = min(lo, kp);
-          hi = max(hi, kp);
+      for (int e = 0; e < BQ / 32; ++e) {
+        const int i = q0 + lane * (BQ / 32) + e;
+        if (i < Sq) {
+          const int qp = qpos[(long long)b * Sq + i];
+          qmin = min(qmin, qp);
+          qmax = max(qmax, qp);
         }
       }
 #pragma unroll
       for (int off = 16; off; off >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+        qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+        qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
       }
-      neg = __any_sync(0xffffffffu, neg);
-      if (lane == 0)
-        cls[t] = tile_class(lo, hi, neg, qmin, qmax, causal, window);
+      for (int t = 0; t <= n_kb; ++t) {
+        int cl = TILE_SKIP;
+        if (t < n_kb) {
+          int lo = INT_HI, hi = INT_LO;
+          bool neg = false;
+#pragma unroll
+          for (int e = 0; e < BK / 32; ++e) {
+            const int j = t * BK + lane * (BK / 32) + e;
+            const int kp = j < Sk ? kpos[(long long)b * Sk + j] : -1;
+            if (kp < 0) {
+              neg = true;
+            } else {
+              lo = min(lo, kp);
+              hi = max(hi, kp);
+            }
+          }
+#pragma unroll
+          for (int off = 16; off; off >>= 1) {
+            lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+            hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+          }
+          neg = __any_sync(0xffffffffu, neg);
+          cl = tile_class(lo, hi, neg, qmin, qmax, causal, window);
+          if (cl == TILE_SKIP) continue;
+        }
+        if (lane == 0) {  // tile t, or (t == n_kb) the end of the item
+          const int s = ring % ST;
+          const uint32_t par = ((ring / ST) & 1) ^ 1;
+          const uint32_t sk = base + L::K_OFF + s * L::KV_BYTES;
+          const uint32_t sv = base + L::V_OFF + s * L::KV_BYTES;
+          mbar_wait(EMPTY_K(s), par);
+          slot[s] = make_int2(t < n_kb ? t : -1, cl);  // published below
+          if (t < n_kb) {
+            mbar_expect_tx(FULL_K(s), L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c)
+              tma_load_4d(sk + c * L::BOX, &tm_k, FULL_K(s), c * 64, hk,
+                          t * BK, b);
+          } else {
+            mbar_arrive(FULL_K(s));
+          }
+          mbar_wait(EMPTY_V(s), par);
+          if (t < n_kb) {
+            mbar_expect_tx(FULL_V(s), L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c)
+              tma_load_4d(sv + c * L::BOX, &tm_v, FULL_V(s), c * 64, hk,
+                          t * BK, b);
+          } else {
+            mbar_arrive(FULL_V(s));
+          }
+        }
+        __syncwarp();
+        ++ring;
+      }
     }
-  }
-  __syncthreads();
-
-  if (warp < 4) {
-    // ---- producer warpgroup: one thread issues every TMA copy ----------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 0) {
-      mbar_expect_tx(qbar, L::Q_BYTES);
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(sq + c * L::BOX, &tm_q, qbar, c * 64, h, q0, b);
-      int i = 0;
-      for (int t = 0; t < n_kb; ++t) {
-        if (cls[t] == TILE_SKIP) continue;
-        const int s = i % ST;
-        mbar_wait(EMPTY(s), ((i / ST) & 1) ^ 1);
-        const uint32_t sk = base + L::K_OFF + s * L::KV_BYTES;
-        const uint32_t sv = base + L::V_OFF + s * L::KV_BYTES;
-        mbar_expect_tx(FULL_K(s), L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sk + c * L::BOX, &tm_k, FULL_K(s), c * 64, hk, t * BK,
-                      b);
-        mbar_expect_tx(FULL_V(s), L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sv + c * L::BOX, &tm_v, FULL_V(s), c * 64, hk, t * BK,
-                      b);
-        ++i;
-      }
+    if (lane == 0) {  // no more items
+      const int q = n % QB;
+      mbar_wait(EMPTY_Q(q), ((n / QB) & 1) ^ 1);
+      islot[q] = make_int4(0, 0, 0, 0);
+      mbar_arrive(FULL_Q(q));
     }
     return;
   }
 
-  // ---- two consumer warpgroups, 64 query rows each ---------------------
+  // ---- two consumer warpgroups, 64 query rows of each item each --------
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int w = warp / 4 - 1, wl = warp & 3;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int r0 = 64 * w + 16 * wl + gr, r1 = r0 + 8;  // rows of the block
-  const int qp0 = q0 + r0 < Sq ? qpos[(long long)b * Sq + q0 + r0] : PAD_QPOS;
-  const int qp1 = q0 + r1 < Sq ? qpos[(long long)b * Sq + q0 + r1] : PAD_QPOS;
+  const int tq = lane & 3;
+  const int r0 = 64 * w + 16 * wl + (lane >> 2), r1 = r0 + 8;  // block rows
   const float sl = scale * 1.4426950408889634f;  // scores in log2 units
-  const float asl = fabsf(sl);
-  const uint32_t qa = sq + w * 64 * 128;  // this warpgroup's rows of Q
-
-  // m (in log2 units) and this thread's share of l, for rows r0 and r1
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   float o[D / 2];
-#pragma unroll
-  for (int n = 0; n < D / 2; ++n) o[n] = 0.f;
   float s[BK / 2];
   uint32_t pf[BK / 16][4];
 
-  mbar_wait(qbar, 0);
-  int i = 0;
-  for (int t = 0; t < n_kb; ++t) {
-    const uint8_t c = cls[t];
-    if (c == TILE_SKIP) continue;
-    const int st = i % ST;
-    const uint32_t ph = (i / ST) & 1;
-    const uint32_t sk = base + L::K_OFF + st * L::KV_BYTES;
-    const uint32_t sv = base + L::V_OFF + st * L::KV_BYTES;
+  int ring = 0;  // stages consumed
+  for (int n = 0;; ++n) {
+    const int q = n % QB;
+    mbar_wait(FULL_Q(q), (n / QB) & 1);
+    const int4 it = islot[q];
+    if (!it.w) break;
+    const int b = it.x, h = it.y, q0 = it.z;
+    const int qp0 =
+        q0 + r0 < Sq ? qpos[(long long)b * Sq + q0 + r0] : PAD_QPOS;
+    const int qp1 =
+        q0 + r1 < Sq ? qpos[(long long)b * Sq + q0 + r1] : PAD_QPOS;
+    const int* kp_row = kpos + (long long)b * Sk;
+    const uint32_t qa = Q_BUF(q) + w * 64 * 128;  // this warpgroup's rows
 
-    // a partial tile's element mask, before S holds registers: bit 4j + e
-    // (row r0) and 4j + 2 + e (row r1) for key 8j + 2tq + e of the tile
-    uint64_t vis = ~0ull;
-    if (c == TILE_PARTIAL) {
-      vis = 0ull;
-      const int* kp_row = kpos + (long long)b * Sk;
+    // m (in log2 units) and this thread's share of l, for rows r0 and r1
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = t * BK + 8 * j + 2 * tq + e;
-          const int kp = col < Sk ? __ldg(kp_row + col) : -1;
-          vis |= static_cast<uint64_t>(visible(qp0, kp, causal, window))
-                 << (4 * j + e);
-          vis |= static_cast<uint64_t>(visible(qp1, kp, causal, window))
-                 << (4 * j + 2 + e);
-        }
-      }
-    }
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
 
-    // S = Q K^T: both operands K-major in shared memory
+    // Software pipeline over the item's tiles: tile i's S = Q K^T is
+    // issued with tile i-1's O += P V, and tile i's softmax runs while
+    // that product is in flight.  The two warpgroups take turns to issue
+    // their products (named barriers 3 and 4, warpgroup 0 first), so one's
+    // softmax overlaps the other's products.  The first tile (no PV yet)
+    // and the last PV are peeled, so no wait is conditional.
+    int st = ring % ST;
+    uint32_t ph = (ring / ST) & 1;
     mbar_wait(FULL_K(st), ph);
-    fence_regs<BK / 2>(s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::BOX + (kk % 4) * 32;
-      wgmma_ss_m64n128(s, sw128_desc(qa + off, 16, 1024),
-                       sw128_desc(sk + off, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs<BK / 2>(s);
+    int2 tile = slot[st];
+    if (tile.x >= 0) {
+      bool part = tile.y == TILE_PARTIAL;
+      uint64_t vis = part ? tile_mask(kp_row, tile.x * BK, Sk, tq, qp0, qp1,
+                                      causal, window)
+                          : ~0ull;
+      if (w == 1) turn_pass(0);
+      turn_wait(w);
+      wgmma_fence();
+      qk_issue<D>(s, qa, base + L::K_OFF + st * L::KV_BYTES);
+      wgmma_commit();
+      turn_pass(1 - w);
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(s);
+      mbar_arrive(EMPTY_K(st));
+      softmax_tile(s, part, vis, sl, m, l, corr);
+      pack_p(s, pf);
 
-    // row maxima: S's registers 4j..4j+3 hold keys 8j + 2tq + {0, 1} of
-    // rows r0 (4j, 4j+1) and r1 (4j+2, 4j+3)
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-    if (c == TILE_PARTIAL) {
+      int pst = st;  // the previous tile's stage and phase
+      uint32_t pph = ph;
+      for (;;) {
+        ++ring;
+        st = ring % ST;
+        ph = (ring / ST) & 1;
+        mbar_wait(FULL_K(st), ph);
+        tile = slot[st];
+        if (tile.x < 0) break;
+        part = tile.y == TILE_PARTIAL;
+        vis = part ? tile_mask(kp_row, tile.x * BK, Sk, tq, qp0, qp1, causal,
+                               window)
+                   : ~0ull;
+        mbar_wait(FULL_V(pst), pph);
+        turn_wait(w);
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+        qk_issue<D>(s, qa, base + L::K_OFF + st * L::KV_BYTES);
+        wgmma_commit();
+        pv_issue<D>(o, pf, base + L::V_OFF + pst * L::KV_BYTES);
+        wgmma_commit();
+        turn_pass(1 - w);
+        wgmma_wait<1>();   // S is ready; the PV product runs on
+        fence_regs<BK / 2>(s);
+        mbar_arrive(EMPTY_K(st));
+        softmax_tile(s, part, vis, sl, m, l, corr);
+        wgmma_wait<0>();   // the previous tile's PV is done: V, P are free
+        fence_regs<D / 2>(o);
+        fence_pf(pf);
+        mbar_arrive(EMPTY_V(pst));
 #pragma unroll
-      for (int e = 0; e < BK / 2; ++e) {
-        s[e] = (vis >> e) & 1ull ? s[e] * sl : NEG_INF;
-        if (e & 2)
-          mx1 = fmaxf(mx1, s[e]);
-        else
-          mx0 = fmaxf(mx0, s[e]);
+        for (int e = 0; e < D / 8; ++e) {
+          o[4 * e] *= corr[0];
+          o[4 * e + 1] *= corr[0];
+          o[4 * e + 2] *= corr[1];
+          o[4 * e + 3] *= corr[1];
+        }
+        pack_p(s, pf);
+        pst = st;
+        pph = ph;
       }
-    } else if (sl >= 0.f) {  // max(s * sl) = max(s) * sl
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      mx0 *= asl;
-      mx1 *= asl;
-    } else {                 // max(s * sl) = max(-s) * |sl|
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(-s[4 * j], -s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(-s[4 * j + 2], -s[4 * j + 3]));
-      }
-      mx0 *= asl;
-      mx1 *= asl;
+      // the last tile's O += P V
+      mbar_wait(FULL_V(pst), pph);
+      turn_wait(w);
+      fence_regs<D / 2>(o);
+      wgmma_fence();
+      pv_issue<D>(o, pf, base + L::V_OFF + pst * L::KV_BYTES);
+      wgmma_commit();
+      if (w == 0) turn_pass(1);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      fence_pf(pf);
+      mbar_arrive(EMPTY_V(pst));
     }
+    // the end of the item holds no tile: release its stage
+    mbar_arrive(EMPTY_K(st));
+    mbar_arrive(EMPTY_V(st));
+    ++ring;
+
+    // ---- epilogue: O / l in bf16 through shared memory, one TMA store --
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
-    const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
-    const float corr0 = m0 <= NEG_INF ? 0.f : exp2f(m0 - ms0);
-    const float corr1 = m1 <= NEG_INF ? 0.f : exp2f(m1 - ms1);
-    if (c == TILE_PARTIAL) {
+    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    // this warpgroup's rows of Q are read out: O takes their place, in the
+    // 128-byte swizzle the output's tensor map expects
+    uint8_t* qg = gbase + q * L::Q_BYTES;
 #pragma unroll
-      for (int e = 0; e < BK / 2; ++e)
-        s[e] = (vis >> e) & 1ull ? exp2f(s[e] - ((e & 2) ? ms1 : ms0)) : 0.f;
-    } else {                 // one FFMA and exp2 per score
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e)
-        s[e] = exp2f(fmaf(s[e], sl, -((e & 2) ? ms1 : ms0)));
+    for (int e = 0; e < D / 8; ++e) {
+      const int box = e / 8, ch = e % 8;
+      uint8_t* p0 = qg + box * L::BOX + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
+      uint8_t* p1 = qg + box * L::BOX + r1 * 128 + ((ch ^ (r1 & 7)) << 4);
+      *reinterpret_cast<uint32_t*>(p0 + 4 * tq) =
+          pack_bf16(o[4 * e] / l0, o[4 * e + 1] / l0);
+      *reinterpret_cast<uint32_t*>(p1 + 4 * tq) =
+          pack_bf16(o[4 * e + 2] / l1, o[4 * e + 3] / l1);
     }
-    float sum0 = 0.f, sum1 = 0.f;
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+    if ((tid & 127) == 0) {
+      if (q0 + 64 * w < Sq) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      sum0 += s[4 * j] + s[4 * j + 1];
-      sum1 += s[4 * j + 2] + s[4 * j + 3];
+        for (int c = 0; c < D / 64; ++c)
+          tma_store_4d(&tm_o, qa + c * L::BOX, c * 64, h, q0 + 64 * w, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      mbar_arrive(EMPTY_Q(q));  // the Q buffer may load the next item
     }
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[4 * n] *= corr0;
-      o[4 * n + 1] *= corr0;
-      o[4 * n + 2] *= corr1;
-      o[4 * n + 3] *= corr1;
-    }
-    // P rounded to bf16 as wgmma's register A operand: keys 16kk..16kk+15
-    // are S's column groups 2kk and 2kk + 1, in mma's A fragment order
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-
-    // O += P V: V read MN-major (transposed by wgmma), 16 keys per step
-    mbar_wait(FULL_V(st), ph);
-    fence_regs<D / 2>(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = sw128_desc(sv + kk * 16 * 128, L::BOX, 1024);
-      if constexpr (D == 128)
-        wgmma_rs_m64n128(o, pf[kk], dv);
-      else
-        wgmma_rs_m64n64(o, pf[kk], dv);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs<D / 2>(o);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e])::"memory");
-    mbar_arrive(EMPTY(st));
-    ++i;
   }
-
-  // ---- epilogue: O / l in bf16 through shared memory, one TMA store ----
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  l0 = fmaxf(l0, 1e-30f);
-  l1 = fmaxf(l1, 1e-30f);
-  // this warpgroup's rows of Q are read out: O takes their place, in the
-  // 128-byte swizzle the output's tensor map expects
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int box = n / 8, ch = n % 8;
-    uint8_t* p0 = gbase + box * L::BOX + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
-    uint8_t* p1 = gbase + box * L::BOX + r1 * 128 + ((ch ^ (r1 & 7)) << 4);
-    *reinterpret_cast<uint32_t*>(p0 + 4 * tq) =
-        pack_bf16(o[4 * n] / l0, o[4 * n + 1] / l0);
-    *reinterpret_cast<uint32_t*>(p1 + 4 * tq) =
-        pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
-  }
-  fence_proxy_async();
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
-  if ((tid & 127) == 0 && q0 + 64 * w < Sq) {
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      tma_store_4d(&tm_o, qa + c * L::BOX, c * 64, h, q0 + 64 * w, b);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  }
+#undef Q_BUF
+#undef FULL_Q
+#undef EMPTY_Q
 #undef FULL_K
 #undef FULL_V
-#undef EMPTY
+#undef EMPTY_K
+#undef EMPTY_V
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime, so
@@ -1006,16 +1185,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       (err = make_map(&tv, v, B, Sk, Hkv, D, L::BK)) != cudaSuccess ||
       (err = make_map(&to, out, B, Sq, H, D, 64)) != cudaSuccess)
     return err;
-  const long long n_kb = (Sk + L::BK - 1) / L::BK;
-  const long long blocks = (long long)((Sq + L::BQ - 1) / L::BQ) * H * B;
-  if (L::bytes(0) + n_kb > 232448 || blocks > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const int smem = L::bytes(static_cast<int>(n_kb));
+  // persistent: one CTA per SM (or per item, if fewer)
+  const long long items = (long long)((Sq + L::BQ - 1) / L::BQ) * H * B;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
   err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             L::BYTES);
   if (err != cudaSuccess) return err;
-  fa_wgmma_kernel<D><<<static_cast<unsigned>(blocks), 384, smem, stream>>>(
+  const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
+  fa_wgmma_kernel<D><<<grid, 384, L::BYTES, stream>>>(
       tq, tk, tv, to, qpos, kpos, Sq, Sk, H, Hkv, B, scale, causal, window);
   return cudaGetLastError();
 }
