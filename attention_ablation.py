@@ -10,14 +10,15 @@ warpgroups' turns at the tensor cores removed (``no_pingpong``), the K/V
 TMA loads replaced by bare barrier arrivals (``no_kv_loads``: wrong
 results, the time without device-memory traffic for K and V), the
 softmax replaced by a rescale of 1 (``no_softmax``: wrong results, the
-time of the products and the loads alone), and three K/V stages with one
-Q buffer in place of two and two (``three_stages``).  Every copy is built
-with the port's ``nvcc`` flags into ``build/attention_ablation/`` and
-timed on the same inputs, in turns (all copies, then all in reverse, then
-all again), at qwen3-0.6b's prefill shape causal and non-causal.  One
-JSON line per (shape, copy), also written to
-``chiprun_out/attention_ablation.jsonl``; the last line is the card's
-``nvidia-smi`` name and power limit.
+time of the products and the loads alone), three K/V stages with one
+Q buffer in place of two and two (``three_stages``), and one CTA per
+work item in place of one per SM (``cta_per_item``: the grid is not
+persistent).  Every copy is built with the port's ``nvcc`` flags into
+``build/attention_ablation/`` and timed on the same inputs, in turns
+(all copies, then all in reverse, then all again), at qwen3-0.6b's
+prefill shape causal and non-causal.  One
+JSON line per (shape, copy) on standard output; the last line is the
+card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
-OUT = ROOT / "chiprun_out" / "attention_ablation.jsonl"
 SHAPE = (8, 2048, 16, 8, 128)      # B, S, H, Hkv, D: qwen3-0.6b's prefill
 
 ABLATIONS = {
@@ -54,6 +54,7 @@ ABLATIONS = {
                     "corr[0] = corr[1] = 1.f;")],
     "three_stages": [("STAGES = D == 128 ? 2 : 4, QBUF = 2;",
                       "STAGES = D == 128 ? 3 : 4, QBUF = D == 128 ? 1 : 2;")],
+    "cta_per_item": [("items < sms ? items : sms", "items")],
 }
 
 
@@ -68,7 +69,7 @@ def build_all():
     for name, subs in ABLATIONS.items():
         text = src
         for old, new in subs:
-            if text.count(old) < 1:
+            if old not in text:
                 raise RuntimeError(f"{name}: the source no longer holds "
                                    f"{old[:60]!r}")
             text = text.replace(old, new)
@@ -123,7 +124,6 @@ def main() -> int:
     pos = pos.contiguous()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
-    lines = []
     for causal in (True, False):
         def call(lib, causal=causal):
             err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -143,19 +143,15 @@ def main() -> int:
             call(lib)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
-            lines.append(json.dumps({
+            print(json.dumps({
                 "shape": dict(zip(("B", "S", "H", "Hkv", "D"), SHAPE,
                                   strict=True)),
                 "causal": causal, "ablation": name, "ms": ms[name],
-                "max_abs_err": err}))
-            print(lines[-1], flush=True)
+                "max_abs_err": err}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    lines.append(smi)
     print(smi)
-    OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text("\n".join(lines) + "\n")
     return 0
 
 
