@@ -169,6 +169,8 @@ SSD_SHAPES = {
     # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
     "kernels_bench": (1, 1024, 8, 64, 1, 64, 128, "f32", "softplus"),
 }
+# the cases at which ssd's y limit must fail its two planted faults
+SSD_Y_FAULT_CASES = ("main", "carry")
 # mf_sgd_block's phase cases: (N, M, K, density, gamma, lam), inputs
 # N(0, 1) from a seed with NaN at every unobserved rating.  "main" is the
 # dense block of the full-width MF data (FULL_MF, built by `mf_block`),
@@ -894,10 +896,12 @@ def ssd_bound(shape, rates):
 
 def check_ssd(name, device, rates, timed: bool):
     """``ssd`` against its plain version on one shape of `SSD_SHAPES`: y
-    within ``ref.ssd_tolerance``, the final state within
-    ``ref.ssd_state_tolerance``, which must fail two planted faults (the
-    state rounded to bf16; with dt in mamba2's range, the state carried
-    into the last chunk dropped); timed at the main path's shape."""
+    within ``ref.ssd_tolerance``, which must fail two planted faults at
+    `SSD_Y_FAULT_CASES` (``ref.ssd_chunked_y_fault``: each chunk scanned
+    alone, the state one chunk late), the final state within
+    ``ref.ssd_state_tolerance``, which must fail two (the state rounded
+    to bf16; with dt in mamba2's range, the state carried into the last
+    chunk dropped); timed at the main path's shape."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
     shape = SSD_SHAPES[name]
@@ -917,17 +921,27 @@ def check_ssd(name, device, rates, timed: bool):
         alone = ref.ssd_chunked(x[:, last], dt[:, last], A, B[:, last],
                                 C[:, last], chunk)[1]
         faults["no_carry"] = (alone - st_want).abs().max().item()
+    y_faults = {f: (ref.ssd_chunked_y_fault(x, dt, A, B, C, chunk, f)
+                    .float() - y_want.float()).abs().max().item()
+                for f in ("chunks_alone", "state_late")
+                if name in SSD_Y_FAULT_CASES}
     rec = {"phase": "kernels", "kernel": "ssd", "case": name,
+           "variant": ssd_scan.last_variant,
            "shape": dict(zip(("b", "s", "h", "p", "g", "n", "chunk"),
                              shape[:7], strict=True)), "dtype": shape[7],
            "dt": shape[8], "max_abs_err": max(err_y, err_st),
            "max_abs_err_y": err_y, "max_abs_err_state": err_st, "tol": tol,
+           "planted_fault_y_err": y_faults,
            "state_scale": st_want.abs().max().item(), "tol_state": tol_st,
            "planted_fault_state_err": faults}
     del y, st, y_want, st_want
     if not (err_y <= tol and err_st <= tol_st):
         emit(rec)
         raise AssertionError(f"ssd disagrees with its plain version "
+                             f"({name}): {rec}")
+    if y_faults and min(y_faults.values()) <= tol:
+        emit(rec)
+        raise AssertionError(f"ssd's y limit passes a planted fault "
                              f"({name}): {rec}")
     if min(faults.values()) <= tol_st:
         emit(rec)

@@ -254,9 +254,35 @@ def ssd_chunked(x, dt, A, B, C, chunk):
     which leave the carried state as it was.  As in the JAX reference,
     the scores ``C·Bᵀ`` have B's dtype (bfloat16 on the models' path).
     """
+    y_intra, c_decayed, prev_states, state = _ssd_parts(x, dt, A, B, C,
+                                                        chunk)
+    return _ssd_output(x, y_intra, c_decayed, prev_states), state
+
+
+def ssd_chunked_y_fault(x, dt, A, B, C, chunk, fault: str):
+    """``y`` of `ssd_chunked` with one planted fault in the inter-chunk
+    term, the part a chunk loop can get wrong: ``"chunks_alone"`` drops
+    it (each chunk scanned from a zero state), ``"state_late"`` computes
+    chunk c's term from the state before chunk c - 1 (zero for chunks 0
+    and 1).  `ssd_tolerance` must fail both."""
+    y_intra, c_decayed, prev_states, _ = _ssd_parts(x, dt, A, B, C, chunk)
+    if fault == "chunks_alone":
+        prev_states = torch.zeros_like(prev_states)
+    elif fault == "state_late":
+        prev_states = torch.cat([torch.zeros_like(prev_states[:, :1]),
+                                 prev_states[:, :-1]], dim=1)
+    else:
+        raise ValueError(f"unknown SSD fault {fault!r}")
+    return _ssd_output(x, y_intra, c_decayed, prev_states)
+
+
+def _ssd_parts(x, dt, A, B, C, chunk):
+    """The pieces of `ssd_chunked` over the padded sequence: the
+    intra-chunk output ``y_intra [b, nc, l, h, p]``, ``C·e^cum``
+    ``[b, nc, l, h, n]`` (float32), the state entering each chunk
+    ``[b, nc, h, p, n]`` and the final state."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    s_orig = s
     if s % chunk:
         pad = chunk - s % chunk
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
@@ -294,12 +320,15 @@ def ssd_chunked(x, dt, A, B, C, chunk):
         prev.append(state)
         state = state * chunk_decay[:, c, :, None, None] + state_c[:, c]
     prev_states = torch.stack(prev, dim=1)                  # [b,nc,h,p,n]
+    return y_intra, Ch.float() * torch.exp(cum)[..., None], prev_states, state
 
-    y_inter = torch.einsum("bclhn,bchpn->bclhp",
-                           Ch.float() * torch.exp(cum)[..., None],
-                           prev_states)
-    y = (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
-    return y[:, :s_orig], state
+
+def _ssd_output(x, y_intra, c_decayed, prev_states):
+    """``y`` in x's dtype, cut to x's length, from `_ssd_parts`."""
+    b, s, h, p = x.shape
+    y_inter = torch.einsum("bclhn,bchpn->bclhp", c_decayed, prev_states)
+    y = (y_intra + y_inter).reshape(b, -1, h, p).to(x.dtype)
+    return y[:, :s]
 
 
 def ssd_recurrent(x, dt, A, B, C, state):

@@ -110,6 +110,46 @@ def test_ssd_chunked_carries_state_like_jax(d):
     assert (last - got[1]).abs().max() > 100 * ref.ssd_state_tolerance(got[1])
 
 
+@pytest.mark.parametrize(("d", "mamba_dt"), [("bf16", False),
+                                              ("bf16", True), ("f32", True)])
+def test_ssd_y_tolerance_fails_planted_faults(d, mamba_dt):
+    """``ref.ssd_tolerance`` fails both planted faults of the inter-chunk
+    term (`ref.ssd_chunked_y_fault`), at dt softplus'd and in mamba2's
+    range: each chunk scanned alone, and the state one chunk late."""
+    b, s, h, p, g, n, chunk = 2, 200, 4, 32, 2, 32, 32
+    _, tx = _both(*_inputs(b, s, h, p, g, n, seed=5, mamba_dt=mamba_dt), d)
+    y = ref.ssd_chunked(*tx, chunk)[0]
+    tol = ref.ssd_tolerance(y, y.dtype)
+    for fault in ("chunks_alone", "state_late"):
+        yf = ref.ssd_chunked_y_fault(*tx, chunk, fault)
+        assert yf.shape == y.shape and yf.dtype == y.dtype
+        assert (yf.float() - y.float()).abs().max() > 10 * tol
+    with pytest.raises(ValueError, match="unknown SSD fault"):
+        ref.ssd_chunked_y_fault(*tx, chunk, "no_such_fault")
+
+
+def test_ssd_y_faults_are_what_they_name():
+    """``chunks_alone`` is the scan of each chunk on its own (the chunks
+    as a batch); ``state_late`` over two chunks is the same, since both
+    chunks then see the state before chunk 0, which is zero."""
+    b, s, h, p, g, n, chunk = 2, 128, 4, 16, 2, 16, 32
+    _, tx = _both(*_inputs(b, s, h, p, g, n, seed=6, mamba_dt=True), "f32")
+    x, dt, A, B, C = tx
+    nc = s // chunk
+    alone = ref.ssd_chunked(x.reshape(b * nc, chunk, h, p),
+                            dt.reshape(b * nc, chunk, h), A,
+                            B.reshape(b * nc, chunk, g, n),
+                            C.reshape(b * nc, chunk, g, n), chunk)[0]
+    torch.testing.assert_close(
+        ref.ssd_chunked_y_fault(x, dt, A, B, C, chunk, "chunks_alone"),
+        alone.reshape(b, s, h, p), rtol=1e-6, atol=1e-6)
+    x2, dt2, B2, C2 = (t[:, :2 * chunk] for t in (x, dt, B, C))
+    torch.testing.assert_close(
+        ref.ssd_chunked_y_fault(x2, dt2, A, B2, C2, chunk, "state_late"),
+        ref.ssd_chunked_y_fault(x2, dt2, A, B2, C2, chunk, "chunks_alone"),
+        rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("d", ["f32", "bf16"])
 def test_ssd_recurrent_matches_jax(d):
     b, h, p, g, n = 3, 8, 16, 2, 32
