@@ -743,12 +743,13 @@ def attention_bound(q, k, v, qp, kp, causal, window, rates):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", pairs
 
 
-def wgmma_ptxas() -> list[str]:
-    """The ptxas lines (registers, shared memory, spills) of the wgmma
-    attention kernel, from the build's log."""
+def kernel_ptxas(source: str, entry: str) -> list[str]:
+    """The ptxas lines (registers, shared memory, spills) of the kernels
+    of ``csrc/<source>.cu`` whose name holds ``entry``, from the build's
+    log."""
     from repro_torch.kernels import build
-    log = (build._build_dir() / "flash_attention.log").read_text()
-    return [ln for ln in ptxas_report(log) if "fa_wgmma_kernel" in ln]
+    log = (build._build_dir() / f"{source}.log").read_text()
+    return [ln for ln in ptxas_report(log) if entry in ln]
 
 
 def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol):
@@ -843,7 +844,7 @@ def check_flash_attention(name, device, rates, timed: bool):
             n: int((cls == c).sum()) for n, c in (
                 ("skip", ref.TILE_SKIP), ("full", ref.TILE_FULL),
                 ("partial", ref.TILE_PARTIAL))}
-        rec["ptxas"] = wgmma_ptxas()
+        rec["ptxas"] = kernel_ptxas("flash_attention", "fa_wgmma_kernel")
     emit(rec)
     return rec
 
@@ -953,7 +954,8 @@ def check_ssd(name, device, rates, timed: bool):
             ms=time_ms(lambda: ssd_scan.ssd(x, dt, A, B, C, chunk=chunk), 10),
             plain_ms=time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, chunk),
                              3),
-            library_ms=None, bound_ms=bound, bound_by=by)
+            library_ms=None, bound_ms=bound, bound_by=by,
+            ptxas=kernel_ptxas("ssd_scan", "split_kernel"))
     emit(rec)
     return rec
 

@@ -1,22 +1,36 @@
-"""Launch wrapper of the hand-written CUDA kernel in ``csrc/ssd_scan.cu``.
+"""Launch wrapper of the hand-written CUDA kernels in ``csrc/ssd_scan.cu``.
 
-It replaces the Pallas kernel of ``repro/kernels/ssd_scan.py``: the
+They replace the Pallas kernel of ``repro/kernels/ssd_scan.py``: the
 Mamba-2 SSD chunked scan (the intra-chunk dual form, the inter-chunk
-state carried across chunks), returning ``y`` and the final state.  The
-wrapper checks device, dtype, shape and contiguity, picks how many rows
-of the chunk's score matrix the kernel keeps in shared memory at once,
-allocates both outputs, launches on the current stream, raises on a
-non-zero ``cudaError_t`` and counts the launch in ``launch.launches``.
-The plain version is ``ref.ssd_chunked``; ``ops.ssd`` picks between the
-two by the tensor's device.
+state carried across chunks), returning ``y`` and the final state.
+``ssd_forward`` picks one of two kernels by a fixed rule; the name of the
+one that ran is :data:`last_variant` after each call, and :func:`variant`
+gives it beforehand:
+
+- ``"p_split"``: bf16 at ``n <= 128`` and ``chunk <= 128`` (the models'
+  path): one CTA of 8 warps per (b, h) and 32-wide slice of the head
+  dimension, chunk c+1's inputs loaded by ``cp.async`` while chunk c
+  computes, the scores on ``mma.sync`` kept in registers, the three
+  float32 products as 8 x 8 register tiles on the CUDA cores;
+- ``"per_head"``: float32, and bf16 past those limits: one CTA per
+  (b, h), the scores in shared memory a block of rows at a time.
+
+The wrapper checks device, dtype, shape, alignment and contiguity, picks
+(for ``"per_head"``) how many rows of the chunk's score matrix the kernel
+keeps in shared memory at once, allocates both outputs, launches on the
+current stream, raises on a non-zero ``cudaError_t`` and counts the
+launch in ``launch.launches``.  The plain version is
+``ref.ssd_chunked``; ``ops.ssd`` picks between the two by the tensor's
+device.
 
 Limits: ``p % 4 == 0``, ``n % 16 == 0``, ``chunk % 16 == 0``, ``g | h``,
-and a chunk whose tiles fit in a CTA's shared memory (at ``p = 64``,
-``n = 128``, ``chunk = 128``: 207 KB in bf16, 221 KB in float32 of the
-H100's 227 KB).  Any ``s >= 1``: the kernel reads rows past ``s`` as
-``dt = 0, x = 0`` (the reference's padding) and does not store them.  The
-JAX package falls back to its reference where ``s % chunk != 0``; this
-wrapper does not.
+16-byte aligned ``x``, B and C, and for ``"per_head"`` a chunk whose
+tiles fit in a CTA's shared memory (at ``p = 64``, ``n = 128``, ``chunk =
+128``: 221 KB in float32 of the H100's 227 KB); ``"p_split"`` takes
+226.5 KB at ``n = chunk = 128``.  Any ``s >= 1``: both kernels read rows
+past ``s`` as ``dt = 0, x = 0`` (the reference's padding) and do not store
+them.  The JAX package falls back to its reference where ``s % chunk !=
+0``; this wrapper does not.
 """
 from __future__ import annotations
 
@@ -27,19 +41,31 @@ import torch
 from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 
 DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("p_split", "per_head")
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ssd_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _vp] + [_i] * 9 + [_vp],
     "ssd_smem_bytes": [_i, _i, _i, _i, _i],
     "ssd_max_smem": [_i],
+    "ssd_variant": [_i, _i, _i],
 }
+
+# The kernel the last call launched (one of VARIANTS).
+last_variant = None
 
 
 def _lib():
     lib = load_lib("ssd_scan", _ARGTYPES, "ssd_error_string")
     lib.ssd_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def variant(dtype, n: int, chunk: int) -> str:
+    """The kernel ``ssd_forward`` runs for this dtype, ``n`` and chunk,
+    as the library's own rule gives it."""
+    return VARIANTS[_lib().ssd_variant(int(dtype == torch.bfloat16), n,
+                                       chunk)]
 
 
 def score_rows(lib, device, p: int, n: int, chunk: int, bf16: bool) -> int:
@@ -79,9 +105,14 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     check("A", A, torch.float32, (h,), dev)
     check("B", B, x.dtype, (b, s, g, n), dev)
     check("C", C, x.dtype, (b, s, g, n), dev)
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    global last_variant
     bf16 = x.dtype == torch.bfloat16
     lib = _lib()
-    rb = score_rows(lib, dev, p, n, chunk, bf16)
+    kind = variant(x.dtype, n, chunk)
+    rb = score_rows(lib, dev, p, n, chunk, bf16) if kind == "per_head" else 0
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -90,5 +121,6 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
                               state.data_ptr(), b, s, h, p, g, n, chunk, rb,
                               int(bf16), stream(dev))
     raise_on(lib, err, "ssd")
+    last_variant = kind
     launches["ssd"] += 1
     return y, state

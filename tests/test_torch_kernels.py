@@ -407,7 +407,13 @@ def ssd_case(b, s, h, p, g, n, seed=0, mamba_dt=False):
 # ssd's cases on the card: (b, s, h, p, g, n, chunk, dtype).  The JAX
 # kernel test's cases, ragged s, the models' width (h 24, p 64, g 3,
 # n 128, chunk 128) in bf16, and in float32 where the score block is cut
-# to fit shared memory; "_carry" cases take mamba2's dt range.
+# to fit shared memory; "_carry" cases take mamba2's dt range.  Then the
+# bf16 kernel's partition (a CTA per (b, h) and 32-wide slice of p): p of
+# one slice, p ending inside a slice (48, and 36, not a multiple of 8),
+# h/g of 1 and 8, s shorter than a chunk and ragged inside the last,
+# grids of 60 and 240 CTAs (not multiples of 132 SMs), chunk and n of 16
+# and 48, n 112 at chunk 80; and bf16 past its limits (n 256, chunk 256),
+# which the per-head kernel takes.
 SSD_CASES = {
     "f32": (2, 128, 4, 32, 2, 32, 32, "f32"),
     "f32_p64": (1, 256, 8, 64, 1, 64, 64, "f32"),
@@ -416,7 +422,27 @@ SSD_CASES = {
     "bf16_full_width": (1, 300, 24, 64, 3, 128, 128, "bf16"),
     "f32_full_width_ragged": (1, 300, 6, 64, 3, 128, 128, "f32"),
     "bf16_full_width_carry": (1, 1000, 24, 64, 3, 128, 128, "bf16"),
+    "bf16_one_slice": (2, 256, 4, 32, 2, 64, 64, "bf16"),
+    "bf16_p48_carry": (1, 300, 4, 48, 2, 64, 128, "bf16"),
+    "bf16_p36": (1, 200, 2, 36, 1, 32, 32, "bf16"),
+    "bf16_one_head_per_group": (1, 256, 4, 64, 4, 128, 128, "bf16"),
+    "bf16_eight_heads_per_group": (1, 256, 8, 64, 1, 128, 128, "bf16"),
+    "bf16_s_below_chunk": (2, 50, 4, 64, 2, 128, 128, "bf16"),
+    "bf16_ragged_333_carry": (1, 333, 4, 64, 2, 128, 128, "bf16"),
+    "bf16_grid60": (3, 300, 10, 64, 2, 128, 128, "bf16"),
+    "bf16_grid240_carry": (5, 256, 24, 64, 3, 128, 128, "bf16"),
+    "bf16_chunk16_n16": (1, 100, 4, 32, 2, 16, 16, "bf16"),
+    "bf16_chunk48_n48_carry": (1, 200, 4, 64, 2, 48, 48, "bf16"),
+    "bf16_chunk80_n112": (1, 300, 2, 64, 1, 112, 80, "bf16"),
+    "bf16_n256_per_head": (1, 200, 2, 64, 1, 256, 64, "bf16"),
+    "bf16_chunk256_per_head": (1, 300, 2, 64, 1, 64, 256, "bf16"),
 }
+
+
+def ssd_variant(n, chunk, dt_):
+    """The kernel the wrapper's rule names for an SSD case."""
+    return ("p_split" if dt_ == "bf16" and n <= 128 and chunk <= 128
+            else "per_head")
 
 
 @pytest.mark.cuda
@@ -502,6 +528,26 @@ def test_cuda_ssd_matches_plain_version(cuda, case):
     assert (y.float() - y_want.float()).abs().max().item() <= tol
     tol_st = ref.ssd_state_tolerance(st_want)
     assert (state - st_want).abs().max().item() <= tol_st
+    assert ssd_scan.last_variant == ssd_variant(n, chunk, dt_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16_full_width_carry", "bf16_p36",
+                                  "bf16_ragged", "f32"])
+def test_cuda_ssd_is_deterministic(cuda, case):
+    """Two calls on the same inputs give bit-equal outputs (no atomics,
+    a fixed order of sums)."""
+    b, s, h, p, g, n, chunk, dt_ = SSD_CASES[case]
+    x, dt, A, B, C = _t(*ssd_case(b, s, h, p, g, n,
+                                  mamba_dt=case.endswith("_carry")),
+                        device=cuda)
+    x, B, C = (t.to(DTYPES[dt_]) for t in (x, B, C))
+    y1, st1 = ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
+    y2, st2 = ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    bits = torch.int16 if y1.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(y1.view(bits), y2.view(bits))
+    assert torch.equal(st1.view(torch.int32), st2.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -518,6 +564,9 @@ def test_cuda_ssd_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan.ssd(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2),
                      C, chunk=32)
+    shifted = torch.empty(B.numel() + 1, dtype=B.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan.ssd(x, dt, A, shifted.view(B.shape).copy_(B), C, chunk=32)
 
 
 # mf_sgd_block's cases on the card: (N, M, K, density).  The JAX kernel
