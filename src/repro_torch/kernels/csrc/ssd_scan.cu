@@ -51,7 +51,11 @@
 //    a second buffer by cp.async while chunk c computes; the cumsum is a
 //    warp scan that every warp runs (its order differs from the
 //    reference's, which both limits cover), so x_bar and x_tilde are made
-//    in one pass; two barriers per chunk.  The scores stay on mma.sync:
+//    in one pass; two barriers per chunk.  With only 8 warps an SM
+//    hides latency by independent work inside each warp: the key-tile
+//    loop is split into branch-free loops, and at n = chunk = 128 (a
+//    compile-time instance) the state update's key steps run interleaved
+//    with C state^T's k steps.  The scores stay on mma.sync:
 //    a variant with wgmma (A from registers, B by TMA) ran 1.4x slower
 //    than the mma.sync kernel of the time, since reading its accumulator
 //    by key tile forces the tile loop to be unrolled.
@@ -555,6 +559,45 @@ __device__ __forceinline__ int cg(int m) {
   return 16 * (m & 1) + 8 * (m >> 1);
 }
 
+// acc += B[j][k0 .. k0 + 7]^T x_tilde[j][this lane's columns]: one key of
+// the state update
+__device__ __forceinline__ void state_step(float (&acc)[8][8],
+                                           const __nv_bfloat16* b_s,
+                                           const float* xt, int j, int k0,
+                                           int cs, int bs) {
+  const uint4 bq = *reinterpret_cast<const uint4*>(b_s + j * bs + k0);
+  const float* xr = xt + j * XS + cs;
+  const float4 a0 = *reinterpret_cast<const float4*>(xr);
+  const float4 a1 = *reinterpret_cast<const float4*>(xr + 4);
+  const uint32_t bp[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    fma8(acc[2 * i], bf_lo(bp[i]), a0, a1);
+    fma8(acc[2 * i + 1], bf_hi(bp[i]), a0, a1);
+  }
+}
+
+// state^T rows kr, kr + 1 (this lane's after the quad sum) = old e^last +
+// the chunk's sum, into st_new and st_reg
+__device__ __forceinline__ void state_store(const float (&acc)[8][8],
+                                            float (&st_reg)[2][8],
+                                            const float* st_old,
+                                            float* st_new, float decay_,
+                                            int kr, int cs, int tq) {
+  float out[2][8];
+  quad_sum(acc, out, tq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* so = st_old + (kr + r) * XS + cs;
+    float* sn = st_new + (kr + r) * XS + cs;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      st_reg[r][i] = __fadd_rn(__fmul_rn(so[i], decay_), out[r][i]);
+      sn[i] = st_reg[r][i];
+    }
+  }
+}
+
 // N, L: n and chunk fixed at compile time (the models' 128, 128), or 0:
 // read from d.
 template <int N, int L>
@@ -689,12 +732,29 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
-      // C state^T over this lane's k = 16ks + 8half + 2tq (+1)
+      // C state^T over this lane's k = 16ks + 8half + 2tq (+1); in the
+      // compile-time instance (n = chunk) the state update's key steps run
+      // interleaved with its k steps: two independent FMA streams (the
+      // generic instance would spill with both accumulators live)
+      const bool fused = N && L && L == N;  // then also warp < nk
+      float acc_s[8][8];
+      if (fused) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc_s[r][q] = 0.f;
+      }
 #pragma unroll
       for (int ks = 0; ks < 8; ++ks)
         if (ks < nk) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
+            if (fused) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                state_step(acc_s, b_s, xt, 8 * (2 * ks + half) + 2 * tq + e,
+                           16 * warp + 8 * G, cs, d.bs);
+            }
             uint32_t u[2][4];  // [lo / hi][x]: C pairs of the eight rows
             quad_gather(u[0], af[ks][2 * half]);
             quad_gather(u[1], af[ks][2 * half + 1]);
@@ -711,6 +771,9 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
             }
           }
         }
+      if (fused)
+        state_store(acc_s, st_reg, st_old, st_new, ecl[0],
+                    16 * warp + 8 * G + 2 * xq(tq), cs, tq);
 #pragma unroll
       for (int r = 0; r < 8; ++r) {  // (C state^T) e^cum
         const float e = ecum[(r & 1 ? hi0 : lo0) + (m ^ (r >> 1))];
@@ -724,7 +787,10 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
       const int n_tiles = d.l / 8 - bw;
       float part[2][4];
       scores(part, af, b_s, 0, gr, tq, nk, d.bs);
-      for (int t = 0; t < n_tiles; ++t) {
+      // tile t's products: the mirror block's rows, and block bw's while
+      // its rows see the keys (t <= bw); tile t + 1's scores are issued
+      // first
+      auto tile = [&](int t, bool lo_rows) {
         float sc[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[e] = part[0][e] + part[1][e];
@@ -745,7 +811,7 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
           fma8(acc[2 * x4 + 1], w_hi[0][x4], a0, a1);
           fma8(acc[2 * x4 + 1], w_hi[1][x4], b0, b1);
         }
-        if (t <= bw) {  // block `bw`'s rows see these keys too
+        if (lo_rows) {
           float w_lo[2][4];
           quad_gather(w_lo[0],
                       j0 <= rlo ? sc[0] * decay(c_lo, cj.x) : 0.f);
@@ -757,7 +823,10 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
             fma8(acc[2 * x4], w_lo[1][x4], b0, b1);
           }
         }
-      }
+      };
+      int t = 0;
+      for (; t <= bw; ++t) tile(t, true);
+      for (; t < n_tiles; ++t) tile(t, false);
       float out[2][8];
       quad_sum(acc, out, tq);
       const int xr_ = m ^ xq(tq);  // the quad lane whose rows these are
@@ -781,7 +850,7 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
       }
     }
 
-    if (warp < nk) {  // state^T rows k0 .. k0 + 7 += B^T x_tilde
+    if (warp < nk && !(N && L && L == N)) {  // state^T rows k0 .. k0 + 7
       const int k0 = 16 * warp + 8 * G;
       float acc[8][8];
 #pragma unroll
@@ -791,34 +860,11 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(
 #pragma unroll 2
       for (int jj = 0; jj < d.l / 8; ++jj) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * jj + 2 * tq + e;
-          const uint4 bq = *reinterpret_cast<const uint4*>(b_s + j * d.bs + k0);
-          const float* xr = xt + j * XS + cs;
-          const float4 a0 = *reinterpret_cast<const float4*>(xr);
-          const float4 a1 = *reinterpret_cast<const float4*>(xr + 4);
-          const uint32_t bp[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            fma8(acc[2 * i], bf_lo(bp[i]), a0, a1);
-            fma8(acc[2 * i + 1], bf_hi(bp[i]), a0, a1);
-          }
-        }
+        for (int e = 0; e < 2; ++e)
+          state_step(acc, b_s, xt, 8 * jj + 2 * tq + e, k0, cs, d.bs);
       }
-      float out[2][8];
-      quad_sum(acc, out, tq);
-      const float decay_ = ecl[0];
-      const int kr = k0 + 2 * xq(tq);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float* so = st_old + (kr + r) * XS + cs;
-        float* sn = st_new + (kr + r) * XS + cs;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          st_reg[r][i] = __fadd_rn(__fmul_rn(so[i], decay_), out[r][i]);
-          sn[i] = st_reg[r][i];
-        }
-      }
+      state_store(acc, st_reg, st_old, st_new, ecl[0], k0 + 2 * xq(tq), cs,
+                  tq);
     }
   }
   if (warp < nk) {
