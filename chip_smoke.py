@@ -19,9 +19,11 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
    ``scaled_dot_product_attention`` call as the library yardstick) and
    ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
    versions at the main path's shapes and at edge shapes (each record
-   naming the kernel that ran, ``variant``; at ``main`` the wgmma
-   kernel's tile classes and ptxas line, and two planted faults the limit
-   must fail), and at the shapes of the JAX package's ``kernels`` suite;
+   naming the kernel that ran, ``variant``; at ``main`` the kernel's ptxas
+   lines, which must show no spills for ``ssd``, the wgmma attention
+   kernel's tile classes, and planted faults the limits must fail: two
+   for attention, two for ssd's y at ``main`` and ``carry``, two for its
+   state), and at the shapes of the JAX package's ``kernels`` suite;
    ``mf_sgd_block`` (``check_mf_sgd``) is driven through
    ``ops.mf_sgd_block`` at the dense block of the full-width MF data
    (``main``, NaN at every unobserved rating) and at the ``kernels``
@@ -956,6 +958,12 @@ def check_ssd(name, device, rates, timed: bool):
                              3),
             library_ms=None, bound_ms=bound, bound_by=by,
             ptxas=kernel_ptxas("ssd_scan", "split_kernel"))
+        if not rec["ptxas"] or any(
+                ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                for ln in rec["ptxas"]):
+            emit(rec)
+            raise AssertionError(f"ssd's kernel spills or has no ptxas "
+                                 f"report: {rec['ptxas']}")
     emit(rec)
     return rec
 
@@ -1115,7 +1123,7 @@ def check_mf_sgd(case, device, rates, timed: bool):
 # device events carry.
 SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
                                      "fa_f32_kernel"),
-                 "ssd": ("ssd_kernel",)}
+                 "ssd": ("split::split_kernel", "ssd_kernel")}
 
 
 def profiled_run(model, prompts, new):
@@ -1213,7 +1221,12 @@ def serve_path(arch, device):
         "decode_device_ms_per_step": dec_dev / (new - 1),
         "decode_device_idle_share": 1.0 - dec_dev / dec_wall,
         "run_device_idle_share": 1.0 - full["device_ms"] / full["wall_ms"]}
+    unseen = [k for k, n in want.items()
+              if n and not pre["kernel_ms_by_name"].get(k)]
     emit(rec)
+    if unseen:  # SERVE_KERNELS must name every kernel the path launches
+        raise AssertionError(f"serve_path {arch}: the profiler saw no device "
+                             f"time for {unseen}")
     del model, prompts, res
     torch.cuda.empty_cache()
     return rec
