@@ -1120,10 +1120,11 @@ def check_mf_sgd(case, device, rates, timed: bool):
 
 
 # The port's kernels on the serving path, by the name each kernel's
-# device events carry.
+# device events carry (demangled, or mangled).
 SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
                                      "fa_f32_kernel"),
-                 "ssd": ("split::split_kernel", "ssd_kernel")}
+                 "ssd": ("split::split_kernel", "5split12split_kernel",
+                         "ssd_kernel")}
 
 
 def profiled_run(model, prompts, new):
