@@ -7,12 +7,15 @@ out, and against another checkout's kernel, on one NVIDIA GPU.
 Run from the root of a checkout.  Each ablation is a textual change to
 ``src/repro_torch/kernels/csrc/ssd_scan.cu``: the scores' ``mma.sync``
 products removed (``no_scores``: wrong results, the time without the
-tensor-core work), and chunk c+1's loads waited for as soon as they are
-issued (``no_overlap``: they no longer overlap chunk c's products).  With ``--parent DIR``, the ``ssd_scan.cu`` of the checkout at
-DIR (for example a ``git archive`` of the parent commit) is built too, as
-``parent``.  Every copy is built with the port's ``nvcc`` flags into
-``build/ssd_ablation/`` and called through the same C entry point on the
-same inputs, at mamba2-130m's prefill shape (b 8, s 2048, h 24, p 64,
+tensor-core work), chunk c+1's loads waited for as soon as they are
+issued (``no_overlap``: they no longer overlap chunk c's products), the
+state update run after C state^T instead of interleaved with it
+(``apart``), and the generic instance run at n = chunk = 128 in place of
+the compile-time one (``generic``).  With ``--parent DIR``, the
+``ssd_scan.cu`` of the checkout at DIR (for example a ``git archive`` of
+the parent commit) is built too, as ``parent``.  Every copy is built
+with the port's ``nvcc`` flags into ``build/ssd_ablation/`` and called
+through the same C entry point on the same inputs, at mamba2-130m's prefill shape (b 8, s 2048, h 24, p 64,
 g 3, n 128, chunk 128, bf16), in turns (all copies, then all in reverse,
 then all again).  One JSON line per copy on standard output, with its
 times, its error against the plain version and its ptxas lines; the last
@@ -39,6 +42,10 @@ ABLATIONS = {
                     "                 hi, p0, d);\n"
                     '    asm volatile("cp.async.wait_group 0;\\n" ::: '
                     '"memory");\n')],
+    "apart": [("const bool fused = N && L && L == N;",
+               "const bool fused = false;"),
+              ("if (warp < nk && !(N && L && L == N)) {", "if (warp < nk) {")],
+    "generic": [("if (d.n == 128 && d.l == 128)", "if (false)")],
 }
 
 
