@@ -15,11 +15,12 @@ the compile-time one (``generic``).  With ``--parent DIR``, the
 ``ssd_scan.cu`` of the checkout at DIR (for example a ``git archive`` of
 the parent commit) is built too, as ``parent``.  Every copy is built
 with the port's ``nvcc`` flags into ``build/ssd_ablation/`` and called
-through the same C entry point on the same inputs, at mamba2-130m's prefill shape (b 8, s 2048, h 24, p 64,
-g 3, n 128, chunk 128, bf16), in turns (all copies, then all in reverse,
-then all again).  One JSON line per copy on standard output, with its
-times, its error against the plain version and its ptxas lines; the last
-line is the card's ``nvidia-smi`` name and power limit.
+through the same C entry point on the same inputs, at mamba2-130m's
+prefill shape (b 8, s 2048, h 24, p 64, g 3, n 128, chunk 128, bf16), in
+turns (all copies, then all in reverse, then all again).  One JSON line
+per copy on standard output, with its times, its error against the plain
+version and its ptxas lines; the last line is the card's ``nvidia-smi``
+name and power limit.
 """
 from __future__ import annotations
 
