@@ -29,8 +29,10 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
    (``main``, NaN at every unobserved rating) and at the ``kernels``
    suite's shape, with the launch counts set to 0 just before and read
    just after, then held to its plain version within
-   ``ref.mf_sgd_tolerance`` (which must fail three planted faults at
-   ``main``), bit-equal across two calls, at edge shapes too;
+   ``ref.mf_sgd_tolerance`` (which must fail four planted faults at
+   ``main``), bit-equal across two calls, at edge shapes and the mask
+   compaction's cases too; at ``main`` each of its kernels' device time
+   from a profiled call and their ptxas lines (no spills);
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -173,25 +175,36 @@ SSD_SHAPES = {
 }
 # the cases at which ssd's y limit must fail its two planted faults
 SSD_Y_FAULT_CASES = ("main", "carry")
-# mf_sgd_block's phase cases: (N, M, K, density, gamma, lam), inputs
-# N(0, 1) from a seed with NaN at every unobserved rating.  "main" is the
-# dense block of the full-width MF data (FULL_MF, built by `mf_block`),
-# "kernels_bench" the JAX package's kernels suite's shape; then the JAX
-# kernel test's shapes, ragged N and M, the smallest block, K past 128
-# and at the kernel's limit of 256, an empty and a full block.
+# mf_sgd_block's phase cases: (N, M, K, density, gamma, lam, pattern),
+# inputs N(0, 1) from a seed with NaN at every unobserved rating.  "main"
+# is the dense block of the full-width MF data (FULL_MF, built by
+# `mf_block`), "kernels_bench" the JAX package's kernels suite's shape;
+# then the JAX kernel test's shapes, ragged N and M, the smallest block, K
+# past 128 and at the kernel's limit of 256, an empty and a full block;
+# then the cases of the mask's compaction (`mf_mask`): the Netflix density
+# at K = 100 over a few 2048-column batches, M odd (rows start at every
+# byte offset), one 64 x 64 block fully observed among empty ones, one
+# row fully observed among sparse ones, and one entry at the last row and
+# column of a ragged block.
 MF_CASES = {
-    "kernels_bench": (512, 512, 32, 0.2, 0.1, 1e-3),
-    "jax_256_256_16": (256, 256, 16, 0.3, 0.1, 1e-3),
-    "jax_128_384_32": (128, 384, 32, 0.3, 0.1, 1e-3),
-    "jax_128_128_8": (128, 128, 8, 0.3, 0.1, 1e-3),
-    "ragged": (100, 300, 12, 0.3, 0.1, 1e-3),
-    "one": (1, 1, 1, 1.0, 0.1, 1e-3),
-    "k130": (70, 150, 130, 0.3, 0.1, 1e-3),
-    "k256": (200, 300, 256, 0.3, 0.1, 1e-3),
-    "empty": (100, 300, 12, 0.0, 0.1, 1e-3),
-    "full": (130, 270, 20, 1.0, 0.1, 1e-3),
+    "kernels_bench": (512, 512, 32, 0.2, 0.1, 1e-3, "random"),
+    "jax_256_256_16": (256, 256, 16, 0.3, 0.1, 1e-3, "random"),
+    "jax_128_384_32": (128, 384, 32, 0.3, 0.1, 1e-3, "random"),
+    "jax_128_128_8": (128, 128, 8, 0.3, 0.1, 1e-3, "random"),
+    "ragged": (100, 300, 12, 0.3, 0.1, 1e-3, "random"),
+    "one": (1, 1, 1, 1.0, 0.1, 1e-3, "random"),
+    "k130": (70, 150, 130, 0.3, 0.1, 1e-3, "random"),
+    "k256": (200, 300, 256, 0.3, 0.1, 1e-3, "random"),
+    "empty": (100, 300, 12, 0.0, 0.1, 1e-3, "random"),
+    "full": (130, 270, 20, 1.0, 0.1, 1e-3, "random"),
+    "netflix_density": (1024, 2048 * 3 + 100, 100, 0.0118, 0.7, 1e-4,
+                        "random"),
+    "odd_m": (300, 1001, 100, 0.05, 0.1, 1e-3, "random"),
+    "one_block": (256, 600, 32, 0.0, 0.1, 1e-3, "block"),
+    "one_row": (200, 3000, 64, 0.01, 0.1, 1e-3, "row"),
+    "last_entry": (130, 333, 16, 0.0, 0.1, 1e-3, "last"),
 }
-MF_TILE = 128       # the column tile planted fault (b) leaves out
+MF_TILE = 128       # the columns planted fault (b) leaves out
 
 # The serving path: both ported families at full width and depth.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
@@ -988,17 +1001,33 @@ def mf_block(device):
     return (L, R, D, mask), cfg.lr, cfg.lam
 
 
+def mf_mask(N, M, density, pattern, gd, device):
+    """The observed entries of one case: uniform at ``density``, plus for
+    ``block`` the 64 x 64 block at rows 64-127 and columns 128-191, for
+    ``row`` all of row 5, for ``last`` the entry at the last row and
+    column."""
+    import torch
+    mask = torch.rand((N, M), generator=gd, device=device) < density
+    if pattern == "block":
+        mask[64:128, 128:192] = True
+    elif pattern == "row":
+        mask[5] = True
+    elif pattern == "last":
+        mask[-1, -1] = True
+    return mask
+
+
 def mf_inputs(case, device):
     """``((L, R, D, mask), gamma, lam)`` on the card for one case of
     `MF_CASES`, made from a seed, or `mf_block` for ``main``."""
     import torch
     if case == "main":
         return mf_block(device)
-    N, M, K, density, gamma, lam = MF_CASES[case]
+    N, M, K, density, gamma, lam, pattern = MF_CASES[case]
     gd = torch.Generator(device=device).manual_seed(N * M + K)
     L = torch.randn((N, K), generator=gd, device=device)
     R = torch.randn((K, M), generator=gd, device=device)
-    mask = torch.rand((N, M), generator=gd, device=device) < density
+    mask = mf_mask(N, M, density, pattern, gd, device)
     D = torch.where(mask, torch.randn((N, M), generator=gd, device=device),
                     float("nan"))
     return (L, R, D, mask), gamma, lam
@@ -1025,17 +1054,45 @@ def mf_bounds(L, R, mask, rates):
     return out, nnz
 
 
+# mf_sgd_block's kernels, by the name their device events carry
+MF_KERNELS = ("mf_pack", "mf_transpose", "mf_rows", "mf_cols", "mf_loss")
+
+
+def mf_kernel_ms(call):
+    """Device ms of each of `MF_KERNELS` in one profiled ``call`` (both of
+    ``mf_transpose``'s launches together)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    got = dict.fromkeys(MF_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in MF_KERNELS:
+                if name in e.name:
+                    got[name] += e.self_device_time_total / 1e3
+    return got
+
+
 def check_mf_sgd(case, device, rates, timed: bool):
     """``mf_sgd_block`` through ``ops.mf_sgd_block`` on one case, with the
     launch counts set to 0 just before and read just after (one launch,
     of this kernel only), then against its plain version: each output
     within ``ref.mf_sgd_tolerance``, finite, bit-equal across two calls.
-    On ``main`` the limit must also fail three planted faults made with
+    On ``main`` the limit must also fail four planted faults made with
     the plain version: (a) the mask ignored, unobserved ratings read as
     0; (b) the first `MF_TILE` columns of E left out of both products;
-    (c) the λ term dropped.  Timed on ``main`` and ``kernels_bench``,
-    beside the plain version and the three ``torch.matmul`` products
-    alone."""
+    (c) the λ term dropped; (d) one observed entry left out (the first in
+    row-major order: its E set to 0, the counts unchanged).  Timed on
+    ``main`` and ``kernels_bench``, beside the plain version and the three
+    ``torch.matmul`` products alone; at ``main`` also each of the call's
+    kernels' device time from a profiled call and their ptxas lines (no
+    spills allowed), and beside the bound the
+    mask's own floors: read twice (once a pass), and read once with its
+    two bit copies written and read back."""
     import torch
     from repro_torch.kernels import launch, mf_sgd, ops, ref
     (L, R, D, mask), gamma, lam = mf_inputs(case, device)
@@ -1060,8 +1117,7 @@ def check_mf_sgd(case, device, rates, timed: bool):
            "loss_err": err["loss"], "err": err,
            "tol": dict(zip(names, tol, strict=True)),
            "loss": want[2].item(),
-           "plan": dict(zip(("split_rows", "split_cols", "tile",
-                             "loss_partials"),
+           "plan": dict(zip(("row_words", "col_words"),
                             mf_sgd.plan(N, R.shape[1], K, L.device),
                             strict=True)),
            "bit_equal_twice": all(torch.equal(g, a) for g, a in
@@ -1081,7 +1137,11 @@ def check_mf_sgd(case, device, rates, timed: bool):
                 L, R, torch.where(mask, D, 0.0), torch.ones_like(mask),
                 gamma, lam),
             "tile_dropped": lambda: ref.mf_update(L, R, E, mask, gamma, lam),
-            "no_lambda": lambda: ref.mf_sgd_block(L, R, D, mask, gamma, 0.0)}
+            "no_lambda": lambda: ref.mf_sgd_block(L, R, D, mask, gamma, 0.0),
+            "entry_dropped": lambda: ref.mf_update(
+                L, R, ref.mf_drop_first_entry(
+                    ref.mf_residual(L, R, D, mask), mask), mask, gamma,
+                lam)}
         rec["planted_fault_err_over_tol"] = {}
         for name, fault in faults.items():
             f = fault()
@@ -1111,8 +1171,21 @@ def check_mf_sgd(case, device, rates, timed: bool):
             matmul_ms=time_ms(lambda: (L @ R, E @ R.t(), L.t() @ E), reps),
             library_ms=None, bound_ms=bounds["data"][0],
             bound_by=bounds["data"][1], dense_bound_ms=bounds["dense"][0],
-            dense_bound_by=bounds["dense"][1])
+            dense_bound_by=bounds["dense"][1],
+            mask_two_reads_ms=2 * N * R.shape[1] / rates[0] * 1e3,
+            mask_once_floor_ms=1.5 * N * R.shape[1] / rates[0] * 1e3)
         del E
+        if case == "main":
+            rec["kernel_device_ms"] = mf_kernel_ms(
+                lambda: ops.mf_sgd_block(L, R, D, mask, gamma, lam))
+            rec["ptxas"] = kernel_ptxas("mf_sgd", "mf_")
+            if not rec["ptxas"] or any(
+                    ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                    for ln in rec["ptxas"]):
+                emit(rec)
+                raise AssertionError(f"mf_sgd_block's kernels spill or have "
+                                     f"no ptxas report: {rec['ptxas']}")
+
     emit(rec)
     del L, R, D, mask
     torch.cuda.empty_cache()

@@ -5,15 +5,17 @@ step over a dense block of ratings (the masked residual, ``dL``, ``dR``
 and the loss).  The wrapper checks device, dtype, shape and contiguity,
 asks the library for the launch plan (how far each of its two passes is
 split to fill the card, cached per shape and device), allocates the
-outputs and the scratch of the split partial sums, launches on the
-current stream, raises on a non-zero ``cudaError_t`` and counts the call
+outputs and the scratch of the split partial sums (every size a function
+of the shape: the wrapper never reads the mask, so it never syncs with
+the card), launches on the current stream, raises on a non-zero ``cudaError_t`` and counts the call
 in ``launch.launches`` (one count per call; the call runs the two passes
 and the epilogue).  The plain version is ``ref.mf_sgd_block``;
 ``ops.mf_sgd_block`` picks between the two by the tensor's device.
 
 Limits: ``1 <= K <= 256`` (the JAX kernel's docstring sizes K up to 256)
 and any ``N, M >= 1`` (ragged tails are masked in the kernel, and rows
-of any alignment are read).  The Pallas
+of any alignment are read).  The kernel works only on the observed
+entries, at any density.  The Pallas
 kernel took only ``K % 8 == 0``, ``N % 8 == 0`` and ``M % 128 == 0``, and
 the JAX dispatch fell back to its reference elsewhere; this wrapper does
 not.
@@ -31,25 +33,23 @@ MAX_K = 256
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "mf_plan": [_i, _i, _i, _vp],
-    "mf_sgd_block": [_vp] * 12 + [_i] * 5 + [_f, _f, _vp],
+    "mf_sgd_block": [_vp] * 14 + [_i] * 3 + [_f, _f, _vp],
 }
-_PLANS: dict[tuple, tuple[int, int, int, int]] = {}
+_PLANS: dict[tuple, tuple[int, int]] = {}
 
 
 def _lib():
     return load_lib("mf_sgd", _ARGTYPES, "mf_error_string")
 
 
-def plan(N: int, M: int, K: int, device) -> tuple[int, int, int, int]:
-    """``(split_rows, split_cols, tile, loss_partials)`` of the launch on
-    ``device`` (its SM count and the passes' occupancy decide the
-    splits)."""
+def plan(N: int, M: int, K: int, device) -> tuple[int, int]:
+    """``(row_words, col_words)``: the 64-bit words of a row and of a
+    column of the packed mask, which size its scratch."""
     key = (N, M, K, device)
     if key not in _PLANS:
-        lib, out = _lib(), (ctypes.c_int * 4)()
-        with torch.cuda.device(device):
-            raise_on(lib, lib.mf_plan(N, M, K, ctypes.addressof(out)),
-                     "mf_sgd_block plan")
+        lib, out = _lib(), (ctypes.c_int * 2)()
+        raise_on(lib, lib.mf_plan(N, M, K, ctypes.addressof(out)),
+                 "mf_sgd_block plan")
         _PLANS[key] = tuple(out)
     return _PLANS[key]
 
@@ -72,24 +72,27 @@ def mf_sgd_block(L, R, D, mask, gamma, lam):
     check("D", D, torch.float32, (N, M), dev)
     check("mask", mask, torch.bool, (N, M), dev)
     lib = _lib()
-    split_r, split_c, _, n_loss = plan(N, M, K, dev)
+    row_words, col_words = plan(N, M, K, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    part_l = torch.empty((split_r, N, K), **f32)
-    cnt_r = torch.empty((split_r, N), **i32)
-    lossp = torch.empty((n_loss,), **f32)
-    part_r = torch.empty((split_c, K, M), **f32)
-    cnt_c = torch.empty((split_c, M), **i32)
+    i64 = dict(dtype=torch.int64, device=dev)
+    rt = torch.empty((M, K), **f32)
+    rowbits = torch.empty((N, row_words), **i64)
+    colbits = torch.empty((M, col_words), **i64)
+    drt = torch.empty((M, K), **f32)
+    lossp = torch.empty((N,), **f32)
+    cnt_r = torch.empty((N,), **i32)
+    cnt_c = torch.empty((M,), **i32)
     dL = torch.empty((N, K), **f32)
     dR = torch.empty((K, M), **f32)
     loss = torch.empty((), **f32)
     with torch.cuda.device(dev):
         err = lib.mf_sgd_block(
             L.data_ptr(), R.data_ptr(), D.data_ptr(), mask.data_ptr(),
-            part_l.data_ptr(), cnt_r.data_ptr(), lossp.data_ptr(),
-            part_r.data_ptr(), cnt_c.data_ptr(), dL.data_ptr(),
-            dR.data_ptr(), loss.data_ptr(), N, M, K, split_r, split_c,
-            float(gamma), float(lam), stream(dev))
+            rt.data_ptr(), rowbits.data_ptr(), colbits.data_ptr(),
+            drt.data_ptr(), lossp.data_ptr(), cnt_r.data_ptr(),
+            cnt_c.data_ptr(), dL.data_ptr(), dR.data_ptr(), loss.data_ptr(),
+            N, M, K, float(gamma), float(lam), stream(dev))
     raise_on(lib, err, "mf_sgd_block")
     launches["mf_sgd_block"] += 1
     return dL, dR, loss

@@ -422,6 +422,16 @@ def mf_update(L, R, E, mask, gamma, lam):
     return dL, dR, torch.sum(E * E) / cnt
 
 
+def mf_drop_first_entry(E, mask):
+    """``E`` with the first observed entry (row-major) set to 0: a planted
+    fault, one observed rating left out of both products and the loss
+    while the counts still include it (``mf_update`` on the result)."""
+    first = int(mask.reshape(-1).to(torch.int8).argmax())
+    E = E.clone()
+    E.view(-1)[first] = 0.0
+    return E
+
+
 def mf_sgd_block(L, R, D, mask, gamma, lam):
     """One SGD step over a dense block of ratings.
 
@@ -449,10 +459,15 @@ def mf_sgd_tolerance(L, R, D, mask, gamma, lam) -> tuple[float, float, float]:
     - the ``γ(· − (λ·count)·L)`` epilogue rounds the same operands twice
       more: ``4eps`` of its magnitude;
     - the loss sums non-negative terms, whose float32 sum is within
-      (longest chain of additions)·eps of the exact one: the kernel adds
-      at most 64 squares per tile, one term per tile and two trees, and
-      PyTorch's reductions a per-thread run and trees, both under
-      `MF_LOSS_CHAIN` terms at the sizes run; plus ``2|E|δE`` per entry.
+      (longest chain of additions)·eps of the exact one: the kernel sums
+      eight squares in a tree, adds at most 256 such sums in order within
+      2048 columns of a row, those sums in order along the row
+      (``ceil(M / 2048)`` of them), then the rows in runs of 64 and a
+      tree over 1024 threads: ``3 + 256 + ceil(M / 2048) + 64 +
+      ceil(N / 65536) + 10`` additions, under `MF_LOSS_CHAIN` for any
+      ``M`` below 3.5 million columns; PyTorch's reductions take a
+      per-thread run and trees, under it at the sizes run; plus
+      ``2|E|δE`` per entry.
     """
     eps = torch.finfo(torch.float32).eps
     K = L.shape[1]

@@ -569,10 +569,14 @@ def test_cuda_ssd_checks_its_inputs(cuda):
         ssd_scan.ssd(x, dt, A, shifted.view(B.shape).copy_(B), C, chunk=32)
 
 
-# mf_sgd_block's cases on the card: (N, M, K, density).  The JAX kernel
-# test's shapes, kernels_bench's, ragged N and M, the smallest block, K
-# past 128 (64-wide tiles, K padded to 192) and K = 256, an empty and a
-# full block.
+# mf_sgd_block's cases on the card: (N, M, K, density[, pattern]).  The
+# JAX kernel test's shapes, kernels_bench's, ragged N and M, the smallest
+# block, K past 128 and K = 256, an empty and a full block; then the
+# mask's compaction: the Netflix density at K = 100 over a few
+# 2048-column batches, M odd (rows start at every byte offset), one
+# 64 x 64 block fully observed among empty ones, one row fully observed
+# among sparse ones, one entry at the last row and column of a ragged
+# block (`mf_case`).
 MF_CASES = {
     "jax_256_256_16": (256, 256, 16, 0.3),
     "jax_128_384_32": (128, 384, 32, 0.3),
@@ -584,15 +588,29 @@ MF_CASES = {
     "k256": (200, 300, 256, 0.3),
     "empty": (100, 300, 12, 0.0),
     "full": (130, 270, 20, 1.0),
+    "netflix_density": (1024, 2048, 100, 0.0118),
+    "odd_m": (300, 1001, 100, 0.05),
+    "one_block": (256, 600, 32, 0.0, "block"),
+    "one_row": (200, 3000, 64, 0.01, "row"),
+    "last_entry": (130, 333, 16, 0.0, "last"),
 }
 
 
-def mf_case(N, M, K, density, seed=0):
-    """``(L, R, D, mask)``, numpy, from a seed; NaN in D where unobserved."""
+def mf_case(N, M, K, density, pattern="random", seed=0):
+    """``(L, R, D, mask)``, numpy, from a seed; NaN in D where unobserved.
+    Observed uniformly at ``density``, and for ``block`` the 64 x 64 block
+    at rows 64-127 and columns 128-191, for ``row`` all of row 5, for
+    ``last`` the entry at the last row and column."""
     r = np.random.default_rng(seed)
     L = r.standard_normal((N, K)).astype(np.float32)
     R = r.standard_normal((K, M)).astype(np.float32)
     mask = r.random((N, M)) < density
+    if pattern == "block":
+        mask[64:128, 128:192] = True
+    elif pattern == "row":
+        mask[5] = True
+    elif pattern == "last":
+        mask[-1, -1] = True
     D = np.where(mask, r.standard_normal((N, M)), np.nan).astype(np.float32)
     return L, R, D, mask
 
@@ -615,7 +633,7 @@ def test_cuda_mf_sgd_matches_plain_version(cuda, case):
         assert torch.isfinite(g).all()
         assert (g - w).abs().max().item() <= t
         np.testing.assert_array_equal(bits(g), bits(a))
-    if MF_CASES[case][3] == 0.0:
+    if not mask.any():
         assert got[2].item() == 0.0 and not got[0].any()
 
 

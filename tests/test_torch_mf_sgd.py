@@ -140,6 +140,37 @@ def test_tolerance_fails_planted_faults():
         assert max(over) > 1.0, (name, over)
 
 
+def mf_like_block(N, M, K, density, seed):
+    """MF-like data (ratings near the factors' product), numpy: the data
+    of `test_tolerance_fails_planted_faults` at its shape."""
+    r = np.random.default_rng(seed)
+    L = 0.1 * r.standard_normal((N, K)).astype(np.float32)
+    R = 0.1 * r.standard_normal((K, M)).astype(np.float32)
+    mask = r.random((N, M)) < density
+    D = np.where(mask, r.standard_normal((N, M)) * 0.3, np.nan).astype(
+        np.float32)
+    return L, R, D, mask
+
+
+@pytest.mark.parametrize(("N", "M", "K", "density"),
+                         [(256, 384, 16, 0.1), (1024, 2048, 100, 0.0118)])
+def test_tolerance_fails_one_entry_dropped(N, M, K, density):
+    """The limit sees a compaction that loses one observed entry: the
+    plain version with the first observed entry's E set to 0 and the
+    counts unchanged (``ref.mf_drop_first_entry``), on the planted-fault
+    test's data and at the Netflix density and rank."""
+    t = _t(*mf_like_block(N, M, K, density, seed=7))
+    gamma, lam = 0.7, 1e-4
+    sound = ref.mf_sgd_block(*t, gamma, lam)
+    tol = ref.mf_sgd_tolerance(*t, gamma, lam)
+    E = ref.mf_drop_first_entry(ref.mf_residual(*t), t[3])
+    assert int((E != ref.mf_residual(*t)).sum()) == 1
+    fault = ref.mf_update(t[0], t[1], E, t[3], gamma, lam)
+    over = [float((a - b).abs().max()) / tl
+            for a, b, tl in zip(fault[:2], sound[:2], tol[:2], strict=True)]
+    assert min(over) > 1.0, over
+
+
 def dense_block(L, R, ii, jj, vv, n, m):
     """The MF app's ratings as a dense block: ``mask[ii, jj]`` set,
     ``D[ii, jj] = vv`` and NaN at every unobserved entry."""
