@@ -1054,13 +1054,15 @@ def mf_bounds(L, R, mask, rates):
     return out, nnz
 
 
-# mf_sgd_block's kernels, by the name their device events carry
-MF_KERNELS = ("mf_pack", "mf_transpose", "mf_rows", "mf_cols", "mf_loss")
+# mf_sgd_block's kernels: a label each, and the names its device events
+# carry
+MF_KERNELS = {n: (n,) for n in ("mf_pack", "mf_transpose", "mf_rows",
+                                "mf_cols", "mf_loss")}
 
 
-def mf_kernel_ms(call):
-    """Device ms of each of `MF_KERNELS` in one profiled ``call`` (both of
-    ``mf_transpose``'s launches together)."""
+def mf_kernel_ms(call, kernels=MF_KERNELS):
+    """Device ms of each of ``kernels`` (label -> names) in one profiled
+    ``call``, summed over its launches (``mf_transpose`` runs twice)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -1068,12 +1070,12 @@ def mf_kernel_ms(call):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    got = dict.fromkeys(MF_KERNELS, 0.0)
+    got = dict.fromkeys(kernels, 0.0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in MF_KERNELS:
-                if name in e.name:
-                    got[name] += e.self_device_time_total / 1e3
+            for label, names in kernels.items():
+                if any(n in e.name for n in names):
+                    got[label] += e.self_device_time_total / 1e3
     return got
 
 
@@ -1117,9 +1119,6 @@ def check_mf_sgd(case, device, rates, timed: bool):
            "loss_err": err["loss"], "err": err,
            "tol": dict(zip(names, tol, strict=True)),
            "loss": want[2].item(),
-           "plan": dict(zip(("row_words", "col_words"),
-                            mf_sgd.plan(N, R.shape[1], K, L.device),
-                            strict=True)),
            "bit_equal_twice": all(torch.equal(g, a) for g, a in
                                   zip(got, again, strict=True)),
            "finite": all(bool(torch.isfinite(g).all()) for g in got)}
@@ -1185,7 +1184,6 @@ def check_mf_sgd(case, device, rates, timed: bool):
                 emit(rec)
                 raise AssertionError(f"mf_sgd_block's kernels spill or have "
                                      f"no ptxas report: {rec['ptxas']}")
-
     emit(rec)
     del L, R, D, mask
     torch.cuda.empty_cache()

@@ -102,10 +102,12 @@ def build_all(parent: Path | None, only):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        # the parent's entry points take no owned-block size
+        # the parent's entry point takes five scratch buffers and the
+        # split counts of its plan
         n_ptr, n_int = (12, 5) if name == "parent" else (14, 3)
-        lib.mf_plan.argtypes = [i, i, i, vp]
-        lib.mf_plan.restype = i
+        if name == "parent":
+            lib.mf_plan.argtypes = [i, i, i, vp]
+            lib.mf_plan.restype = i
         lib.mf_sgd_block.argtypes = [vp] * n_ptr + [i] * n_int + [f, f, vp]
         lib.mf_sgd_block.restype = i
         ptxas = chip_smoke.ptxas_report(log)
@@ -118,10 +120,6 @@ def make_call(torch, name, lib, L, R, D, mask, gamma, lam):
     outputs; returns (call, outputs)."""
     N, K = L.shape
     M = R.shape[1]
-    out = (ctypes.c_int * 8)()
-    err = lib.mf_plan(N, M, K, ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"{name}: mf_plan cudaError {err}")
     dev = L.device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -129,6 +127,10 @@ def make_call(torch, name, lib, L, R, D, mask, gamma, lam):
     if name == "parent":
         # (split_rows, split_cols, tile, loss partials): the dense-product
         # kernel's scratch of split partial sums
+        out = (ctypes.c_int * 4)()
+        err = lib.mf_plan(N, M, K, ctypes.addressof(out))
+        if err:
+            raise RuntimeError(f"{name}: mf_plan cudaError {err}")
         split_r, split_c = out[0], out[1]
         bufs = [torch.empty((split_r, N, K), **f32),
                 torch.empty((split_r, N), **i32),
@@ -137,8 +139,10 @@ def make_call(torch, name, lib, L, R, D, mask, gamma, lam):
                 torch.empty((split_c, M), **i32)]
         ints = (N, M, K, split_r, split_c)
     else:
-        bufs = [torch.empty((M, K), **f32), torch.empty((N, out[0]), **i64),
-                torch.empty((M, out[1]), **i64), torch.empty((M, K), **f32),
+        bufs = [torch.empty((M, K), **f32),
+                torch.empty((N, (M + 63) // 64), **i64),
+                torch.empty((M, (N + 63) // 64), **i64),
+                torch.empty((M, K), **f32),
                 torch.empty((N,), **f32), torch.empty((N,), **i32),
                 torch.empty((M,), **i32)]
         ints = (N, M, K)
@@ -163,37 +167,6 @@ def emit(obj) -> None:
     print(line, flush=True)
     with open(OUT, "a") as f:
         f.write(line + "\n")
-
-
-def time_ms(torch, fn, reps, warmup=2) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def kernel_ms(torch, fn):
-    """Device ms of each kernel of one call, from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    got = dict.fromkeys(KERNELS, 0.0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k, names in KERNELS.items():
-                if any(n in e.name for n in names):
-                    got[k] += e.self_device_time_total / 1e3
-    return got
 
 
 def main() -> int:
@@ -225,7 +198,7 @@ def main() -> int:
         for turn in range(3):
             names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
             for name in names:
-                ms[name].append(time_ms(torch, calls[name][0], reps))
+                ms[name].append(chip_smoke.time_ms(calls[name][0], reps))
         # the ptxas lines of the instance this shape runs
         used = f"ILi{(L.shape[1] + 31) // 32}E"
         for name, (_, ptxas) in libs.items():
@@ -238,7 +211,7 @@ def main() -> int:
                 "case": case, "shape": {"N": L.shape[0], "M": R.shape[1],
                                         "K": L.shape[1]},
                 "copy": name, "ms": ms[name],
-                "kernel_ms": kernel_ms(torch, call),
+                "kernel_ms": chip_smoke.mf_kernel_ms(call, KERNELS),
                 "err": dict(zip(("dL", "dR", "loss"), err, strict=True)),
                 "tol": dict(zip(("dL", "dR", "loss"), tol, strict=True)),
                 "ptxas": [ln for ln in ptxas if used in ln]

@@ -439,17 +439,8 @@ bool valid(int N, int M, int K) {
 
 extern "C" {
 
-// plan[2]: the bit words of a row and of a column; the scratch rowbits is
-// [N, plan[0]] and colbits [M, plan[1]].
-int mf_plan(int N, int M, int K, int* plan_out) {
-  if (!valid(N, M, K)) return (int)cudaErrorInvalidValue;
-  plan_out[0] = words_of(M);
-  plan_out[1] = words_of(N);
-  return 0;
-}
-
-// Scratch (from the wrapper, sized by mf_plan): rt and drt [M, K],
-// rowbits [N, plan[0]] and colbits [M, plan[1]] (64-bit words), lossp
+// Scratch (from the wrapper): rt and drt [M, K], rowbits
+// [N, ceil(M / 64)] and colbits [M, ceil(N / 64)] (64-bit words), lossp
 // [N], cnt_r [N], cnt_c [M].  Outputs dL [N, K], dR [K, M], loss [1].
 int mf_sgd_block(const float* L, const float* R, const float* D,
                  const unsigned char* mask, float* rt, u64* rowbits,

@@ -3,18 +3,19 @@
 It replaces the Pallas kernel of ``repro/kernels/mf_sgd.py``: one MF-SGD
 step over a dense block of ratings (the masked residual, ``dL``, ``dR``
 and the loss).  The wrapper checks device, dtype, shape and contiguity,
-asks the library for the launch plan (how far each of its two passes is
-split to fill the card, cached per shape and device), allocates the
-outputs and the scratch of the split partial sums (every size a function
-of the shape: the wrapper never reads the mask, so it never syncs with
-the card), launches on the current stream, raises on a non-zero ``cudaError_t`` and counts the call
-in ``launch.launches`` (one count per call; the call runs the two passes
-and the epilogue).  The plain version is ``ref.mf_sgd_block``;
-``ops.mf_sgd_block`` picks between the two by the tensor's device.
+allocates the outputs and the scratch (R^T, the mask packed into 64-bit
+words by rows and by columns, dR^T, and the rows' loss terms and counts:
+every size a function of the shape, so the wrapper never reads the mask
+and never syncs with the card), launches on the current stream, raises
+on a non-zero ``cudaError_t`` and counts the call in
+``launch.launches`` (one count per call; the call runs the mask's
+packing, the two passes and the epilogues).  The plain version is
+``ref.mf_sgd_block``; ``ops.mf_sgd_block`` picks between the two by the
+tensor's device.
 
 Limits: ``1 <= K <= 256`` (the JAX kernel's docstring sizes K up to 256)
 and any ``N, M >= 1`` (ragged tails are masked in the kernel, and rows
-of any alignment are read).  The kernel works only on the observed
+of any alignment are read); the kernel works only on the observed
 entries, at any density.  The Pallas
 kernel took only ``K % 8 == 0``, ``N % 8 == 0`` and ``M % 128 == 0``, and
 the JAX dispatch fell back to its reference elsewhere; this wrapper does
@@ -31,27 +32,11 @@ from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 MAX_K = 256
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "mf_plan": [_i, _i, _i, _vp],
-    "mf_sgd_block": [_vp] * 14 + [_i] * 3 + [_f, _f, _vp],
-}
-_PLANS: dict[tuple, tuple[int, int]] = {}
+_ARGTYPES = {"mf_sgd_block": [_vp] * 14 + [_i] * 3 + [_f, _f, _vp]}
 
 
 def _lib():
     return load_lib("mf_sgd", _ARGTYPES, "mf_error_string")
-
-
-def plan(N: int, M: int, K: int, device) -> tuple[int, int]:
-    """``(row_words, col_words)``: the 64-bit words of a row and of a
-    column of the packed mask, which size its scratch."""
-    key = (N, M, K, device)
-    if key not in _PLANS:
-        lib, out = _lib(), (ctypes.c_int * 2)()
-        raise_on(lib, lib.mf_plan(N, M, K, ctypes.addressof(out)),
-                 "mf_sgd_block plan")
-        _PLANS[key] = tuple(out)
-    return _PLANS[key]
 
 
 def mf_sgd_block(L, R, D, mask, gamma, lam):
@@ -72,13 +57,12 @@ def mf_sgd_block(L, R, D, mask, gamma, lam):
     check("D", D, torch.float32, (N, M), dev)
     check("mask", mask, torch.bool, (N, M), dev)
     lib = _lib()
-    row_words, col_words = plan(N, M, K, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     rt = torch.empty((M, K), **f32)
-    rowbits = torch.empty((N, row_words), **i64)
-    colbits = torch.empty((M, col_words), **i64)
+    rowbits = torch.empty((N, (M + 63) // 64), **i64)   # the mask as bits
+    colbits = torch.empty((M, (N + 63) // 64), **i64)
     drt = torch.empty((M, K), **f32)
     lossp = torch.empty((N,), **f32)
     cnt_r = torch.empty((N,), **i32)

@@ -111,17 +111,23 @@ def test_unobserved_ratings_never_reach_the_outputs():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def mf_like_block(N, M, K, density, seed):
+    """MF-like data (ratings near the factors' product), numpy: the data
+    of the planted-fault tests."""
+    r = np.random.default_rng(seed)
+    L = 0.1 * r.standard_normal((N, K)).astype(np.float32)
+    R = 0.1 * r.standard_normal((K, M)).astype(np.float32)
+    mask = r.random((N, M)) < density
+    D = np.where(mask, r.standard_normal((N, M)) * 0.3, np.nan).astype(
+        np.float32)
+    return L, R, D, mask
+
+
 def test_tolerance_fails_planted_faults():
     """The limit is tight enough to see a wrong kernel on MF-like data
     (ratings near the factors' product): the mask ignored, one 128-column
     tile of E left out of both products, the λ term dropped."""
-    r = np.random.default_rng(7)
-    N, M, K = 256, 384, 16
-    L = 0.1 * r.standard_normal((N, K)).astype(np.float32)
-    R = 0.1 * r.standard_normal((K, M)).astype(np.float32)
-    mask = r.random((N, M)) < 0.1
-    D = np.where(mask, r.standard_normal((N, M)) * 0.3, np.nan).astype(
-        np.float32)
+    L, R, D, mask = mf_like_block(256, 384, 16, 0.1, seed=7)
     t = _t(L, R, D, mask)
     gamma, lam = 0.7, 1e-4
     sound = ref.mf_sgd_block(*t, gamma, lam)
@@ -138,18 +144,6 @@ def test_tolerance_fails_planted_faults():
         over = [float((a - b).abs().max()) / tl
                 for a, b, tl in zip(f[:2], sound[:2], tol[:2], strict=True)]
         assert max(over) > 1.0, (name, over)
-
-
-def mf_like_block(N, M, K, density, seed):
-    """MF-like data (ratings near the factors' product), numpy: the data
-    of `test_tolerance_fails_planted_faults` at its shape."""
-    r = np.random.default_rng(seed)
-    L = 0.1 * r.standard_normal((N, K)).astype(np.float32)
-    R = 0.1 * r.standard_normal((K, M)).astype(np.float32)
-    mask = r.random((N, M)) < density
-    D = np.where(mask, r.standard_normal((N, M)) * 0.3, np.nan).astype(
-        np.float32)
-    return L, R, D, mask
 
 
 @pytest.mark.parametrize(("N", "M", "K", "density"),
