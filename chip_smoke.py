@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Six phases, one JSON line each (or more):
+JAX or the JAX package).  Nine phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -62,7 +62,21 @@ JAX or the JAX package).  Six phases, one JSON line each (or more):
 6. both models' smoke configs on the card against the CPU
    (``serve_card_vs_cpu``): prefill and teacher-forced decode logits within
    the stated tolerance, greedy tokens equal wherever the CPU's top-2
-   margin exceeds it.
+   margin exceeds it;
+7. LDA at full width (``FULL_LDA``: K = 100, the NYTimes vocabulary,
+   d = 10,266,000) through ``simulate`` under ``ssp(3)`` and ``essp(3)``,
+   with the MF main path's checks (one ``ring_view`` and one
+   ``vap_suffix_norms`` per clock, no host sync, finite traces, the NLL
+   falling, the staleness bound kept, a profiled run's device time and
+   idle share) and the corpus's set-up seconds;
+8. the C2-LDA figure (``bsp``, ``ssp(5)``, ``essp(5)``) through ``sweep``
+   on that app (``lda_sweep_phase``): a ``post`` of the LDA time model's
+   breakdown, one config re-run through ``simulate`` bit-equal, a second
+   sweep with ``keep_traces=False``, runs per second;
+9. ``LDAConfig()`` on the card against the CPU (``lda_card_vs_cpu``)
+   under ``ssp(3)``, ``essp(3)`` and the figure's sweep: integer Trace
+   fields equal, float fields within the ulp budget up to the first
+   sampled ``z`` that differs, and every differing draw a near tie.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -112,6 +126,22 @@ def small_wired_cfgs(cc):
                 cc.podded(cc.essp(3), 2, s_xpod=2), 2, 0.25, "int8"),
             "ssp2_wired_bf16": cc.compressed(
                 cc.podded(cc.ssp(2), 2, s_xpod=2), 3, 0.5, "bf16")}
+
+# Full-width LDA: the paper's NYTimes run (K = 100 topics) over the
+# vocabulary of the UCI bag-of-words NYTimes corpus (V = 102,660), 8
+# workers, α 0.5, β 0.1, concentration 0.05, half the tokens resampled per
+# clock: d = K·V = 10,266,000 (d % 128 = 16: ragged), a 1.64 GB ring at
+# W = 5.  Tokens are cut to 512 documents of 128 (65,536), because drawing
+# the corpus hashes tokens × V = 6.7e9 Gumbel counters.
+FULL_LDA = dict(n_docs=512, doc_len=128, vocab=102_660, n_topics=100,
+                true_topics=100, n_workers=8, alpha=0.5, beta=0.1,
+                concentration=0.05, minibatch_frac=0.5)
+LDA_CLOCKS = 30
+# A sampled topic may differ between the card and the CPU only where its
+# top-2 margin of logits + gumbel is within this many ulp of the noisy
+# values' scale (the sampler's float steps are replayed bit for bit, so
+# none is expected).
+LDA_TIE_ULP = 4.0
 
 # The card the port runs on, as torch names it, with its data-sheet peak
 # memory rate (bytes/s), float32 rate outside the tensor cores and dense
@@ -1192,6 +1222,197 @@ def check_mf_sgd(case, device, rates, timed: bool):
 
 # The port's kernels on the serving path, by the name each kernel's
 # device events carry (demangled, or mangled).
+def lda_figure_cfgs(cc):
+    """The C2-LDA figure's configs (``benchmarks/lda_convergence.py``)."""
+    return [cc.bsp(), cc.ssp(5), cc.essp(5)]
+
+
+def lda_breakdown_post(tm):
+    """A sweep ``post``: the LDA time model's comm/comp split, folded over
+    (config index, seed), computed on the trace's device."""
+    def post(trace, cfg, seed, cfg_idx):
+        return tm.breakdown_traced(trace, cfg.model, fold=(cfg_idx, seed))
+    return post
+
+
+def lda_sweep_phase(app):
+    """The C2-LDA figure through ``sweep`` on the full-width app: one
+    seed, a ``post`` of the LDA time model's breakdown.  One config is
+    re-run through ``simulate`` at its harmonized window and must be
+    bit-equal; a second sweep with ``keep_traces=False`` and ``timeit``
+    returns posts only, bit-equal to the first's.  Each config's NLL must
+    fall and its traces be finite; the counted first sweep must launch
+    ``ring_view`` and ``vap_suffix_norms`` once per clock of every run."""
+    import torch
+    from repro_torch.apps import lda
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import ps, sweep
+    from repro_torch.kernels import launch
+    from repro_torch.psrun import validate
+    cfgs = lda_figure_cfgs(cc)
+    post = lda_breakdown_post(lda.lda_time_model())
+    launch.reset_launches()
+    res = sweep.sweep(app, cfgs, LDA_CLOCKS, seeds=[0], post=post)
+    launches = dict(launch.launches)
+    runs = len(cfgs) * LDA_CLOCKS
+    want = {"ring_view": runs, "vap_suffix_norms": runs}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"lda sweep: launches {launches}, expected "
+                             f"{want} of the path's kernels")
+    curves = {}
+    for i, cfg in enumerate(cfgs):
+        tr = res.trace(i, 0)
+        assert_finite(tr, f"lda sweep {cfg.model}")
+        lr = tr.loss_ref.cpu()
+        if not lr[-1] < lr[0]:
+            raise AssertionError(f"lda sweep {cfg.model}: NLL did not fall "
+                                 f"({float(lr[0])} -> {float(lr[-1])})")
+        curves[f"{cfg.model}({cfg.staleness})"] = {
+            "window": res.harmonized[i].effective_window,
+            "nll_first": float(lr[0]), "nll_last": float(lr[-1]),
+            "breakdown": {k: float(v[0]) for k, v in res.post(i).items()}}
+    rerun = ps.simulate(app, res.harmonized[2], LDA_CLOCKS, seed=0)
+    got = res.trace(2, 0)
+    unequal = [f for f in validate.TRACE_FIELDS
+               if not torch.equal(getattr(got, f), getattr(rerun, f))]
+    if not torch.equal(got.locals_final["z"], rerun.locals_final["z"]):
+        unequal.append("locals_final.z")
+    if unequal:
+        raise AssertionError(f"lda sweep: trace(2, 0) differs from simulate "
+                             f"at the harmonized window in {unequal}")
+    lean = sweep.sweep(app, cfgs, LDA_CLOCKS, seeds=[0], post=post,
+                       keep_traces=False, timeit=True)
+    if lean.traces != [None] * len(cfgs):
+        raise AssertionError("lda sweep: keep_traces=False kept traces")
+    for i in range(len(cfgs)):
+        for k, v in lean.post(i).items():
+            if not torch.equal(v, res.post(i)[k]):
+                raise AssertionError(f"lda sweep: post {k} of config {i} "
+                                     f"differs between the two sweeps")
+    n = len(cfgs) * len(res.seeds)
+    return {"phase": "lda_sweep", "clocks": LDA_CLOCKS, "seeds": [0],
+            "configs": curves, "launches": launches,
+            "families": len(res.families), "runs": n,
+            "t_first_s": res.t_first_s, "runs_per_s": n / res.t_first_s,
+            "lean_t_first_s": lean.t_first_s, "lean_t_exec_s": lean.t_exec_s,
+            "lean_runs_per_s": n / lean.t_exec_s,
+            "rerun_bit_equal": True, "lean_posts_bit_equal": True}
+
+
+@contextlib.contextmanager
+def recording_draws():
+    """Run the body with ``rng.categorical`` wrapped: each batched draw of
+    the LDA sampler (one per clock) appends ``(z, logits + gumbel)`` on
+    the host, the noise recomputed from the same keys."""
+    from repro_torch import rng
+    categorical, calls = rng.categorical, []
+
+    def recording(key, logits, *args, **kw):
+        out = categorical(key, logits, *args, **kw)
+        if key.dim() == 2 and not args and not kw:
+            noisy = logits + rng.gumbel(key, logits.shape[1:], logits.dtype)
+            calls.append((out.cpu(), noisy.float().cpu()))
+        return out
+
+    rng.categorical = recording
+    try:
+        yield calls
+    finally:
+        rng.categorical = categorical
+
+
+def first_draw_flip(got, want, limit_ulp):
+    """The first clock whose sampled ``z`` differs between two runs'
+    recorded draws, as ``{"clock", "draws_differ", "max_margin_ulp"}``, or
+    None if every draw is equal.  A draw may only differ where its top-2
+    margin of ``logits + gumbel`` is within ``limit_ulp`` ulp of the noisy
+    values' scale on both devices: anything else raises."""
+    import numpy as np
+    for c, ((zg, ng), (zw, nw)) in enumerate(zip(got, want, strict=True)):
+        differ = zg != zw
+        if not differ.any():
+            continue
+        worst = 0.0
+        for noisy in (ng, nw):
+            top = noisy[differ].topk(2, dim=-1).values
+            spacing = float(np.spacing(np.float32(noisy.abs().max())))
+            margin = (top[:, 0] - top[:, 1]) / spacing
+            if (margin > limit_ulp).any():
+                raise AssertionError(
+                    f"clock {c}: {int(differ.sum())} draws differ, with "
+                    f"top-2 margins {margin.tolist()} ulp, over the "
+                    f"{limit_ulp} ulp of a near tie")
+            worst = max(worst, float(margin.max()))
+        return {"clock": c, "draws_differ": int(differ.sum()),
+                "max_margin_ulp": worst}
+    return None
+
+
+def lda_card_vs_cpu(device):
+    """``LDAConfig()`` on the card against the CPU, from the CPU's corpus
+    and counts, under ``ssp(3)`` and ``essp(3)`` through ``simulate`` and
+    under the C2-LDA configs through ``sweep``: integer Trace fields equal;
+    the float fields within the ulp budget up to the clock before the
+    first one whose sampled ``z`` differs (a flipped draw moves whole
+    counts), where every differing draw must be a near tie.  The corpus
+    the card draws itself is compared with the CPU's and reported."""
+    import torch
+    from repro_torch.apps import lda
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import ps, sweep
+    from repro_torch.psrun import validate
+    small = lda.LDAConfig()
+    cpu_app = lda.make_lda_app(small, device="cpu")
+    card_corpus = lda.lda_corpus(small, device)
+    corpus_differ = {k: int((card_corpus[k].cpu() != cpu_app.local0[k])
+                            .sum()) for k in ("words", "docid", "z")}
+    card_app = lda.lda_app(small, cpu_app.x0.to(device),
+                           {k: v.to(device) for k, v in
+                            cpu_app.local0.items()})
+    runs = []
+    for name, cfg in (("ssp3", cc.ssp(3)), ("essp3", cc.essp(3))):
+        with recording_draws() as gd:
+            got = ps.simulate(card_app, cfg, SMALL_CLOCKS)
+        with recording_draws() as wd:
+            want = ps.simulate(cpu_app, cfg, SMALL_CLOCKS)
+        runs.append((name, got, want, gd, wd))
+    cfgs = lda_figure_cfgs(cc)
+    with recording_draws() as gd:
+        gs = sweep.sweep(card_app, cfgs, SMALL_CLOCKS)
+    with recording_draws() as wd:
+        ws = sweep.sweep(cpu_app, cfgs, SMALL_CLOCKS)
+    for i, cfg in enumerate(cfgs):
+        sl = slice(i * SMALL_CLOCKS, (i + 1) * SMALL_CLOCKS)
+        runs.append((f"sweep_{cfg.model}{cfg.staleness}", gs.trace(i, 0),
+                     ws.trace(i, 0), gd[sl], wd[sl]))
+    budget = validate.VAP_ULP_BUDGET
+    recs = []
+    for name, got, want, gd, wd in runs:
+        diffs = validate.trace_max_diff(got, want)
+        flip = first_draw_flip(gd, wd, LDA_TIE_ULP)
+        ulps = validate.trace_max_ulp(got, want)
+        if flip is not None:
+            ulps = ulps_through(got, want, flip["clock"] - 1)
+        rec = {"phase": "lda_card_vs_cpu", "config": name,
+               "clocks": SMALL_CLOCKS, "draws_compared": len(gd),
+               "int_fields_equal": all(diffs[f] == 0.0
+                                       for f in validate.INT_FIELDS),
+               "z_final_equal": bool(torch.equal(
+                   got.locals_final["z"].cpu(), want.locals_final["z"])),
+               "first_draw_flip": flip, "max_ulp": ulps,
+               "ulp_budget": budget, "tie_limit_ulp": LDA_TIE_ULP,
+               "card_corpus_differs": corpus_differ}
+        emit(rec)
+        if not rec["int_fields_equal"]:
+            raise AssertionError(f"lda card vs CPU ({name}): integer fields "
+                                 f"differ: {diffs}")
+        bad = {f: u for f, u in ulps.items() if u > budget}
+        if bad:
+            raise AssertionError(f"lda card vs CPU ({name}): {bad}")
+        recs.append(rec)
+    return recs
+
+
 SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
                                      "fa_f32_kernel"),
                  "ssd": ("split::split_kernel", "5split12split_kernel",
@@ -1378,7 +1599,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.apps import matfact
+    from repro_torch.apps import lda, matfact
     from repro_torch.core import consistency as cc
     from repro_torch.core import ps
     from repro_torch.kernels import build
@@ -1500,6 +1721,33 @@ def main() -> int:
         for compute in ("bfloat16", "float32"):
             serve_card_vs_cpu(arch, compute, dev)
 
+    # --- 7. LDA at full width -----------------------------------------------
+    t0 = time.perf_counter()
+    lda_app = lda.make_lda_app(lda.LDAConfig(**FULL_LDA), device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "lda_setup", "config": FULL_LDA, "d": lda_app.dim,
+          "tokens": FULL_LDA["n_docs"] * FULL_LDA["doc_len"],
+          "make_lda_app_s": time.perf_counter() - t0})
+    lda_launches, lda_syncs = {}, {}
+    for name, cfg in (("lda_ssp3", cc.ssp(3)), ("lda_essp3", cc.essp(3))):
+        rec = run_main_path(lda_app, cfg, name, LDA_CLOCKS)
+        rec["phase"] = "lda_main_path"
+        emit(rec)
+        lda_launches[name] = rec["launches"]
+        lda_syncs[name] = rec["host_sync_sites"]
+    if any(lda_syncs.values()):
+        raise AssertionError(f"the LDA clock loop synchronized with the "
+                             f"host: {lda_syncs}")
+
+    # --- 8. the C2-LDA figure through sweep ----------------------------------
+    lda_sweep = lda_sweep_phase(lda_app)
+    emit(lda_sweep)
+    del lda_app
+    torch.cuda.empty_cache()
+
+    # --- 9. LDA, card against CPU --------------------------------------------
+    lda_card_vs_cpu(dev)
+
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
     source = "src/repro_torch/kernels/csrc/ps_view.cu"
@@ -1553,6 +1801,9 @@ def main() -> int:
               "profiled_kernel_ms": r["profiled"]["prefill_kernel_ms_by_name"]}
               for a, r in served.items()},
           "main_path_launches": main_launches,
+          "lda_main_path_launches": lda_launches,
+          "lda_sweep_launches": lda_sweep["launches"],
+          "lda_sweep_runs_per_s": lda_sweep["runs_per_s"],
           "serve_launches_per_prefill": {
               a: r["launches_per_prefill"] for a, r in served.items()},
           "threshold_selection_ms": selection["ms"]})

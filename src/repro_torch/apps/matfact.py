@@ -31,7 +31,16 @@ import torch
 from .. import rng as jrng
 from ..core.consistency import bsp
 from ..core.ps import PSApp, simulate
+from ..core.timemodel import TimeModel
 from ..device import resolve_device
+
+
+def mf_time_model(**kw) -> TimeModel:
+    """Paper-class wall-clock constants for the MF/SGD app: the 1 GbE
+    defaults of `TimeModel` (50 ms SGD clocks, ~4 MB of factor rows per
+    producer), the one place the Fig 2 time axis takes them from."""
+    return TimeModel(**kw)
+
 
 # Ratings per chunk of the loss (bounds its [chunk, K] gather temporaries
 # at full width; the small configs fit in one chunk).

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .apps.lda import LDAConfig, lda_app
 from .apps.matfact import MFConfig, mf_app
 from .core.ps import PSApp, Trace
 from .device import resolve_device
@@ -46,6 +47,13 @@ def mf_app_from_state(cfg: MFConfig, x0, local0: dict,
     loc = to_tensors(local0, device)
     return mf_app(cfg, to_tensors(x0, device), loc["ii"], loc["jj"],
                   loc["vv"])
+
+
+def lda_app_from_state(cfg: LDAConfig, x0, local0: dict,
+                       device=None) -> PSApp:
+    """The port's LDA app over the JAX LDA app's ``x0`` and ``local0``
+    (``{"words", "docid", "z", "ndk"}``), as numpy arrays."""
+    return lda_app(cfg, to_tensors(x0, device), to_tensors(local0, device))
 
 
 def _to_numpy(x):

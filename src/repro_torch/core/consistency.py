@@ -138,7 +138,8 @@ class ConsistencyConfig:
     @property
     def family(self) -> tuple:
         """Static structure shared by configs that the JAX sweep engine
-        compiles together (kept for the later sweep slice)."""
+        compiles together; the port's `sweep` groups by it and harmonizes
+        each group's window."""
         key = (self.model, bool(self.read_my_writes),
                int(self.max_extra_delay), int(self.n_pods),
                self.comm_active)

@@ -15,10 +15,12 @@ and the channel by two quantities of any `Trace`:
   clock-gated pulls on cross-pod channels, and floats on the wire, both
   as a dense-equivalent count and as the bits-weighted count that
   ``Trace.ship_floats`` records under the comm substrate
-  (``wire_floats``, ``wire_compression``).
-
-``replica_value_divergence`` (the value-bound analogue for async/VAP)
-comes with ``core/valuebound.py`` in a later slice.
+  (``wire_floats``, ``wire_compression``);
+- **replica value divergence** (`replica_value_divergence`), the checked
+  value-bound analogue for the unbounded-clock models (async/VAP): two
+  pods' visible prefixes of one producer differ by a sub-range of some
+  reader's in-transit aggregate, so their divergence is at most
+  ``2 x intransit_inf``, which VAP bounds by ``2 v_t``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 
 from ..core.consistency import ConsistencyConfig
 from ..core.delays import pod_of, same_pod_mask
+from ..core.valuebound import v_schedule
 from ..psrun.validate import _np
 
 
@@ -134,4 +137,29 @@ def reconcile_stats(trace, cfg: ConsistencyConfig,
             out["wire_floats"] = wire
             out["dense_floats"] = dense
             out["wire_compression"] = dense / wire if wire else None
+    return out
+
+
+def replica_value_divergence(trace, cfg: ConsistencyConfig) -> dict:
+    """Checked *value*-bound analogue of `replica_divergence` for async and
+    VAP.  The trace's measured envelope ``2 x intransit_inf`` bounds the
+    inf-norm gap between any two pods' visible prefixes of a producer
+    (triangle inequality on in-transit suffixes); under VAP it is checked
+    against ``2 v_t`` (``v_t = v0/sqrt(t+1)``, one clock behind, as
+    `core.valuebound.check_condition` reads it).  For every other model
+    ``bound_final``, ``violations`` and ``ok`` are None."""
+    envelope = 2.0 * _np(trace.intransit_inf)           # [T]
+    out = {"max_envelope": float(envelope.max()) if envelope.size else 0.0,
+           "per_clock": envelope}
+    if cfg.model == "vap":
+        sched = v_schedule(float(cfg.v0))
+        vt = np.array([2.0 * sched(t) for t in range(len(envelope))])
+        viol = envelope[1:] > vt[:-1] + 1e-6
+        out["bound_final"] = float(vt[-1]) if len(vt) else None
+        out["violations"] = int(viol.sum())
+        out["ok"] = bool(viol.sum() == 0)
+    else:
+        out["bound_final"] = None
+        out["violations"] = None
+        out["ok"] = None
     return out

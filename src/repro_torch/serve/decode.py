@@ -1,19 +1,27 @@
-"""Batched serving: prefill, then greedy decode against the caches.
+"""Batched serving: prefill, then decode against the caches.
 
 The JAX package's ``serve/decode.py``.  The decode loop keeps every token
-on the device and makes no host sync: each step's argmax feeds the next
-step as a tensor.
+on the device and makes no host sync: each step's token feeds the next
+step as a tensor.  Sampling at a temperature draws JAX's key stream
+through ``rng.categorical``, with its noise in the logits' dtype.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import rng as jrng
 from ..models.registry import Model
 
 
-def greedy_sample(logits):
-    """The argmax of the last position's logits ``[B]``."""
-    return torch.argmax(logits[:, -1], dim=-1)
+def greedy_sample(logits, rng=None, temperature: float = 0.0):
+    """The last position's token ``[B]``: its argmax, or a draw at
+    ``temperature`` under the key ``rng`` when both are given."""
+    last = logits[:, -1]
+    if temperature and rng is not None:
+        # a tensor divisor: on CUDA a Python one is a reciprocal multiply
+        t = torch.full((), temperature, dtype=last.dtype, device=last.device)
+        return jrng.categorical(rng, last / t).long()
+    return torch.argmax(last, dim=-1)
 
 
 def prefill(model: Model, prompt_tokens, max_len: int):
@@ -47,7 +55,26 @@ def generate_scan(model: Model, prompt_tokens, max_new: int,
     return torch.cat([tok[:, None], rest], dim=1).to(torch.int32)
 
 
-# The JAX package's ``generate``, greedy: the tokens of `generate_scan`.
-# Sampling at a temperature waits for ``categorical`` in
-# ``repro_torch.rng`` (ROADMAP queue 1, item 1).
-generate = generate_scan
+def generate(model: Model, prompt_tokens, max_new: int,
+             max_len: int | None = None, temperature: float = 0.0,
+             rng=None):
+    """Prefill on the prompt, then decode ``max_new`` tokens: greedy at
+    temperature 0, else drawn with JAX's key stream (``rng`` defaults to
+    ``PRNGKey(0)``; the first token takes ``split(rng)[1]``, step ``t``
+    ``split(split(rng)[0], max_new)[t]``).  Returns ``[B, max_new]``
+    int32 token ids."""
+    S = prompt_tokens.shape[1]
+    logits, cache = prefill(model, prompt_tokens, max_len or (S + max_new))
+    if rng is None:
+        rng = jrng.PRNGKey(0, prompt_tokens.device)
+    rng, k0 = jrng.split(rng).unbind(0)
+    tok = greedy_sample(logits, k0, temperature)
+    keys = jrng.split(rng, max_new)
+    out = torch.empty((tok.shape[0], max_new), dtype=torch.int32,
+                      device=tok.device)
+    out[:, 0] = tok
+    for t in range(max_new - 1):
+        logits, cache = model.decode_step(tok[:, None], cache)
+        tok = greedy_sample(logits, keys[t], temperature)
+        out[:, t + 1] = tok
+    return out

@@ -33,7 +33,9 @@ from repro.data.synthetic import TokenGenConfig as JTokenGenConfig
 from repro.data.synthetic import token_batch as jax_token_batch
 from repro.models import layers as jlayers
 from repro.models.registry import build_model as jax_build_model
+from repro.serve.decode import generate as jax_generate
 from repro.serve.decode import generate_scan as jax_generate_scan
+from repro_torch import rng
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.convert import model_params_from_jax
 from repro_torch.data.synthetic import TokenGenConfig, token_batch
@@ -123,6 +125,42 @@ def test_generate_scan_matches_jax(pair):
         logits, _ = jm.forward(jp, {"tokens": jnp.asarray(ctx)})
         assert not _clear(np.asarray(logits, np.float32)[:, -1:],
                           LOGIT_TOL[compute]).any(), (arch, row, t)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.3])
+def test_generate_at_temperature_matches_jax(pair, temperature):
+    """Sampling draws JAX's key stream through ``rng.categorical``, with
+    noise in the logits' dtype.  float32: tokens equal.  bfloat16: each
+    row equal up to its first differing token, and there JAX's own top-2
+    margin of ``logits / T + gumbel`` is within what the logit tolerance
+    (over T) and a bfloat16 rounding of each noisy value can move."""
+    arch, compute, jm, jp, tm, toks = pair
+    want = np.asarray(jax_generate(jm, jp, jnp.asarray(toks), NEW,
+                                   temperature=temperature,
+                                   rng=jax.random.PRNGKey(5)))
+    got = generate(tm, torch.from_numpy(toks), NEW, temperature=temperature,
+                   rng=rng.PRNGKey(5))
+    assert got.dtype == torch.int32 and got.shape == (B, NEW)
+    if compute == "float32":
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    rest, k0 = jax.random.split(jax.random.PRNGKey(5))
+    keys = [k0, *jax.random.split(rest, NEW)[:-1]]
+    dtype = jnp.bfloat16
+    differ = got.numpy() != want
+    for row in np.flatnonzero(differ.any(axis=1)):
+        t = int(np.argmax(differ[row]))
+        ctx = np.concatenate([toks, want[:, :t]], axis=1)
+        logits, _ = jm.forward(jp, {"tokens": jnp.asarray(ctx)})
+        last = logits[:, -1].astype(dtype)
+        noisy = np.asarray(
+            (last / temperature + jax.random.gumbel(
+                keys[t], last.shape, dtype)).astype(jnp.float32))[row]
+        top = np.sort(noisy)
+        scale = np.abs(np.asarray(last, np.float32)).max()
+        near = (2 * LOGIT_TOL[compute] * scale / temperature
+                + 2 * 2.0 ** -8 * np.abs(top).max())
+        assert top[-1] - top[-2] <= near, (arch, row, t)
 
 
 @pytest.mark.parametrize("arch", SERVED)
