@@ -196,8 +196,8 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
 
 # XLA's float32 log on the CPU: the Cephes polynomial on the mantissa in
 # [sqrt(1/2), sqrt(2)), with denormal inputs read as zero (the CPU runs
-# with denormals flushed).  torch's own log differs from it in ~11 % of
-# float32 inputs by one ulp, enough to flip a Gumbel arg-max at a near tie.
+# with denormals flushed).  torch's own log differs from it by one ulp on
+# many float32 inputs, enough to flip a Gumbel arg-max at a near tie.
 _LOG_P = tuple(_f32c(v) for v in (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
