@@ -32,7 +32,9 @@ JAX or the JAX package).  Nine phases, one JSON line each (or more):
    ``ref.mf_sgd_tolerance`` (which must fail four planted faults at
    ``main``), bit-equal across two calls, at edge shapes and the mask
    compaction's cases too; at ``main`` each of its kernels' device time
-   from a profiled call and their ptxas lines (no spills);
+   from a profiled call and their ptxas lines (no spills); ``ring_view``
+   and ``vap_suffix_norms`` also at the LDA path's rings (phases 7 and
+   8: W = 2, 5, 7 at d = 10,266,000), untimed;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -50,7 +52,11 @@ JAX or the JAX package).  Nine phases, one JSON line each (or more):
    the budget up to the first shipment whose wire values differ between
    the two runs: a quantized value is a rounding decision, and one that
    flips on float drift within the budget (checked) moves the run by a
-   whole quantization step, as a flipped VAP decision would;
+   whole quantization step, as a flipped VAP decision would.  At the
+   first shipment whose top-k selection differs, every coordinate
+   selected in one run only must lie within the budget of its row's
+   threshold in both (a near tie); the integer fields and
+   ``ship_floats`` are held exactly up to the clock before it;
 5. the serving path at full width and depth (``serve_path``): qwen3-0.6b
    and mamba2-130m with random weights from a seed, batch 8, a 2048-token
    prompt from ``token_batch`` and 32 new tokens, through
@@ -353,8 +359,9 @@ def kernel_bounds(uclock, cview, c, P, d, rates):
     return out
 
 
-def check_kernels(shape, device, rates, timed: bool):
-    """Both kernels against their plain versions on one ring shape."""
+def check_kernels(shape, device, rates, timed: bool, path=None):
+    """Both kernels against their plain versions on one ring shape
+    (``path`` names the main path whose shape it is, in the record)."""
     import torch
     from repro_torch.kernels import ps_view, ref
     W, P, d, n_empty = shape
@@ -373,6 +380,8 @@ def check_kernels(shape, device, rates, timed: bool):
     rec = {"phase": "kernels", "W": W, "P": P, "d": d, "empty_slots": n_empty,
            "ring_view": {"max_abs_err": rv_err, "tol": rv_tol},
            "vap_suffix_norms": {"max_abs_err": vs_err, "tol": 0.0}}
+    if path is not None:
+        rec["path"] = path
     if rv_err > rv_tol or vs_err > 0.0:
         emit(rec)
         raise AssertionError(f"kernel disagrees with its plain version at "
@@ -731,17 +740,52 @@ def first_wire_flip(got, want, budget_ulp):
     return None
 
 
+def first_selection_flip(got, want, budget_ulp, topk_frac):
+    """The first shipment whose top-k selection differs between two runs,
+    as ``{"shipment", "selection_differs", "max_selection_margin_ulp"}``,
+    or None.  A coordinate selected in one run only must lie within the
+    budget (ulp of the delta's scale) of its row's threshold in both runs,
+    a near tie that float drift may turn: anything else raises."""
+    import numpy as np
+    from repro_torch.comm import substrate
+    for i, ((dg, _), (dw, _)) in enumerate(zip(got, want, strict=True)):
+        sel, gaps = [], []
+        for d in (dg, dw):
+            thresh = substrate.row_threshold(d, topk_frac)[:, None]
+            sel.append(d.abs() >= thresh)
+            gaps.append((d.abs() - thresh).abs())
+        flipped = sel[0] != sel[1]
+        if not flipped.any():
+            continue
+        spacing = float(np.spacing(np.float32(dw.abs().max())))
+        margin = max(float(g[flipped].max()) for g in gaps) / spacing
+        if margin > budget_ulp:
+            raise AssertionError(f"shipment {i}: {int(flipped.sum())} "
+                                 f"coordinates selected in one run only, up "
+                                 f"to {margin} ulp from their row's "
+                                 f"threshold, over the {budget_ulp} ulp of "
+                                 f"a near tie")
+        return {"shipment": i, "selection_differs": int(flipped.sum()),
+                "max_selection_margin_ulp": margin}
+    return None
+
+
+def trace_head(trace, last_clock):
+    """``trace`` with its per-clock fields cut to clocks
+    0..``last_clock`` (``x_final``, of the end of the run, kept)."""
+    import dataclasses
+    from repro_torch.psrun import validate
+    return dataclasses.replace(
+        trace, **{f: getattr(trace, f)[:last_clock + 1]
+                  for f in validate.TRACE_FIELDS if f != "x_final"})
+
+
 def ulps_through(got, want, last_clock):
     """``trace_max_ulp`` of the per-clock fields over clocks
     0..``last_clock`` (``x_final``, of the end of the run, left out)."""
-    import dataclasses
     from repro_torch.psrun import validate
-    head = [dataclasses.replace(
-        t, x_final=want.x_final,
-        **{f: getattr(t, f)[:last_clock + 1]
-           for f in validate.TRACE_FIELDS if f != "x_final"})
-        for t in (got, want)]
-    out = validate.trace_max_ulp(*head)
+    out = validate.trace_max_ulp(trace_head(got, last_clock),
+                                 trace_head(want, last_clock))
     del out["x_final"]
     return out
 
@@ -1388,10 +1432,15 @@ def lda_card_vs_cpu(device):
     budget = validate.VAP_ULP_BUDGET
     recs = []
     for name, got, want, gd, wd in runs:
+        if not len(gd) == len(wd) == SMALL_CLOCKS:
+            raise AssertionError(f"lda card vs CPU ({name}): {len(gd)} and "
+                                 f"{len(wd)} sampler draws recorded, not "
+                                 f"one per clock ({SMALL_CLOCKS})")
         diffs = validate.trace_max_diff(got, want)
         flip = first_draw_flip(gd, wd, LDA_TIE_ULP)
         ulps = validate.trace_max_ulp(got, want)
         if flip is not None:
+            # a flip at clock 0 leaves only the integer fields to hold
             ulps = ulps_through(got, want, flip["clock"] - 1)
         rec = {"phase": "lda_card_vs_cpu", "config": name,
                "clocks": SMALL_CLOCKS, "draws_compared": len(gd),
@@ -1406,6 +1455,9 @@ def lda_card_vs_cpu(device):
         if not rec["int_fields_equal"]:
             raise AssertionError(f"lda card vs CPU ({name}): integer fields "
                                  f"differ: {diffs}")
+        if flip is None and not rec["z_final_equal"]:
+            raise AssertionError(f"lda card vs CPU ({name}): every recorded "
+                                 f"draw is equal but the final z differs")
         bad = {f: u for f, u in ulps.items() if u > budget}
         if bad:
             raise AssertionError(f"lda card vs CPU ({name}): {bad}")
@@ -1601,7 +1653,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps import lda, matfact
     from repro_torch.core import consistency as cc
-    from repro_torch.core import ps
+    from repro_torch.core import ps, sweep
     from repro_torch.kernels import build
     from repro_torch.psrun import validate
 
@@ -1634,6 +1686,16 @@ def main() -> int:
     for shape in ((5, 1, 10_000, 1), (5, 16, 100_003, 0), (11, 8, 2000, 2),
                   (5, 4, 16, 1), (11, 8, 50_001, 4), (64, 64, 333, 5)):
         check_kernels(shape, dev, rates, timed=False)
+    # the LDA path's rings at its ragged d: phase 7's ssp(3)/essp(3) window
+    # and the windows phase 8's sweep harmonizes its families to
+    d_lda = FULL_LDA["n_topics"] * FULL_LDA["vocab"]
+    families = {}
+    for c in lda_figure_cfgs(cc):
+        families.setdefault(c.family, []).append(c)
+    for W in sorted({cc.ssp(3).effective_window, cc.essp(3).effective_window,
+                     *map(sweep.family_window, families.values())}):
+        check_kernels((W, FULL_LDA["n_workers"], d_lda, 0), dev, rates,
+                      timed=False, path="lda")
     wcfg = wired_cfg(cc)
     pack_main = check_delta_pack(8, d_full, WIRED_TOPK, "normal", dev, rates,
                                  timed=True)
@@ -1689,23 +1751,38 @@ def main() -> int:
             matfact.make_mf_app(small, device=dev), cfg, SMALL_CLOCKS)
         want, want_ships = simulate_recording_shipments(
             matfact.make_mf_app(small, device="cpu"), cfg, SMALL_CLOCKS)
-        diffs = validate.trace_max_diff(got, want)
         ulps = validate.trace_max_ulp(got, want)
         exact = validate.INT_FIELDS + ("ship_floats",)
         flip = first_wire_flip(got_ships, want_ships, budget)
+        sel = first_selection_flip(got_ships, want_ships, budget,
+                                   cfg.topk_frac)
+        exact_through = float_through = SMALL_CLOCKS - 1
+        if flip is not None:
+            # the flipped wire enters the views from the next clock on
+            flip["clock"] = float_through = (
+                (flip["shipment"] + 1) * cfg.agg_clocks - 1)
+        if sel is not None:
+            # a near tie selected otherwise moves that shipment's count
+            # and, from the next clock on, what is delivered
+            sel["clock"] = (sel["shipment"] + 1) * cfg.agg_clocks - 1
+            exact_through = sel["clock"] - 1
+            float_through = min(float_through, exact_through)
+        diffs = validate.trace_max_diff(trace_head(got, exact_through),
+                                        trace_head(want, exact_through))
         rec = {"phase": "card_vs_cpu", "config": name, "clocks": SMALL_CLOCKS,
                "int_fields_equal": all(diffs[f] == 0.0 for f in exact),
+               "int_fields_exact_through": exact_through,
                "loss_ref_bit_equal": diffs["loss_ref"] == 0.0,
                "shipments": len(got_ships), "first_wire_flip": flip,
-               "max_ulp": ulps, "ulp_budget": budget}
+               "first_selection_flip": sel, "max_ulp": ulps,
+               "ulp_budget": budget}
         if not rec["int_fields_equal"]:
             emit(rec)
             raise AssertionError(f"card vs CPU ({name}): integer fields or "
-                                 f"ship_floats differ: {diffs}")
-        if flip is not None:
-            # the flipped wire enters the views from the next clock on
-            flip["clock"] = (flip["shipment"] + 1) * cfg.agg_clocks - 1
-            ulps = ulps_through(got, want, flip["clock"])
+                                 f"ship_floats differ through clock "
+                                 f"{exact_through}: {diffs}")
+        if flip is not None or sel is not None:
+            ulps = ulps_through(got, want, float_through)
             rec["max_ulp_through_flip"] = ulps
         bad = {f: u for f, u in ulps.items() if f in validate.FLOAT_FIELDS
                and u > budget}

@@ -26,9 +26,9 @@ launch).  ``n_runs`` counts the ``simulate`` runs the sweep made, one per
 Batching ``simulate`` itself, or capturing its clock in a CUDA graph, so
 that a family shares its launches, is ROADMAP queue 2 work.
 
-Sharding the batch over several devices (``devices``, ``mesh``) and
-telemetry (``obs``) raise ``NotImplementedError`` naming their ROADMAP
-items.
+Sharding the batch over several devices (``devices``, ``mesh``,
+``mesh_axis``) and telemetry (``obs``) raise ``NotImplementedError``
+naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -127,7 +127,7 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
           seeds: int | Sequence[int] = 1, record_views: bool = False,
           devices=None, timeit: bool = False, post=None,
           keep_traces: bool = True, mesh=None,
-          mesh_axis: str = "batch", obs=None) -> SweepResult:
+          mesh_axis: str | None = None, obs=None) -> SweepResult:
     """Run every (config, seed) pair, on the device of ``app.x0``.
 
     Args:
@@ -150,8 +150,9 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
       devices, mesh, mesh_axis, obs: the JAX engine's multi-device
         sharding and telemetry, which raise here.
     """
-    if devices is not None or mesh is not None:
-        _not_ported("a sweep sharded over devices (devices=, mesh=)",
+    if devices is not None or mesh is not None or mesh_axis is not None:
+        _not_ported("a sweep sharded over devices (devices=, mesh=, "
+                    "mesh_axis=)",
                     "item 14")
     if obs is not None:
         _not_ported("telemetry (obs=ObsSpec)", "item 12")

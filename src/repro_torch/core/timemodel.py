@@ -131,8 +131,11 @@ class TimeModel:
         models take the slowest worker's compute plus its own blocking
         fetches.  Under a hierarchical ``cfg`` the clock is floored by its
         cross-pod shipments' wire time, the excess charged as comm."""
-        comp, sync, wire, xfer, tiered = self._components(
-            trace, fold, cfg=cfg, schedule=schedule)
+        return self._clock_split(model, *self._components(
+            trace, fold, cfg=cfg, schedule=schedule))
+
+    def _clock_split(self, model: str, comp, sync, wire, xfer, tiered):
+        """``(wall[T], comp[T], comm[T])`` from `_components`' output."""
         T, P = comp.shape
         if model == "bsp":
             comp_clock = comp.amax(dim=1)
@@ -170,10 +173,9 @@ class TimeModel:
         ``start``/``end``/``wall[T]`` clock windows, the
         ``comp_clock``/``comm_clock[T]`` split, and the per-worker
         ``comp[T, P]``, ``sync[T, P]`` and ``wire[T]`` (zeros untiered)."""
-        comp, sync, wire, _, _ = self._components(
-            trace, fold, cfg=cfg, schedule=schedule)
-        wall, comp_clock, comm_clock = self.per_clock(
-            trace, model, fold, cfg=cfg, schedule=schedule)
+        parts = self._components(trace, fold, cfg=cfg, schedule=schedule)
+        comp, sync, wire, _, _ = parts
+        wall, comp_clock, comm_clock = self._clock_split(model, *parts)
         wall = wall.cpu().numpy()
         end = np.cumsum(wall)
         return {"start": end - wall, "end": end, "wall": wall,

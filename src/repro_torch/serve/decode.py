@@ -32,27 +32,19 @@ def prefill(model: Model, prompt_tokens, max_len: int):
     return model.prefill(prompt_tokens, cache)
 
 
-def decode_loop(model: Model, tok, cache, n_steps: int):
-    """``n_steps`` greedy decode steps from token ``tok [B]``; returns the
-    tokens they produce, ``[B, n_steps]``."""
+def decode_loop(model: Model, tok, cache, n_steps: int, keys=None,
+                temperature: float = 0.0):
+    """``n_steps`` decode steps from token ``tok [B]``, step ``t`` drawn at
+    ``temperature`` under ``keys[t]`` (greedy when either is unset);
+    returns the tokens they produce, ``[B, n_steps]``."""
     out = torch.empty((tok.shape[0], n_steps), dtype=tok.dtype,
                       device=tok.device)
     for t in range(n_steps):
         logits, cache = model.decode_step(tok[:, None], cache)
-        tok = greedy_sample(logits)
+        tok = greedy_sample(logits, None if keys is None else keys[t],
+                            temperature)
         out[:, t] = tok
     return out
-
-
-def generate_scan(model: Model, prompt_tokens, max_new: int,
-                  max_len: int | None = None):
-    """Greedy generation in one loop: the prefill, then ``max_new - 1``
-    decode steps.  Returns ``[B, max_new]`` int32 token ids."""
-    S = prompt_tokens.shape[1]
-    logits, cache = prefill(model, prompt_tokens, max_len or (S + max_new))
-    tok = greedy_sample(logits)
-    rest = decode_loop(model, tok, cache, max_new - 1)
-    return torch.cat([tok[:, None], rest], dim=1).to(torch.int32)
 
 
 def generate(model: Model, prompt_tokens, max_new: int,
@@ -65,16 +57,18 @@ def generate(model: Model, prompt_tokens, max_new: int,
     int32 token ids."""
     S = prompt_tokens.shape[1]
     logits, cache = prefill(model, prompt_tokens, max_len or (S + max_new))
-    if rng is None:
-        rng = jrng.PRNGKey(0, prompt_tokens.device)
-    rng, k0 = jrng.split(rng).unbind(0)
+    k0 = keys = None
+    if temperature:
+        if rng is None:
+            rng = jrng.PRNGKey(0, prompt_tokens.device)
+        rng, k0 = jrng.split(rng).unbind(0)
+        keys = jrng.split(rng, max_new)
     tok = greedy_sample(logits, k0, temperature)
-    keys = jrng.split(rng, max_new)
-    out = torch.empty((tok.shape[0], max_new), dtype=torch.int32,
-                      device=tok.device)
-    out[:, 0] = tok
-    for t in range(max_new - 1):
-        logits, cache = model.decode_step(tok[:, None], cache)
-        tok = greedy_sample(logits, keys[t], temperature)
-        out[:, t + 1] = tok
-    return out
+    rest = decode_loop(model, tok, cache, max_new - 1, keys, temperature)
+    return torch.cat([tok[:, None], rest], dim=1).to(torch.int32)
+
+
+def generate_scan(model: Model, prompt_tokens, max_new: int,
+                  max_len: int | None = None):
+    """Greedy generation: ``generate`` at temperature 0."""
+    return generate(model, prompt_tokens, max_new, max_len)

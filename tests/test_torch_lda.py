@@ -6,9 +6,11 @@ Tolerances, each stated where it is used:
   Cephes polynomials, contracted to multiply-adds), so they, ``gumbel``
   (float32 and bfloat16) and ``exponential`` are bit-equal to
   ``jax.random`` (0 ulp);
-- ``loggamma`` draws its Marsaglia–Tsang normals through ``normal``
-  (within 3 ulp of JAX's): within ``LOGGAMMA_ULP`` ulp of the draws'
-  scale (3 observed); ``gamma`` also takes its ``a < 1`` boost through
+- ``loggamma`` is bit-equal at ``a < 1`` (the boost) and at most
+  ``a >= 1``; at some ``a`` (3.0) a share of its draws differ by up to 3
+  ulp of their scale, which neither ``normal`` (on the ``log1p``
+  replay), ``log(d)`` nor ``c`` explains: within ``LOGGAMMA_ULP`` ulp of
+  the draws' scale; ``gamma`` also takes its ``a < 1`` boost through
   torch's ``pow``: within ``GAMMA_ULP`` ulp of each value (20 observed,
   near the bottom of the range);
 - ``dirichlet`` is the softmax of such log-gamma draws, through torch's

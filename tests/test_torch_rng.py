@@ -2,8 +2,8 @@
 
 Raw bits, split, fold_in, uniform, bernoulli and randint must be
 bit-equal.  normal goes through erf_inv, whose float32 polynomial the port
-re-states; XLA's own log1p differs from torch's near its branch point
-(|u| ≈ 0.64), which costs up to 3 ulp of the drawn value.
+re-states on the replay of XLA's log1p (``rng.log1p``); a few draws in
+10^5 still differ, by up to 2 ulp of the drawn value.
 """
 import numpy as np
 import pytest
@@ -15,7 +15,7 @@ import torch  # noqa: E402
 from repro_torch import rng  # noqa: E402
 
 SEEDS = [0, 1, 42, 123456789, 2**31 - 1]
-NORMAL_ULP = 3.0
+NORMAL_ULP = 2.0
 
 
 def _u32(x):

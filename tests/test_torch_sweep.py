@@ -202,6 +202,7 @@ def test_lda_figure_sweep_matches_jax():
 def test_unported_options_raise(tquad):
     for kw, item in ((dict(devices=["cpu"]), "item 14"),
                      (dict(mesh=object()), "item 14"),
+                     (dict(mesh_axis="batch"), "item 14"),
                      (dict(obs=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
             tsweep.sweep(tquad, [tc.ssp(1)], 2, **kw)
