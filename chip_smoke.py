@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Nine phases, one JSON line each (or more):
+JAX or the JAX package).  Twelve phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -24,6 +24,9 @@ JAX or the JAX package).  Nine phases, one JSON line each (or more):
    kernel's tile classes, and planted faults the limits must fail: two
    for attention, two for ssd's y at ``main`` and ``carry``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
+   ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
+   path's rings (W = 22, P = 8, d = 5,053,800: ``vap_suffix_norms``'s
+   ``W <= 32`` instance), ``path: "fault"``;
    ``mf_sgd_block`` (``check_mf_sgd``) is driven through
    ``ops.mf_sgd_block`` at the dense block of the full-width MF data
    (``main``, NaN at every unobserved rating) and at the ``kernels``
@@ -49,10 +52,12 @@ JAX or the JAX package).  Nine phases, one JSON line each (or more):
 4. the default MF config on the card against the same run on the CPU,
    dense and wired: integer Trace fields and ``ship_floats`` equal, float
    fields within the ulp budget.  A wired run's float fields are held to
-   the budget up to the first shipment whose wire values differ between
-   the two runs: a quantized value is a rounding decision, and one that
-   flips on float drift within the budget (checked) moves the run by a
-   whole quantization step, as a flipped VAP decision would.  At the
+   the budget up to the first shipment whose quantized levels differ
+   between the two runs (int8: each run's wire over its own row scale;
+   bf16: the rounded values): a quantized value is a rounding decision,
+   and one that flips on float drift within the budget (checked) moves
+   the run by a whole quantization step, as a flipped VAP decision
+   would.  At the
    first shipment whose top-k selection differs, every coordinate
    selected in one run only must lie within the budget of its row's
    threshold in both (a near tie); the integer fields and
@@ -82,7 +87,30 @@ JAX or the JAX package).  Nine phases, one JSON line each (or more):
 9. ``LDAConfig()`` on the card against the CPU (``lda_card_vs_cpu``)
    under ``ssp(3)``, ``essp(3)`` and the figure's sweep: integer Trace
    fields equal, float fields within the ulp budget up to the first
-   sampled ``z`` that differs, and every differing draw a near tie.
+   sampled ``z`` that differs, and every differing draw a near tie;
+10. the fault path at full width (``fault_path``): ``FULL_MF`` under the
+   faults bench's two-pod int8 top-k config at ``wire.required_window``
+   (22), with the bench's burst faults and robustness's pod outage, each
+   run with ``obs=ObsSpec()``: (a) the neutral twin (``no_faults``), which
+   must be bit-equal to ``faults=None``, (b) the faults, (c) the faults
+   and the outage.  ``ring_view`` twice, ``vap_suffix_norms`` once per
+   clock and ``delta_pack`` once per boundary clock; no host sync;
+   finite traces, the loss falling; the staleness bound widened by the
+   retry budget kept by the live readers; a dead worker's ``u_l2`` and
+   ``ship_floats`` 0; the obs accumulators equal to the trace's sums; the
+   ARQ counters; each run's event stream valid (``retry_budget`` stamped
+   on (b) and (c)); the recovery controller, with the faults bench's wire
+   SLO (3 % over (a)'s floats per clock), acting on (b) and (c) and not
+   on (a); profiled runs of (b) and (c) for the device time, the kernels'
+   share and the idle share; peak memory;
+11. ``MFConfig()`` under that config with drops, duplicates, delays of up
+   to 2 clocks, a burst and a worker outage that drops its in-flight mass
+   (``fault_card_vs_cpu``), card against CPU: phase 4's holding, and
+   ``live``, the ARQ counters and the integer accumulators exact;
+12. the tuner (``tuner_phase``): ``tune.frontier`` over ``ssp(3)``,
+   ``essp(3)`` x three ``push_prob`` at full width, in runs per second;
+   at ``MFConfig()`` its frontier and ``grad_knobs`` card against CPU.
+   Phases 10-12 take about a minute together.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -148,6 +176,39 @@ LDA_CLOCKS = 30
 # values' scale (the sampler's float steps are replayed bit for bit, so
 # none is expected).
 LDA_TIE_ULP = 4.0
+
+# The fault path (phases 10-12): benchmarks/faults_bench.py's compressed
+# eager family (two pods, s = 2, s_xpod = 3, int8 values of the top quarter
+# of each aggregated row every 2 clocks) under that bench's "burst" loss
+# (15 % i.i.d. drops, 90 % for clocks 12-15 of 30, three retries) and
+# benchmarks/robustness.py's pod outage (pod 1 down for clocks 9-17); the
+# ring window is wire.required_window of the config and the faults (22).
+FAULT_CLOCKS = 30
+FAULT_BURST = dict(seed=14, drop_rate=0.15, bursts=((12, 16, 0.9),),
+                   max_retries=3, heal=True)
+FAULT_POD_OUTAGE = dict(n_pods=2, pod_outages=((1, 9, 18),))
+# The faults bench's wire SLO: 3 % above the floats per clock of the
+# neutral twin (its retransmit floor is ~5.5 % extra, the twin sits at 1.0).
+WIRE_SLO_MARGIN = 1.03
+# Phase 11 (card against CPU at MFConfig()): every kind of fault, and a
+# worker outage that drops its in-flight mass.
+SMALL_FAULTS = dict(seed=21, drop_rate=0.2, dup_rate=0.2, delay_rate=0.3,
+                    max_delay=2, bursts=((6, 9, 0.9),), max_retries=3)
+SMALL_OUTAGE = dict(worker_outages=((3, 5, 11),), drop_inflight=True)
+# Phase 12: the tuner's grid at full width.
+TUNE_PUSH_PROBS = (0.25, 0.5, 1.0)
+
+
+def fault_cfg(cc):
+    """The fault path's config (before its window is set)."""
+    return cc.compressed(cc.podded(cc.essp(2), 2, s_xpod=3, t_net_xpod=8.0),
+                         agg_clocks=2, topk_frac=0.25, quant="int8")
+
+
+def fault_window(cc, wire):
+    """The fault path's ring window, ``wire.required_window``."""
+    return wire.required_window(fault_cfg(cc), wire.make_faults(
+        FAULT_CLOCKS, 8, **FAULT_BURST))
 
 # The card the port runs on, as torch names it, with its data-sheet peak
 # memory rate (bytes/s), float32 rate outside the tensor cores and dense
@@ -546,7 +607,7 @@ def expected_launches(cfg, n_clocks):
             "mf_sgd_block": 0}
 
 
-def device_split(app, cfg, n_clocks):
+def device_split(app, cfg, n_clocks, **sim_kw):
     """Device time per clock from a profiled run: all kernels, the port's
     kernels, the comm substrate's threshold selection, and the five ops
     that take the most of it; the host time per clock of the same run, and
@@ -558,7 +619,7 @@ def device_split(app, cfg, n_clocks):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ps.simulate(app, cfg, n_clocks, seed=0)
+        ps.simulate(app, cfg, n_clocks, seed=0, **sim_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_clocks
     busy = ours = 0.0
@@ -694,10 +755,10 @@ def run_main_path(app, cfg, name, n_clocks):
     return rec
 
 
-def simulate_recording_shipments(app, cfg, n_clocks):
+def simulate_recording_shipments(app, cfg, n_clocks, **sim_kw):
     """``simulate`` through the entry point, keeping each shipment's
     ``(delta, wire)`` on the host (``substrate.pack`` is wrapped for the
-    run)."""
+    run).  Returns the trace, the shipments and the final comm state."""
     from repro_torch.comm import substrate
     from repro_torch.core import ps
     shipments, pack = [], substrate.pack
@@ -709,30 +770,45 @@ def simulate_recording_shipments(app, cfg, n_clocks):
 
     substrate.pack = recording
     try:
-        trace = ps.simulate(app, cfg, n_clocks)
+        trace, cst = ps.simulate_with_state(app, cfg, n_clocks, **sim_kw)
     finally:
         substrate.pack = pack
-    return trace, shipments
+    return trace, shipments, cst
 
 
-def first_wire_flip(got, want, budget_ulp):
-    """The first shipment whose wire values differ between two runs, as
-    ``{"shipment", "wire_values_differ", "max_delta_drift_ulp"}``, or None
-    if every shipment is bit-equal.  The pack is a function of each delta
-    row (bit-equal on the card and the CPU, phase 2), so a row whose wire
-    differs must have a delta row that drifted, by at most the budget
-    (ulp of the delta's scale): anything else raises."""
+def first_wire_flip(got, want, budget_ulp, quant):
+    """The first shipment whose wire rounding decisions differ between two
+    runs, as ``{"shipment", "wire_values_differ", "max_delta_drift_ulp"}``,
+    or None.  The decisions are the quantized levels: for int8 each run's
+    wire over its own row scale (a scale that drifted by an ulp moves
+    every value by an ulp, which is drift, not a flip), for bf16 the
+    rounded values; f32 carries each selected value unrounded, so only its
+    selection can flip (:func:`first_selection_flip`).  The pack is a
+    function of each delta row (bit-equal on the card and the CPU, phase
+    2), so a row whose levels differ must have a delta row that drifted,
+    by at most the budget (ulp of the delta's scale): anything else
+    raises."""
     import numpy as np
     import torch
+    from repro_torch.comm import substrate
+    if quant == "f32":
+        return None
+
+    def levels(delta, wire):
+        if quant == "int8":
+            return torch.round(wire / substrate.quant_scale(delta, quant)
+                               [:, None])
+        return wire
+
     for i, ((dg, wg), (dw, ww)) in enumerate(zip(got, want, strict=True)):
-        differ = wg.view(torch.int32) != ww.view(torch.int32)
+        differ = levels(dg, wg) != levels(dw, ww)
         if not differ.any():
             continue
         rows = differ.any(dim=1)
         drift = (dg - dw).abs().amax(dim=1)[rows]
         spacing = float(np.spacing(np.float32(dw.abs().max())))
         if not ((drift > 0).all() and (drift <= budget_ulp * spacing).all()):
-            raise AssertionError(f"shipment {i}: wire values differ on rows "
+            raise AssertionError(f"shipment {i}: wire levels differ on rows "
                                  f"whose delta drift {drift.tolist()} is 0 "
                                  f"or over the budget")
         return {"shipment": i, "wire_values_differ": int(differ.sum()),
@@ -788,6 +864,365 @@ def ulps_through(got, want, last_clock):
                                  trace_head(want, last_clock))
     del out["x_final"]
     return out
+
+
+def hold_card_to_cpu(name, cfg, got, want, got_ships, want_ships,
+                     phase="card_vs_cpu"):
+    """Phase 4's comparison of a card run with the same run on the CPU:
+    integer Trace fields and ``ship_floats`` exact, float fields within
+    the ulp budget, both up to the first wire or selection flip (see the
+    module doc).  Returns the record; raises on a failure."""
+    from repro_torch.psrun import validate
+    budget = validate.VAP_ULP_BUDGET
+    n_clocks = got.loss_ref.shape[0]
+    ulps = validate.trace_max_ulp(got, want)
+    exact = validate.INT_FIELDS + ("ship_floats",)
+    flip = first_wire_flip(got_ships, want_ships, budget, cfg.quant)
+    sel = first_selection_flip(got_ships, want_ships, budget, cfg.topk_frac)
+    exact_through = float_through = n_clocks - 1
+    if flip is not None:
+        # the flipped wire enters the views from the next clock on
+        flip["clock"] = float_through = (
+            (flip["shipment"] + 1) * cfg.agg_clocks - 1)
+    if sel is not None:
+        # a near tie selected otherwise moves that shipment's count and,
+        # from the next clock on, what is delivered
+        sel["clock"] = (sel["shipment"] + 1) * cfg.agg_clocks - 1
+        exact_through = sel["clock"] - 1
+        float_through = min(float_through, exact_through)
+    diffs = validate.trace_max_diff(trace_head(got, exact_through),
+                                    trace_head(want, exact_through))
+    rec = {"phase": phase, "config": name, "clocks": n_clocks,
+           "int_fields_equal": all(diffs[f] == 0.0 for f in exact),
+           "int_fields_exact_through": exact_through,
+           "loss_ref_bit_equal": diffs["loss_ref"] == 0.0,
+           "shipments": len(got_ships), "first_wire_flip": flip,
+           "first_selection_flip": sel, "max_ulp": ulps,
+           "ulp_budget": budget}
+    if not rec["int_fields_equal"]:
+        emit(rec)
+        raise AssertionError(f"{phase} ({name}): integer fields or "
+                             f"ship_floats differ through clock "
+                             f"{exact_through}: {diffs}")
+    if flip is not None or sel is not None:
+        ulps = ulps_through(got, want, float_through)
+        rec["max_ulp_through_flip"] = ulps
+    bad = {f: u for f, u in ulps.items() if f in validate.FLOAT_FIELDS
+           and u > budget}
+    if bad:
+        emit(rec)
+        raise AssertionError(f"{phase} ({name}): {bad}")
+    rec["float_fields_held_through"] = float_through
+    return rec
+
+
+def check_obs_sums(tr, cfg):
+    """The obs accumulators of a numpy trace against the same sums taken
+    over its Trace fields (integers exact; the per-producer wire floats
+    as the same float32 running sum)."""
+    import numpy as np
+    from repro_torch.core import delays
+    o = {k: np.asarray(v) for k, v in tr.obs.items()}
+    T, P, _ = tr.staleness.shape
+    lag = -1 - tr.staleness.astype(np.int64)
+    rows = np.broadcast_to(tr.live[:, :, None], lag.shape)
+    nb = o["lag_hist"].shape[0]
+    in_pod = delays.same_pod_mask(P, cfg.n_pods).numpy()
+    f = tr.forced & tr.live[:, :, None]
+    want = {"clocks": T,
+            "lag_hist": np.bincount(np.clip(lag, 0, nb - 1)[rows],
+                                    minlength=nb),
+            "lag_max": np.where(rows, lag, 0).max(initial=0),
+            "forced_intra": (f & in_pod).sum(),
+            "forced_xpod": (f & ~in_pod).sum(),
+            "delivered": (tr.delivered & tr.live[:, :, None]).sum(),
+            "dead_worker_clocks": (~tr.live).sum(),
+            "ship_floats": np.cumsum(tr.ship_floats.astype(np.float32),
+                                     axis=0, dtype=np.float32)[-1]}
+    bad = [k for k, v in want.items() if not np.array_equal(o[k], v)]
+    if bad:
+        raise AssertionError(f"obs accumulators differ from the trace's "
+                             f"sums in {bad}")
+    return {k: (o[k].tolist() if o[k].ndim else o[k].item()) for k in o}
+
+
+def fault_run(app, cfg, name, n_clocks, retry_budget, **sim_kw):
+    """One faulted (and churned) ``simulate_with_state`` at full width,
+    counted and watched as phase 3's runs are (after a 2-clock warm-up):
+    launches as ``expected_launches`` says, no host sync, finite traces,
+    the loss falling, the staleness bound widened by ``retry_budget``
+    kept by the live readers, a dead worker's ``u_l2`` and
+    ``ship_floats`` 0, and the obs accumulators equal to the trace's
+    sums.  Returns ``(record, trace)``."""
+    import torch
+    from repro_torch.convert import trace_to_numpy
+    from repro_torch.core import ps
+    from repro_torch.kernels import launch
+    from repro_torch.psrun import validate
+    ps.simulate(app, cfg, 2, seed=1, **sim_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    with watch_syncs() as found:
+        trace, cst = ps.simulate_with_state(app, cfg, n_clocks, seed=0,
+                                            **sim_kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(launch.launches)
+    rec = {"phase": "fault_path", "config": name, "clocks": n_clocks,
+           "d": app.dim, "W": cfg.effective_window, "P": app.n_workers,
+           "seconds": secs, "clocks_per_s": n_clocks / secs,
+           "ms_per_clock": secs / n_clocks * 1e3, "launches": launches,
+           "host_syncs": len(found),
+           "host_sync_sites": sorted({site for site, _ in found}),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if launches != expected_launches(cfg, n_clocks) or found:
+        emit(rec)
+        raise AssertionError(f"{name}: launches {launches} (expected "
+                             f"{expected_launches(cfg, n_clocks)}), host "
+                             f"syncs at {rec['host_sync_sites']}")
+    assert_finite(trace, name)
+    tr = trace_to_numpy(trace)
+    if not tr.loss_ref[-1] < tr.loss_ref[0]:
+        raise AssertionError(f"{name}: loss_ref did not fall "
+                             f"({tr.loss_ref[0]} -> {tr.loss_ref[-1]})")
+    chk = validate.check_staleness_bound(tr, cfg, retry_budget=retry_budget)
+    if chk["violations"]:
+        raise AssertionError(f"{name}: widened staleness bound broken: "
+                             f"{chk}")
+    dead = ~tr.live
+    if (tr.u_l2[dead] != 0.0).any() or (tr.ship_floats[dead] != 0.0).any():
+        raise AssertionError(f"{name}: a dead worker pushed or shipped")
+    rec.update(
+        loss_ref_first=float(tr.loss_ref[0]),
+        loss_ref_last=float(tr.loss_ref[-1]),
+        staleness={k: chk[k] for k in ("violations", "min", "bound",
+                                       "live_frac")},
+        retry_budget=retry_budget, dead_worker_clocks=int(dead.sum()),
+        ship_floats_total=float(tr.ship_floats.sum(dtype="float64")),
+        wire_counters={k: int(cst[k].sum()) for k in (
+            "n_retx", "n_giveup", "n_duprej")},
+        obs=check_obs_sums(tr, cfg))
+    return rec, trace
+
+
+def fault_path(device):
+    """Phase 10: the fault path at full width (``FULL_MF``, the faults
+    bench's config at its required window).  Three runs, each with
+    ``obs=ObsSpec()`` (:func:`fault_run`): (a) the neutral twin
+    (``wire.no_faults``), bit-equal in every Trace field and accumulator
+    to ``faults=None``; (b) the burst faults; (c) the faults and the pod
+    outage.  Each run's event stream must validate (``retry_budget``
+    stamped on (b) and (c)); the recovery controller, with the faults
+    bench's wire SLO over (a)'s floats per clock, must act on (b) and (c)
+    and not on (a).  Profiled runs of (b) and (c) give the device time
+    per clock, the kernels' share and the idle share."""
+    import torch
+    from repro_torch.apps import matfact
+    from repro_torch.comm import wire
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import delays, ps, timemodel
+    from repro_torch.ctrl import recover
+    from repro_torch.obs import ObsSpec, events, monitor
+    from repro_torch.psrun import validate
+    t0 = time.perf_counter()
+    app = matfact.make_mf_app(matfact.MFConfig(**FULL_MF), device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    T, P, d = FAULT_CLOCKS, app.n_workers, app.dim
+    faults = wire.make_faults(T, P, device=device, **FAULT_BURST)
+    churn = delays.make_churn(T, P, device=device, **FAULT_POD_OUTAGE)
+    cfg = fault_cfg(cc)
+    cfg = cfg.replace(window=wire.required_window(cfg, faults))
+    obs = ObsSpec()
+    cases = (("neutral", dict(faults=wire.no_faults(T, P, device)), 0),
+             ("faults", dict(faults=faults), faults.retry_budget),
+             ("faults_churn", dict(faults=faults, schedule=churn),
+              faults.retry_budget))
+    recs, traces = {}, {}
+    for name, kw, rb in cases:
+        recs[name], traces[name] = fault_run(app, cfg, name, T, rb, obs=obs,
+                                             **kw)
+    plain = ps.simulate(app, cfg, T, seed=0, obs=obs)
+    neutral = traces["neutral"]
+    unequal = [f for f in validate.TRACE_FIELDS
+               if not torch.equal(getattr(neutral, f), getattr(plain, f))]
+    unequal += [f"obs.{k}" for k in plain.obs
+                if not torch.equal(neutral.obs[k], plain.obs[k])]
+    if unequal:
+        raise AssertionError(f"fault path: the neutral twin differs from "
+                             f"faults=None in {unequal}")
+    del plain
+    # the faults bench's wire-bound time model: a dense clock's shipments
+    # take 3x the mean compute on the cross-pod tier
+    t_comp = matfact.mf_time_model().t_comp
+    tm = timemodel.TimeModel(t_comp=t_comp, bytes_per_channel=4.0 * d,
+                             bandwidth_xpod=4.0 * P * d / (3.0 * t_comp))
+    floats0 = float(neutral.ship_floats.sum()) / T
+    slo = monitor.SLOParams(window=8,
+                            max_floats_per_clock=WIRE_SLO_MARGIN * floats0)
+    for name, kw, rb in cases:
+        ev = events.collect_events(traces[name], cfg, tm,
+                                   schedule=kw.get("schedule"),
+                                   faults=kw["faults"], run=name)
+        events.validate_events(ev)
+        if ev[0].get("retry_budget", 0) != rb:
+            raise AssertionError(f"{name}: run_start.retry_budget "
+                                 f"{ev[0].get('retry_budget')} != {rb}")
+        actions, res = recover.plan_recovery(ev, slo=slo)
+        recs[name]["events"] = len(ev)
+        recs[name]["controller"] = {
+            "actions": [a["action"] for a in actions],
+            "verdicts": len(res.verdicts),
+            "violations_by_slo": res.health["violations_by_slo"],
+            "degraded_config": {
+                k: getattr(recover.apply_actions(cfg, actions), k)
+                for k in ("quant", "agg_clocks")}}
+        if (len(actions) > 0) != (name != "neutral"):
+            emit(recs[name])
+            raise AssertionError(f"{name}: the controller gave "
+                                 f"{len(actions)} actions (neutral: none; "
+                                 f"faulted: at least one)")
+    for name, kw, _ in cases[1:]:
+        split = device_split(app, cfg, T, obs=obs, **kw)
+        recs[name].update(split)
+        if split["device_ms_per_clock"] is not None:
+            recs[name]["device_idle_share_cross_run"] = (
+                1.0 - split["device_ms_per_clock"]
+                / recs[name]["ms_per_clock"])
+    recs["neutral"]["bit_equal_to_no_faults"] = True
+    recs["neutral"]["make_mf_app_s"] = setup_s
+    recs["neutral"]["wire_slo_floats_per_clock"] = slo.max_floats_per_clock
+    del traces, neutral, app
+    torch.cuda.empty_cache()
+    return recs
+
+
+def fault_card_vs_cpu(device):
+    """Phase 11: ``MFConfig()`` under the fault path's config at its
+    window, with every kind of fault (``SMALL_FAULTS``), a worker outage
+    that drops its in-flight mass and ``obs``, on the card against the
+    CPU: :func:`hold_card_to_cpu`, and the liveness, the wire counters and
+    the integer accumulators exact."""
+    import numpy as np
+    from repro_torch.apps import matfact
+    from repro_torch.comm import wire
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import delays
+    from repro_torch.obs import ObsSpec
+    small, T = matfact.MFConfig(), SMALL_CLOCKS
+    P = small.n_workers
+    cfg = fault_cfg(cc)
+    runs = []
+    for dev in (device, "cpu"):
+        faults = wire.make_faults(T, P, device=dev, **SMALL_FAULTS)
+        run_cfg = cfg.replace(window=wire.required_window(cfg, faults))
+        runs.append(simulate_recording_shipments(
+            matfact.make_mf_app(small, device=dev), run_cfg, T,
+            faults=faults, obs=ObsSpec(),
+            schedule=delays.make_churn(T, P, device=dev, **SMALL_OUTAGE)))
+    (got, gs, gcst), (want, ws, wcst) = runs
+    rec = hold_card_to_cpu("fault_small", run_cfg, got, want, gs, ws,
+                           phase="fault_card_vs_cpu")
+    exact = {"live": bool((got.live.cpu() == want.live).all())}
+    for k in ("n_retx", "n_giveup", "n_duprej", "recv_seq", "wire_tip"):
+        exact[k] = bool((gcst[k].cpu() == wcst[k]).all())
+    for k, v in got.obs.items():
+        if k != "ship_floats":
+            exact[f"obs.{k}"] = bool(np.array_equal(v.cpu().numpy(),
+                                                    want.obs[k].numpy()))
+    rec["exact"] = exact
+    rec["wire_counters"] = {k: int(wcst[k].sum()) for k in (
+        "n_retx", "n_giveup", "n_duprej")}
+    emit(rec)
+    if not all(exact.values()):
+        raise AssertionError(f"fault card vs CPU: {exact}")
+    return rec
+
+
+def tuner_phase(device):
+    """Phase 12: ``tune.frontier`` over (``ssp(3)``, ``essp(3)``) x
+    ``push_prob`` in ``TUNE_PUSH_PROBS`` at full width, one seed, 30
+    clocks, in runs per second (``ring_view`` and ``vap_suffix_norms``
+    launched once per clock of every run); then at ``MFConfig()`` the
+    frontier and ``grad_knobs`` on the card against the CPU: the same
+    frontier, each point's losses and wall seconds within the ulp budget,
+    the config knobs' gradients 0.0 on both, ``t_comp``'s within the
+    budget."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.apps import matfact
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import tune
+    from repro_torch.kernels import launch
+    from repro_torch.psrun import validate
+    budget = validate.VAP_ULP_BUDGET
+    bases, grid = (cc.ssp(3), cc.essp(3)), {"push_prob": TUNE_PUSH_PROBS}
+    tm = matfact.mf_time_model()
+    app = matfact.make_mf_app(matfact.MFConfig(**FULL_MF), device=device)
+    tune.frontier(app, bases, grid, time_model=tm, n_clocks=2, seeds=[0])
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    fr = tune.frontier(app, bases, grid, time_model=tm,
+                       n_clocks=FULL_CLOCKS, seeds=[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(launch.launches)
+    n_runs = len(fr.points)
+    want = {"ring_view": n_runs * FULL_CLOCKS,
+            "vap_suffix_norms": n_runs * FULL_CLOCKS}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"tuner: launches {launches}, expected {want}")
+    if not all(math.isfinite(p["final_loss"]) for p in fr.points):
+        raise AssertionError("tuner: a point's final loss is not finite")
+    rec = {"phase": "tuner", "clocks": FULL_CLOCKS, "d": app.dim,
+           "runs": n_runs, "seconds": secs, "runs_per_s": n_runs / secs,
+           "launches": launches, "summary": fr.summary()}
+    del app
+    torch.cuda.empty_cache()
+
+    def ulp(a, b, scale):
+        return abs(a - b) / float(np.spacing(np.float32(abs(scale))))
+
+    small = matfact.MFConfig()
+    apps = [matfact.make_mf_app(small, device=dv) for dv in (device, "cpu")]
+    got, want = (tune.frontier(a, bases, grid, time_model=tm,
+                               n_clocks=SMALL_CLOCKS, seeds=[0])
+                 for a in apps)
+    worst = {"final_loss": 0.0, "wall_to_threshold": 0.0}
+    for g, w in zip(got.points, want.points, strict=True):
+        worst["final_loss"] = max(worst["final_loss"], ulp(
+            g["final_loss"], w["final_loss"], w["final_loss"]))
+        gw, ww = g["wall_to_threshold"], w["wall_to_threshold"]
+        if math.isinf(gw) or math.isinf(ww):
+            if gw != ww:
+                raise AssertionError(f"tuner card vs CPU: {gw} vs {ww}")
+        else:
+            worst["wall_to_threshold"] = max(
+                worst["wall_to_threshold"], ulp(gw, ww, w["wall_total"]))
+    grads = [tune.grad_knobs(a, cc.essp(3), SMALL_CLOCKS, tm, budget=0.5,
+                             knobs=("push_prob",), tm_knobs=("t_comp",))
+             for a in apps]
+    g_ulp = ulp(grads[0]["grads"]["t_comp"], grads[1]["grads"]["t_comp"],
+                grads[1]["grads"]["t_comp"])
+    v_ulp = ulp(grads[0]["value"], grads[1]["value"], grads[1]["value"])
+    rec["card_vs_cpu"] = {
+        "frontier_idx": got.frontier_idx, "max_ulp": worst,
+        "grad_knobs": grads, "t_comp_grad_ulp": g_ulp, "value_ulp": v_ulp,
+        "ulp_budget": budget}
+    ok = (got.frontier_idx == want.frontier_idx
+          and max(worst.values()) <= budget and g_ulp <= budget
+          and v_ulp <= budget
+          and grads[0]["grads"]["push_prob"] == 0.0
+          and grads[1]["grads"]["push_prob"] == 0.0
+          and grads[0]["grads"]["t_comp"] != 0.0)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"tuner card vs CPU: {rec['card_vs_cpu']}")
+    return rec
 
 
 def attn_inputs(shape, seed, device):
@@ -1653,9 +2088,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps import lda, matfact
     from repro_torch.core import consistency as cc
-    from repro_torch.core import ps, sweep
+    from repro_torch.core import sweep
     from repro_torch.kernels import build
-    from repro_torch.psrun import validate
 
     # float32 products in full precision everywhere (the data generation's
     # matmul, the library yardstick); stated and set, not assumed
@@ -1696,6 +2130,10 @@ def main() -> int:
                      *map(sweep.family_window, families.values())}):
         check_kernels((W, FULL_LDA["n_workers"], d_lda, 0), dev, rates,
                       timed=False, path="lda")
+    # the fault path's rings (phases 10 and 12's window, W = 22), timed
+    from repro_torch.comm import wire
+    fault_ring = check_kernels((fault_window(cc, wire), 8, d_full, 0), dev,
+                               rates, timed=True, path="fault")
     wcfg = wired_cfg(cc)
     pack_main = check_delta_pack(8, d_full, WIRED_TOPK, "normal", dev, rates,
                                  timed=True)
@@ -1744,51 +2182,13 @@ def main() -> int:
 
     # --- 4. card against CPU ------------------------------------------------
     small = matfact.MFConfig()
-    budget = validate.VAP_ULP_BUDGET
     for name, cfg in (("essp3", cc.essp(3)), ("vap", cc.vap(SMALL_VAP_V0)),
                       *small_wired_cfgs(cc).items()):
-        got, got_ships = simulate_recording_shipments(
+        got, got_ships, _ = simulate_recording_shipments(
             matfact.make_mf_app(small, device=dev), cfg, SMALL_CLOCKS)
-        want, want_ships = simulate_recording_shipments(
+        want, want_ships, _ = simulate_recording_shipments(
             matfact.make_mf_app(small, device="cpu"), cfg, SMALL_CLOCKS)
-        ulps = validate.trace_max_ulp(got, want)
-        exact = validate.INT_FIELDS + ("ship_floats",)
-        flip = first_wire_flip(got_ships, want_ships, budget)
-        sel = first_selection_flip(got_ships, want_ships, budget,
-                                   cfg.topk_frac)
-        exact_through = float_through = SMALL_CLOCKS - 1
-        if flip is not None:
-            # the flipped wire enters the views from the next clock on
-            flip["clock"] = float_through = (
-                (flip["shipment"] + 1) * cfg.agg_clocks - 1)
-        if sel is not None:
-            # a near tie selected otherwise moves that shipment's count
-            # and, from the next clock on, what is delivered
-            sel["clock"] = (sel["shipment"] + 1) * cfg.agg_clocks - 1
-            exact_through = sel["clock"] - 1
-            float_through = min(float_through, exact_through)
-        diffs = validate.trace_max_diff(trace_head(got, exact_through),
-                                        trace_head(want, exact_through))
-        rec = {"phase": "card_vs_cpu", "config": name, "clocks": SMALL_CLOCKS,
-               "int_fields_equal": all(diffs[f] == 0.0 for f in exact),
-               "int_fields_exact_through": exact_through,
-               "loss_ref_bit_equal": diffs["loss_ref"] == 0.0,
-               "shipments": len(got_ships), "first_wire_flip": flip,
-               "first_selection_flip": sel, "max_ulp": ulps,
-               "ulp_budget": budget}
-        if not rec["int_fields_equal"]:
-            emit(rec)
-            raise AssertionError(f"card vs CPU ({name}): integer fields or "
-                                 f"ship_floats differ through clock "
-                                 f"{exact_through}: {diffs}")
-        if flip is not None or sel is not None:
-            ulps = ulps_through(got, want, float_through)
-            rec["max_ulp_through_flip"] = ulps
-        bad = {f: u for f, u in ulps.items() if f in validate.FLOAT_FIELDS
-               and u > budget}
-        emit(rec)
-        if bad:
-            raise AssertionError(f"card vs CPU ({name}): {bad}")
+        emit(hold_card_to_cpu(name, cfg, got, want, got_ships, want_ships))
 
     # --- 5. serving path at full width ---------------------------------------
     served = {arch: serve_path(arch, dev) for arch in SERVE_ARCHS}
@@ -1824,6 +2224,17 @@ def main() -> int:
 
     # --- 9. LDA, card against CPU --------------------------------------------
     lda_card_vs_cpu(dev)
+
+    # --- 10. the fault path at full width ------------------------------------
+    faulted = fault_path(dev)
+    for rec in faulted.values():
+        emit(rec)
+
+    # --- 11. the fault path, card against CPU -----------------------------------
+    fault_card_vs_cpu(dev)
+
+    # --- 12. the tuner ------------------------------------------------------------
+    tuned = tuner_phase(dev)
 
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
@@ -1883,7 +2294,18 @@ def main() -> int:
           "lda_sweep_runs_per_s": lda_sweep["runs_per_s"],
           "serve_launches_per_prefill": {
               a: r["launches_per_prefill"] for a, r in served.items()},
-          "threshold_selection_ms": selection["ms"]})
+          "threshold_selection_ms": selection["ms"],
+          "fault_ring_W22": {k: {f: fault_ring[k][f] for f in (
+              "ms", "plain_ms", "bound_ms", "library_ms")}
+              for k in ("ring_view", "vap_suffix_norms")},
+          "fault_path": {n: {k: r.get(k) for k in (
+              "clocks_per_s", "launches", "device_ms_per_clock",
+              "kernel_ms_per_clock", "device_idle_share",
+              "max_memory_allocated_bytes", "wire_counters")}
+              for n, r in faulted.items()},
+          "fault_controller_actions": {
+              n: len(r["controller"]["actions"]) for n, r in faulted.items()},
+          "tuner_runs_per_s": tuned["runs_per_s"]})
     emit({"kernels": kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

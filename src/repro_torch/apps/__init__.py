@@ -1,1 +1,1 @@
-"""PS applications (MF-SGD; LDA is ported in a later slice)."""
+"""PS applications: MF-SGD (``matfact``) and LDA (``lda``)."""

@@ -44,6 +44,8 @@ KNOB_BOUNDS = {
     "agg_clocks": (1, None),
     "topk_frac": (0.01, 1.0),
 }
+# The numeric knobs that take integer values (the tuner rounds them).
+INT_KNOBS = ("staleness", "straggler_workers", "s_xpod", "agg_clocks")
 
 
 @dataclass(frozen=True)

@@ -46,13 +46,25 @@ cross-pod readers materialize their views from the shipped wire ring
 while intra-pod readers keep reading raw (two ``ring_view`` launches per
 clock); cross-pod visibility advances only to shipment boundaries; and
 ``Trace.ship_floats`` records the bits-weighted floats of each shipment.
-The port packs only on clocks that ship, where the JAX package packs
-every clock and discards the result; the state and the trace are the
-same.
+The port packs only on boundary clocks (``comm.ship_now``, a test of the
+host's clock), where the JAX package packs every clock and discards the
+result; the state and the trace are the same.
 
-Fleet churn (``schedule``), telemetry (``obs``) and the lossy wire
-(``faults``) are ported in later slices; passing them raises
-``NotImplementedError``.
+``schedule`` (a `core.delays.ChurnSchedule`) makes the fleet churn: dead
+workers' updates are zeroed before they enter the ring, their local
+state and reader rows of ``cview`` freeze, they ship nothing, and with
+``drop_inflight`` their ring, accumulator, residual and wire rows are
+zeroed the clock they die; the key stream and every survivor channel are
+the no-churn ones.  ``faults`` (a `comm.wire.WireFaults`, comm substrate
+only) makes the cross-pod wire lossy: the ARQ of :mod:`comm.wire` runs
+every clock (retransmits and arrivals land off the boundaries), a busy
+producer skips its boundary, and cross-pod visibility is capped by what
+has arrived (``wire_tip``).  Under churn or faults the shipping decision
+is a ``[P]`` mask on the device, applied with ``torch.where`` to the
+packed rows.  ``obs`` (an `obs.ObsSpec`) folds telemetry accumulators on
+the device every clock and returns them as ``Trace.obs``.  A neutral
+schedule (``no_churn``, ``wire.no_faults``) and ``obs`` on or off leave
+every other Trace field bit-equal.
 """
 from __future__ import annotations
 
@@ -63,11 +75,13 @@ import torch
 
 from .. import rng as jrng
 from ..comm import substrate as comm
+from ..comm import wire
 from ..kernels import ops
 from ..kernels.ref import RING_EMPTY, RING_INVALID
+from ..obs import metrics as obsm
 from .consistency import ConsistencyConfig
-from .delays import delivery_matrix, pod_of, same_pod_mask, \
-    staleness_bound_matrix
+from .delays import ChurnSchedule, churn_live, churn_rates, \
+    delivery_matrix, pod_of, same_pod_mask, staleness_bound_matrix
 
 
 @dataclass
@@ -113,11 +127,13 @@ class Trace:
     #                               (comm substrate: values + sparse indices
     #                               at shipment clocks, 0 otherwise; dense
     #                               path: d for push models, 0 for ssp)
-    live: torch.Tensor            # [T, P] worker liveness (all True: churn
-    #                               is not ported yet)
+    live: torch.Tensor            # [T, P] worker liveness (all True
+    #                               without a ChurnSchedule)
     views0: torch.Tensor | None   # [T, d] worker-0 views (if record_views)
     x_final: torch.Tensor         # [d] final reference parameters
     locals_final: Any             # final worker-local state
+    obs: Any = None               # telemetry accumulators (obs.metrics)
+    #                               when the run collected them, else None
 
 
 def enforce_vap(cfg: ConsistencyConfig, c: int, cview, norms, W: int):
@@ -154,43 +170,67 @@ def _x_ref(base, uring, uclock):
     return base + (uring.sum(dim=1) * valid[:, None]).sum(dim=0)
 
 
-def _tier_target(in_pod, intra: int, xpod: int, like):
-    """[P, P] int32 visibility target: ``intra`` on intra-pod channels,
-    ``xpod`` across pods (filled on the device)."""
-    return torch.full_like(like, xpod).masked_fill_(in_pod, intra)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
-        f"{item}); run it on the JAX package")
+def _select_local(mask, new, old):
+    """Keep ``new`` worker-local state where ``mask [P]`` and ``old``
+    elsewhere, leaf by leaf (a dict of tensors with a leading ``P`` axis,
+    possibly nested)."""
+    if isinstance(new, dict):
+        return {k: _select_local(mask, new[k], old[k]) for k in new}
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                       old)
 
 
 def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
-             record_views: bool = False, schedule=None, obs=None,
-             faults=None) -> Trace:
+             record_views: bool = False,
+             schedule: ChurnSchedule | None = None,
+             obs: obsm.ObsSpec | None = None,
+             faults: wire.WireFaults | None = None) -> Trace:
     """Run ``n_clocks`` of the app under the given consistency model, on
     the device of ``app.x0``.  Same contract as the JAX package's
-    ``core.ps.simulate`` in its dense flat and two-tier modes and under
-    the comm substrate."""
-    if schedule is not None:
-        _not_ported("fleet churn (schedule=ChurnSchedule)", "item 10")
-    if obs is not None:
-        _not_ported("telemetry (obs=ObsSpec)", "item 12")
-    if faults is not None:
-        _not_ported("the lossy wire (faults=WireFaults)", "item 11")
+    ``core.ps.simulate``: flat and two-tier, dense and under the comm
+    substrate, with fleet churn (``schedule``), telemetry (``obs``) and
+    the lossy wire (``faults``)."""
+    return simulate_with_state(app, cfg, n_clocks, seed, record_views,
+                               schedule=schedule, obs=obs, faults=faults)[0]
 
+
+def simulate_with_state(app: PSApp, cfg: ConsistencyConfig, n_clocks: int,
+                        seed=0, record_views: bool = False,
+                        schedule: ChurnSchedule | None = None,
+                        obs: obsm.ObsSpec | None = None,
+                        faults: wire.WireFaults | None = None):
+    """`simulate`, also returning the final comm state (``None`` off the
+    comm substrate): ``acc``, ``res``, the wire ring and, under
+    ``faults``, the ARQ state with its counters (``n_retx``,
+    ``n_giveup``, ``n_duprej``)."""
     P, d = app.n_workers, app.dim
     W = cfg.effective_window
     f32, i32 = torch.float32, torch.int32
     dev = app.x0.device
+    churned = schedule is not None
+    if churned and schedule.live.shape[1] != P:
+        raise ValueError(f"schedule has {schedule.live.shape[1]} workers, "
+                         f"app has {P}")
+    # the comm substrate routes cross-pod shipment through the wire ring
+    wired = cfg.comm_active
+    G, agg = cfg.n_pods, cfg.agg_clocks
+    obs_enabled = obsm.obs_on(obs)
+    faulted = faults is not None
+    if faulted:
+        wire.validate_faults(faults, cfg, P, W)
+        faults = faults.to(dev)
+    if churned:
+        schedule = schedule.to(dev)
 
     base = app.x0.to(f32).clone()
     uring = torch.zeros((W, P, d), dtype=f32, device=dev)
     uclock = torch.full((W,), RING_EMPTY, dtype=i32, device=dev)
     cview = torch.full((P, P), -1, dtype=i32, device=dev)
     rng = jrng.PRNGKey(seed, dev)
-    # two-tier staleness bound: s intra-pod, s + s_xpod across pods
+    # two-tier staleness bound: s intra-pod, s + s_xpod across pods (+
+    # agg_clocks - 1 under the substrate).  Under a lossy wire the trigger
+    # stays unwidened, as in the JAX package: only the declared contract
+    # carries + retry_budget.
     s_eff = staleness_bound_matrix(cfg, torch.arange(P, device=dev), P,
                                    device=dev)
     worker_ids = torch.arange(P, dtype=i32, device=dev)
@@ -198,23 +238,45 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
     eye = torch.eye(P, dtype=torch.bool, device=dev)
     all_live = torch.ones((P,), dtype=torch.bool, device=dev)
     local = app.local0
-    # the comm substrate routes cross-pod shipment through the wire ring
-    wired = cfg.comm_active
-    G, agg = cfg.n_pods, cfg.agg_clocks
+    cst = None
     if wired:
         in_pod = same_pod_mask(P, G, dev)                   # [P(r), P(q)]
         reader_pods = pod_of(P, G, dev)
         zeros_d = torch.zeros((d,), dtype=f32, device=dev)
         no_ship = torch.zeros((P,), dtype=f32, device=dev)
         cst = comm.init_state(W, P, d, G, dev)
+        if faulted:
+            cst.update(wire.init_wire_state(P, d, dev))
     else:
-        ship_floats = comm.dense_ship_floats(cfg.model, P, d, dev)
+        dense_ship = comm.dense_ship_floats(cfg.model, P, d, dev)
+    if obs_enabled:
+        # the channel tiers of the forced-refresh split (all intra-pod
+        # when G == 1)
+        in_pod_obs = in_pod if wired else same_pod_mask(P, G, dev)
+        oacc = obsm.device_init(P, obs.n_buckets, dev)
 
     rec = {k: [] for k in ("loss_ref", "loss_view", "staleness", "forced",
                            "delivered", "u_l2", "intransit_inf",
-                           "ship_floats", "views0")}
+                           "ship_floats", "live", "views0")}
     for c in range(n_clocks):
         rng, k_upd, k_net = jrng.split(rng, 3).unbind(0)
+
+        rates = None
+        live_now = all_live
+        if churned:
+            live_now, died = churn_live(schedule, c)        # [P], [P]
+            rates = churn_rates(cfg, schedule, P, c)
+            if schedule.drop_inflight:
+                # a worker dying this clock takes its in-flight (and,
+                # wired, unshipped) mass with it
+                uring.masked_fill_(died[None, :, None], 0.0)
+                if wired:
+                    cst["acc"].masked_fill_(died[:, None], 0.0)
+                    cst["res"] = cst["res"].masked_fill(died[:, None], 0.0)
+                    cst["xring"].masked_fill_(died[None, :, None], 0.0)
+                    if faulted:
+                        cst = wire.drop_pending(cst, ~died)
+            cview_pre = cview
 
         # per-producer suffix-aggregate inf-norms of the newest k clocks:
         # drive VAP enforcement and the in-transit metric
@@ -227,9 +289,10 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         elif cfg.model in ("ssp", "essp"):
             forced = cview < (c - s_eff - 1)
             if wired:
-                # a cross-pod refresh fetches only what has shipped
-                tgt = _tier_target(in_pod, c - 1,
-                                   comm.shipped_through(c, agg), cview)
+                # a cross-pod refresh fetches only what has shipped, and
+                # under faults only what has arrived (wire_tip)
+                tgt = _xpod_target(cst, in_pod, c - 1,
+                                   comm.shipped_through(c, agg), faulted)
                 cview = torch.where(forced, tgt, cview)
             else:
                 cview = torch.where(forced, c - 1, cview)
@@ -239,6 +302,11 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
             forced = torch.zeros_like(cview, dtype=torch.bool)
         if cfg.read_my_writes:
             cview = torch.where(eye, c - 1, cview)
+        if churned:
+            # dead readers neither fetch nor advance: their rows freeze,
+            # which trips the bound (one forced burst) on rejoin
+            forced = forced & live_now[:, None]
+            cview = torch.where(live_now[:, None], cview, cview_pre)
         staleness = cview - c
 
         # channel (r, q) has the newest c-1-cview[r,q] clocks of q in
@@ -262,8 +330,16 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
 
         # --- 3. worker computation --------------------------------------
         upd_keys = jrng.split(k_upd, P)
-        u, local = app.worker_update(views, local, worker_ids, c, upd_keys)
+        u, local_new = app.worker_update(views, local, worker_ids, c,
+                                         upd_keys)
         u = u.to(f32)
+        if churned:
+            # dead workers push nothing and their local state freezes; the
+            # update still runs for all P, its dead rows discarded
+            u = u.masked_fill(~live_now[:, None], 0.0)
+            local = _select_local(live_now, local_new, local)
+        else:
+            local = local_new
 
         # --- 4. commit to server: fold oldest slot, write newest ---------
         slot = c % W
@@ -280,32 +356,35 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         uring[slot] = u
         uclock[slot].fill_(c)       # a fill: `= c` copies from the host
         if wired:
-            # --- 4b. comm substrate: accumulate, and ship on boundary ----
-            # acc is the state's own tensor: accumulate in place
-            cst["acc"].add_(u)
-            if comm.ship_now(c, agg):
-                delta = cst["acc"] + cst["res"]
-                wire_u, cst["res"], nnz = comm.pack(delta, cfg.topk_frac,
-                                                    cfg.quant)
-                cst["acc"].zero_()
-                cst["xring"][slot] = wire_u
-                ship_floats = comm.wire_floats(nnz, d, cfg.quant)
-            else:
-                cst["xring"][slot].zero_()
-                ship_floats = no_ship
+            ship_floats = _ship(cst, u, c, cfg, d, live_now if churned
+                                else None, faults, no_ship, slot)
+        else:
+            ship_floats = (torch.where(live_now, dense_ship, 0.0)
+                           if churned else dense_ship)
 
         # --- 5. end-of-clock delivery (affects reads at c+1) -------------
         if cfg.model == "bsp":
             delivered = torch.ones((P, P), dtype=torch.bool, device=dev)
-            cview = torch.full_like(cview, c)
+            if churned:
+                # the barrier drains to live readers only
+                delivered = delivered & live_now[:, None]
+                cview = torch.where(live_now[:, None],
+                                    torch.full_like(cview, c), cview)
+            else:
+                cview = torch.full_like(cview, c)
         elif cfg.model == "ssp":
             delivered = torch.zeros((P, P), dtype=torch.bool, device=dev)
         else:  # essp / async / vap: delay-driven eager delivery
-            delivered = delivery_matrix(k_net, cfg, P)
+            delivered = delivery_matrix(k_net, cfg, P, rates)
+            if churned:
+                # pushes to dead readers are lost; the draws themselves
+                # are the no-churn draws
+                delivered = delivered & live_now[:, None]
             if wired:
-                # a cross-pod delivery carries the latest shipment
-                tgt = _tier_target(in_pod, c, comm.shipped_end(c, agg),
-                                   cview)
+                # a cross-pod delivery carries the latest shipment (under
+                # faults, the latest arrived one)
+                tgt = _xpod_target(cst, in_pod, c,
+                                   comm.shipped_end(c, agg), faulted)
                 cview = torch.where(delivered, torch.maximum(cview, tgt),
                                     cview)
             else:
@@ -322,15 +401,21 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         rec["u_l2"].append(torch.linalg.vector_norm(u, dim=-1))
         rec["intransit_inf"].append(intransit_inf)
         rec["ship_floats"].append(ship_floats)
+        rec["live"].append(live_now)
         if record_views:
             rec["views0"].append(views[0])
+        if obs_enabled:
+            oacc = obsm.device_update(
+                oacc, staleness=staleness, forced=forced,
+                delivered=delivered, ship_floats=ship_floats, live=live_now,
+                live_rows=live_now, in_pod=in_pod_obs)
 
     def stacked(k, shape, dtype):
         if rec[k]:
             return torch.stack(rec[k])
         return torch.empty((0,) + shape, dtype=dtype, device=dev)
 
-    return Trace(
+    trace = Trace(
         loss_ref=stacked("loss_ref", (), f32),
         loss_view=stacked("loss_view", (), f32),
         staleness=stacked("staleness", (P, P), i32),
@@ -339,8 +424,67 @@ def simulate(app: PSApp, cfg: ConsistencyConfig, n_clocks: int, seed=0,
         u_l2=stacked("u_l2", (P,), f32),
         intransit_inf=stacked("intransit_inf", (), f32),
         ship_floats=stacked("ship_floats", (P,), f32),
-        live=all_live.expand(n_clocks, P).clone(),
+        live=stacked("live", (P,), torch.bool),
         views0=stacked("views0", (d,), f32) if record_views else None,
         x_final=_x_ref(base + cst["base_pod"].sum(0) if wired else base,
                        uring, uclock),
-        locals_final=local)
+        locals_final=local, obs=oacc if obs_enabled else None)
+    return trace, cst
+
+
+def _xpod_target(cst, in_pod, intra: int, xpod: int, faulted: bool):
+    """[P, P] int32 visibility target of a refresh or delivery: ``intra``
+    on intra-pod channels, ``xpod`` (the shipment boundary) across pods,
+    capped under faults by each producer's ``wire_tip``."""
+    if faulted:
+        tip = torch.clamp(cst["wire_tip"], max=xpod).expand(in_pod.shape)
+    else:                           # filled on the device
+        tip = torch.full(in_pod.shape, xpod, dtype=torch.int32,
+                         device=in_pod.device)
+    return tip.masked_fill(in_pod, intra)
+
+
+def _ship(cst, u, c: int, cfg, d: int, live, faults, no_ship, slot: int):
+    """Section 4b of a clock on the comm substrate, updating ``cst``:
+    accumulate ``u``, pack and ship at a boundary, run the lossy wire's
+    ARQ under ``faults``.  Returns the clock's ``ship_floats [P]``.
+
+    ``ship_now`` is a test of the host's clock, so the pack runs (one
+    ``delta_pack`` launch) on boundary clocks only.  Under churn or faults
+    who ships is a ``[P]`` device mask (boundary x liveness x idleness),
+    applied to the packed rows with ``torch.where``."""
+    cst["acc"].add_(u)              # acc is the state's own tensor
+    boundary = comm.ship_now(c, cfg.agg_clocks)
+    masked = live is not None or faults is not None
+    wire_u = floats = ship = None
+    if boundary:
+        delta = cst["acc"] + cst["res"]
+        wire_u, resid, nnz = comm.pack(delta, cfg.topk_frac, cfg.quant)
+        floats = comm.wire_floats(nnz, d, cfg.quant)
+        if not masked:
+            cst["acc"].zero_()
+            cst["res"] = resid
+        else:
+            ship = torch.ones_like(resid[:, 0], dtype=torch.bool)
+            if live is not None:
+                ship = ship & live
+            if faults is not None:
+                # stop-and-wait: a producer with an unacked shipment skips
+                # the boundary; the skipped content rides the next one
+                ship = ship & wire.idle(cst)
+            cst["acc"].masked_fill_(ship[:, None], 0.0)
+            cst["res"] = torch.where(ship[:, None], resid, cst["res"])
+            wire_u = wire_u.masked_fill(~ship[:, None], 0.0)
+    if faults is not None:
+        # the recycled slot clears; a shipment enters the wire ring only
+        # when it arrives, through wire_step's sequence-guarded fold
+        cst["xring"][slot].zero_()
+        new, ship_floats = wire.wire_step(cst, wire_u, floats, ship, c,
+                                          faults, live=live)
+        cst.update(new)
+        return ship_floats
+    if not boundary:
+        cst["xring"][slot].zero_()
+        return no_ship
+    cst["xring"][slot] = wire_u
+    return floats if ship is None else torch.where(ship, floats, 0.0)

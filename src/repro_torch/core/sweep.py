@@ -26,9 +26,11 @@ launch).  ``n_runs`` counts the ``simulate`` runs the sweep made, one per
 Batching ``simulate`` itself, or capturing its clock in a CUDA graph, so
 that a family shares its launches, is ROADMAP queue 2 work.
 
+``obs`` (an `obs.ObsSpec`) threads the telemetry accumulators through
+every run; each trace's ``obs`` comes back batched like its other fields.
 Sharding the batch over several devices (``devices``, ``mesh``,
-``mesh_axis``) and telemetry (``obs``) raise ``NotImplementedError``
-naming their ROADMAP items.
+``mesh_axis``) raises ``NotImplementedError``: it comes with the sharded
+runtimes (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -147,15 +149,15 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
         batched per config like ``traces``.
       keep_traces: when False (requires ``post``), drop each trace once its
         post has run and keep only the post outputs.
-      devices, mesh, mesh_axis, obs: the JAX engine's multi-device
-        sharding and telemetry, which raise here.
+      obs: an `obs.ObsSpec`: collect telemetry in every run
+        (``Trace.obs``); ``None`` leaves every other field bit-equal.
+      devices, mesh, mesh_axis: the JAX engine's multi-device sharding,
+        which raises here (ROADMAP queue 1, item 14).
     """
     if devices is not None or mesh is not None or mesh_axis is not None:
         _not_ported("a sweep sharded over devices (devices=, mesh=, "
                     "mesh_axis=)",
                     "item 14")
-    if obs is not None:
-        _not_ported("telemetry (obs=ObsSpec)", "item 12")
     if not keep_traces and post is None:
         raise ValueError("keep_traces=False requires a post callback")
     configs = list(configs)
@@ -183,7 +185,7 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
             runs, outs = [], []
             for sd in seeds:
                 tr = simulate(app, harmonized[i], n_clocks, seed=int(sd),
-                              record_views=record_views)
+                              record_views=record_views, obs=obs)
                 if post is not None:
                     outs.append(post(tr, harmonized[i], int(sd), i))
                 if keep_traces:

@@ -27,8 +27,13 @@ Passing the run's ``cfg`` (``n_pods > 1``) switches on the JAX model's
 bytes-on-wire accounting of the cross-pod tier: forced fetches split by
 tier, and the clock cannot close before its cross-pod shipments
 (``Trace.ship_floats``) drain at ``bandwidth_xpod``.  A churn
-``schedule`` (its per-clock ``bw_scale``) waits for fleet churn (ROADMAP
-queue 1, item 10) and raises.
+``schedule`` with a ``bw_scale`` scales ``bandwidth_xpod`` per clock
+(a transient cross-pod crunch): both the wire floor and the cross-pod
+fetches ride the scaled tier.  Dead workers (``Trace.live``) draw no
+compute and leave the slowest-worker max.
+
+The constants may be 0-d tensors (``core.tune.grad_knobs`` passes them
+with ``requires_grad``): the model is then differentiable in them.
 """
 from __future__ import annotations
 
@@ -54,8 +59,20 @@ def _trace_device(trace) -> torch.device:
 
 
 def _f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):     # a differentiable constant
+        return x.to(device=device, dtype=torch.float32)
     # filled on the device: torch.tensor(x, device=cuda) would synchronize
     return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def _quotient(a, b, device) -> torch.Tensor:
+    """``a / b`` as float32 on ``device``: of two Python floats in float64,
+    rounded once (the JAX model's constant folding), else tensor by
+    tensor (a Python numerator over a tensor would be a reciprocal
+    multiply in torch)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return _f32(a, device) / _f32(b, device)
+    return _f32(a / b, device)
 
 
 @dataclass(frozen=True)
@@ -92,10 +109,6 @@ class TimeModel:
         seconds (tier-split under a hierarchical ``cfg``), ``wire[T]``
         cross-pod shipment seconds on the thin tier (``None`` untiered),
         the intra-tier ``xfer`` constant and the ``tiered`` flag."""
-        if schedule is not None:
-            raise NotImplementedError(
-                "a churn schedule (bw_scale) is not ported to repro_torch "
-                "yet (ROADMAP queue 1, item 10); run it on the JAX package")
         dev = _trace_device(trace)
         forced = _tensor(trace.forced, dev)             # [T, P, P]
         T, P, _ = forced.shape
@@ -108,8 +121,17 @@ class TimeModel:
         tiered = cfg is not None and cfg.n_pods > 1
         f = forced.float()
         if tiered:
-            # JAX rounds bytes / bw_x to float32 first, then adds rtt in f32
-            xfer_x = _f32(self.bytes_per_channel / self.bandwidth_xpod, dev)
+            bw_x = _f32(self.bandwidth_xpod, dev)       # scalar, or [T]
+            if schedule is not None and schedule.bw_scale is not None:
+                bws = _tensor(schedule.bw_scale, dev)
+                idx = torch.clamp(torch.arange(T, device=dev), 0,
+                                  bws.shape[0] - 1)
+                bw_x = bw_x * torch.clamp(bws[idx], min=1e-6)
+                xfer_x = (_f32(self.bytes_per_channel, dev) / bw_x)[:, None]
+            else:
+                # JAX rounds bytes / bw_x to float32 first, then adds rtt
+                xfer_x = _quotient(self.bytes_per_channel,
+                                   self.bandwidth_xpod, dev)
             same = same_pod_mask(P, cfg.n_pods, dev)[None, :, :]
             sync = ((f * same).sum(dim=2) * (self.rtt + xfer)
                     + (f * ~same).sum(dim=2) * (self.rtt + xfer_x))
@@ -117,8 +139,7 @@ class TimeModel:
             # every other pod's replica, through the thin tier (a tensor
             # divisor: on CUDA a Python one is a reciprocal multiply)
             ship = _tensor(trace.ship_floats, dev)
-            wire = ((4.0 * (cfg.n_pods - 1)) * ship.sum(dim=1)
-                    / _f32(self.bandwidth_xpod, dev))   # [T]
+            wire = ((4.0 * (cfg.n_pods - 1)) * ship.sum(dim=1) / bw_x)  # [T]
         else:
             sync = f.sum(dim=2) * (self.rtt + xfer)
             wire = None
@@ -139,9 +160,8 @@ class TimeModel:
         T, P = comp.shape
         if model == "bsp":
             comp_clock = comp.amax(dim=1)
-            comm_clock = torch.full(
-                (T,), self.barrier_overhead + (P - 1) * xfer + self.rtt,
-                dtype=torch.float32, device=comp.device)
+            comm_clock = _f32(self.barrier_overhead + (P - 1) * xfer
+                              + self.rtt, comp.device).expand(T).contiguous()
         else:
             worst = torch.argmax(comp + sync, dim=1)[:, None]
             comp_clock = torch.gather(comp, 1, worst)[:, 0]
@@ -152,10 +172,11 @@ class TimeModel:
             comm_clock = wall - comp_clock
         return wall, comp_clock, comm_clock
 
-    def wall_time(self, trace, model: str, fold=(),
-                  cfg=None) -> torch.Tensor:
+    def wall_time(self, trace, model: str, fold=(), cfg=None,
+                  schedule=None) -> torch.Tensor:
         """Cumulative modeled wall seconds per clock."""
-        wall, _, _ = self.per_clock(trace, model, fold, cfg=cfg)
+        wall, _, _ = self.per_clock(trace, model, fold, cfg=cfg,
+                                    schedule=schedule)
         return torch.cumsum(wall, dim=0)
 
     def breakdown_traced(self, trace, model: str, fold=(),
@@ -176,24 +197,27 @@ class TimeModel:
         parts = self._components(trace, fold, cfg=cfg, schedule=schedule)
         comp, sync, wire, _, _ = parts
         wall, comp_clock, comm_clock = self._clock_split(model, *parts)
-        wall = wall.cpu().numpy()
+        host = lambda t: t.detach().cpu().numpy()
+        wall = host(wall)
         end = np.cumsum(wall)
         return {"start": end - wall, "end": end, "wall": wall,
-                "comp_clock": comp_clock.cpu().numpy(),
-                "comm_clock": comm_clock.cpu().numpy(),
-                "comp": comp.cpu().numpy(), "sync": sync.cpu().numpy(),
+                "comp_clock": host(comp_clock),
+                "comm_clock": host(comm_clock),
+                "comp": host(comp), "sync": host(sync),
                 "wire": (np.zeros_like(wall) if wire is None
-                         else np.broadcast_to(wire.cpu().numpy(),
+                         else np.broadcast_to(host(wire),
                                               wall.shape).copy())}
 
     # -------------------------------------------------- numpy-facing shims
-    def per_clock_np(self, trace, model: str, fold=(), cfg=None):
-        return tuple(x.cpu().numpy()
-                     for x in self.per_clock(trace, model, fold, cfg=cfg))
+    def per_clock_np(self, trace, model: str, fold=(), cfg=None,
+                     schedule=None):
+        return tuple(x.detach().cpu().numpy() for x in self.per_clock(
+            trace, model, fold, cfg=cfg, schedule=schedule))
 
-    def wall_time_np(self, trace, model: str, fold=(),
-                     cfg=None) -> np.ndarray:
-        return self.wall_time(trace, model, fold, cfg=cfg).cpu().numpy()
+    def wall_time_np(self, trace, model: str, fold=(), cfg=None,
+                     schedule=None) -> np.ndarray:
+        return self.wall_time(trace, model, fold, cfg=cfg,
+                              schedule=schedule).detach().cpu().numpy()
 
     def breakdown(self, trace, model: str, fold=(), cfg=None) -> dict:
         """Fig 1-right style comm/comp split over the whole run (floats)."""

@@ -157,16 +157,29 @@ def test_configs_match_jax():
 
 
 def test_unported_paths_raise(apps):
-    """Churn, telemetry and the lossy wire still raise, on the dense path
-    and on the comm substrate's, naming their roadmap item."""
-    _, tapp = apps["quad"]
-    wired = tc.compressed(tc.podded(tc.essp(1), 2), agg_clocks=2)
-    for cfg in (tc.essp(1), wired):
-        for kw, item in (("schedule", "item 10"), ("obs", "item 12"),
-                         ("faults", "item 11")):
-            with pytest.raises(NotImplementedError,
-                               match=f"not ported.*{item}"):
-                tps.simulate(tapp, cfg, 2, **{kw: object()})
+    """Churn, telemetry and the lossy wire are ported: what still raises
+    are the structure guards, ``ValueError`` as in the JAX package — a
+    schedule of the wrong worker count, faults off the comm substrate, a
+    ring window below ``wire.required_window`` — on the dense path and on
+    the comm substrate's."""
+    from repro.comm import wire as jw
+    from repro_torch.comm import wire as tw
+    from repro_torch.obs import ObsSpec
+    japp, tapp = apps["quad"]
+    P = tapp.n_workers
+    for m, w, app, d in ((jc, jw, japp, jdelays), (tc, tw, tapp, tdelays)):
+        wired = m.compressed(m.podded(m.essp(1), 2), agg_clocks=2)
+        faults = w.make_faults(4, P, seed=1, drop_rate=0.5, max_retries=1)
+        short = wired.replace(window=w.required_window(wired, faults) - 1)
+        for cfg, kw in ((m.essp(1), dict(schedule=d.no_churn(4, P + 1))),
+                        (wired, dict(schedule=d.no_churn(4, P + 1))),
+                        (m.essp(1), dict(faults=faults)),
+                        (short, dict(faults=faults)),
+                        (wired, dict(faults=w.no_faults(4, P + 1)))):
+            with pytest.raises(ValueError):
+                (jps if m is jc else tps).simulate(app, cfg, 2, **kw)
+    tr = tps.simulate(tapp, tc.essp(1), 2, obs=ObsSpec())
+    assert int(tr.obs["clocks"]) == 2
 
 
 def test_enforce_vap_matches_jax():

@@ -200,11 +200,16 @@ def test_lda_figure_sweep_matches_jax():
 
 
 def test_unported_options_raise(tquad):
-    for kw, item in ((dict(devices=["cpu"]), "item 14"),
-                     (dict(mesh=object()), "item 14"),
-                     (dict(mesh_axis="batch"), "item 14"),
-                     (dict(obs=object()), "item 12")):
-        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
+    """Sharding over devices still raises, naming item 14; telemetry is
+    ported and comes back batched per config
+    (``test_torch_obs.py::test_sweep_threads_obs`` holds its values)."""
+    from repro_torch.obs import ObsSpec
+    for kw in (dict(devices=["cpu"]), dict(mesh=object()),
+               dict(mesh_axis="batch")):
+        with pytest.raises(NotImplementedError,
+                           match="not ported.*item 14"):
             tsweep.sweep(tquad, [tc.ssp(1)], 2, **kw)
+    res = tsweep.sweep(tquad, [tc.ssp(1)], 2, seeds=2, obs=ObsSpec())
+    assert res.traces[0].obs["clocks"].tolist() == [2, 2]
     with pytest.raises(ValueError, match="requires a post"):
         tsweep.sweep(tquad, [tc.ssp(1)], 2, keep_traces=False)

@@ -106,7 +106,8 @@ def test_time_model_matches_jax(traces, name):
 
 def test_time_model_on_port_tensors_and_tiers(traces):
     """The model runs on a trace of tensors (a port run) as on numpy; the
-    two-pod accounting charges the thin tier; a churn schedule raises."""
+    two-pod accounting charges the thin tier; a churn schedule's
+    ``bw_scale`` scales it as JAX's model does."""
     tr = traces["essp2_2pod"]
     as_tensors = type(tr)(**{k: (torch.from_numpy(np.asarray(v))
                                  if isinstance(v, np.ndarray) else v)
@@ -119,8 +120,18 @@ def test_time_model_on_port_tensors_and_tiers(traces):
     flat = tm.per_clock_np(tr, "essp")[0]
     tiered = tm.per_clock_np(tr, "essp", cfg=cfg)[0]
     assert (tiered >= flat).all() and (tiered > flat).any()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.per_clock(tr, "essp", cfg=cfg, schedule=object())
+    from repro.core import delays as jdelays
+    from repro_torch.core import delays as tdelays
+    P = tr.forced.shape[1]
+    drop = dict(n_pods=2, bw_drop=(3, 9, 0.25))
+    crunch = tm.per_clock_np(tr, "essp", cfg=cfg,
+                             schedule=tdelays.make_churn(T, P, **drop))
+    want = jtm.TimeModel().per_clock(
+        tr, "essp", cfg=CONFIGS["essp2_2pod"](jc),
+        schedule=jdelays.make_churn(T, P, **drop))
+    for got, w in zip(crunch, want, strict=True):
+        _close(got, w, CLOCK_ULP, "bw_scale")
+    assert (crunch[0] >= tiered).all() and (crunch[0][3:9] > tiered[3:9]).any()
 
 
 def test_straggler_draws_mean_corrected():
