@@ -105,6 +105,10 @@ def device_update(acc: dict, *, staleness, forced, delivered, ship_floats,
     }
 
 
+# ``device_reduce`` (one collective per accumulator over a mesh's worker
+# axes) comes with the sharded runtimes, ROADMAP queue 1 item 14.
+
+
 # --------------------------------------------------------------------------
 # host half
 # --------------------------------------------------------------------------
@@ -200,6 +204,11 @@ def drain_device(reg: MetricsRegistry, acc, prefix: str = "ps") -> None:
                     float(get("ship_floats").sum()))
     reg.counter_add(f"{prefix}/dead_worker_clocks",
                     get("dead_worker_clocks"))
+
+
+# ``record_compiles`` has no counterpart: nothing in the port is compiled
+# per config family (the kernels are built once per process), so there is
+# no count to record.
 
 
 def record_timing(reg: MetricsRegistry, trace, model: str, tm, fold=(),
