@@ -25,8 +25,12 @@ JAX or the JAX package).  Twelve phases, one JSON line each (or more):
    for attention, two for ssd's y at ``main`` and ``carry``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
-   path's rings (W = 22, P = 8, d = 5,053,800: ``vap_suffix_norms``'s
-   ``W <= 32`` instance), ``path: "fault"``;
+   path's rings (W = 22, P = 8, d = 5,053,800), ``path: "fault"``, with
+   ``vap_suffix_norms``'s ptxas lines (no spills); ``vap_suffix_norms``
+   is held exactly to its plain version on spiked rings
+   (``check_spiked``) at the fault path's and LDA's rings and at ragged
+   shapes, where each of ``ref.VAP_FAULTS`` (the last, the first or the
+   seam columns dropped, the oldest slot skipped) must differ from it;
    ``mf_sgd_block`` (``check_mf_sgd``) is driven through
    ``ops.mf_sgd_block`` at the dense block of the full-width MF data
    (``main``, NaN at every unobserved rating) and at the ``kernels``
@@ -47,7 +51,8 @@ JAX or the JAX package).  Twelve phases, one JSON line each (or more):
    per shipping clock), the clock loop must not synchronize with the
    host, the traces must be finite, the loss falling and the (widened)
    staleness bound kept; a profiled run gives the per-clock device time
-   of the kernels, of the threshold selection and of the rest, and the
+   of the kernels (each by name: a launched kernel the profiler saw no
+   time for fails), of the threshold selection and of the rest, and the
    device's idle share in that same run;
 4. the default MF config on the card against the same run on the CPU,
    dense and wired: integer Trace fields and ``ship_floats`` equal, float
@@ -470,6 +475,40 @@ def check_kernels(shape, device, rates, timed: bool, path=None):
     return rec
 
 
+def check_spiked(shape, device, path=None):
+    """``vap_suffix_norms`` on a spiked ring (``ref.vap_spiked_ring``: each
+    producer's largest |suffix| in its first or last column or beside a
+    seam of the kernel's ``VAP_TILE``), exactly equal to its plain
+    version, while each of ``ref.VAP_FAULTS`` made with the plain version
+    must differ from it on the same inputs."""
+    import torch
+    from repro_torch.kernels import ps_view, ref
+    W, P, d = shape
+    uring, uclock, c, spikes = ref.vap_spiked_ring(
+        W, P, d, ps_view.VAP_TILE, seed=W * 1000 + P + 7, device=device)
+    want = ref.vap_suffix_norms(uring, uclock, c)
+    got = ps_view.vap_suffix_norms(uring, uclock, c)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    faults = {f: (ref.vap_suffix_norms_fault(uring, uclock, c, f,
+                                             ps_view.VAP_TILE)
+                  - want).abs().max().item() for f in ref.VAP_FAULTS}
+    rec = {"phase": "kernels_spiked", "W": W, "P": P, "d": d,
+           "spike_columns": sorted(set(spikes)),
+           "vap_suffix_norms": {"max_abs_err": err, "tol": 0.0},
+           "planted_fault_err": faults}
+    if path is not None:
+        rec["path"] = path
+    emit(rec)
+    missed = [f for f, e in faults.items() if not e > 0.0]
+    if err > 0.0 or missed:
+        raise AssertionError(f"spiked ring W={W} P={P} d={d}: kernel error "
+                             f"{err}, planted faults the check cannot see: "
+                             f"{missed}")
+    del uring, got, want
+    return rec
+
+
 def pack_inputs(P, d, topk_frac, kind, quant, seed, device):
     """``(delta, thresh, scale)`` on the card for one ``delta_pack`` case,
     made from a seed; thresh and scale as the comm substrate computes
@@ -584,8 +623,11 @@ def assert_finite(trace, what):
             raise AssertionError(f"{what}: Trace.{f} is not finite")
 
 
-KERNEL_NAMES = ("ring_view_kernel", "vap_suffix_norms_kernel",
-                "delta_pack_vec4", "delta_pack_scalar")
+# the simulator's kernels by their launch counters' names, each with the
+# names its device events carry (csrc/ps_view.cu, csrc/delta_pack.cu)
+PS_KERNELS = {"ring_view": ("ring_view_kernel",),
+              "vap_suffix_norms": ("vap_norms_bulk", "vap_norms_regs"),
+              "delta_pack": ("delta_pack_vec4", "delta_pack_scalar")}
 # the aten op of the comm substrate's threshold selection, whose device
 # time (its kernels included) the profiled run reports apart
 SELECTION_OP = "aten::topk"
@@ -612,25 +654,37 @@ def device_split(app, cfg, n_clocks, **sim_kw):
     kernels, the comm substrate's threshold selection, and the five ops
     that take the most of it; the host time per clock of the same run, and
     the share of it the device was idle.  The profiler's own host cost is
-    inside that host time."""
+    inside that host time.  It fails if a kernel of ``PS_KERNELS`` was
+    launched in that run but the profiler saw no device time for it (a
+    name the table lacks), once the profiler sees device time at all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import ps
+    from repro_torch.kernels import launch
+    before = dict(launch.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ps.simulate(app, cfg, n_clocks, seed=0, **sim_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_clocks
-    busy = ours = 0.0
+    launched = [k for k in PS_KERNELS if launch.launches[k] > before[k]]
+    busy = 0.0
+    by_name = dict.fromkeys(PS_KERNELS, 0.0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy += e.self_device_time_total
-            if any(k in e.name for k in KERNEL_NAMES):
-                ours += e.self_device_time_total
+            for k, names in PS_KERNELS.items():
+                if any(n in e.name for n in names):
+                    by_name[k] += e.self_device_time_total
     if busy == 0.0:      # the profiler saw no device time: say so
         return {"profiled_ms_per_clock": wall_ms,
                 "device_ms_per_clock": None, "kernel_ms_per_clock": None}
+    unseen = [k for k in launched if by_name[k] == 0.0]
+    if unseen:           # PS_KERNELS must name every kernel the path runs
+        raise AssertionError(f"{cfg.model}: the profiler saw no device time "
+                             f"for the launched kernels {unseen}")
+    ours = sum(by_name.values())
     averages = prof.key_averages()
     ops = sorted((e for e in averages if e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:5]
@@ -640,6 +694,8 @@ def device_split(app, cfg, n_clocks, **sim_kw):
     return {"profiled_ms_per_clock": wall_ms,
             "device_ms_per_clock": busy_ms,
             "kernel_ms_per_clock": ours_ms,
+            "kernel_ms_per_clock_by_name": {
+                k: v / 1e3 / n_clocks for k, v in by_name.items()},
             "selection_ms_per_clock": sel_ms,
             "rest_device_ms_per_clock": busy_ms - ours_ms - sel_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -2132,8 +2188,26 @@ def main() -> int:
                       timed=False, path="lda")
     # the fault path's rings (phases 10 and 12's window, W = 22), timed
     from repro_torch.comm import wire
-    fault_ring = check_kernels((fault_window(cc, wire), 8, d_full, 0), dev,
-                               rates, timed=True, path="fault")
+    W_fault = fault_window(cc, wire)
+    fault_ring = check_kernels((W_fault, 8, d_full, 0), dev, rates,
+                               timed=True, path="fault")
+    # vap_suffix_norms on spiked rings, where a dropped first, last or seam
+    # column, or a skipped oldest slot, shows: the fault path's ring, LDA's,
+    # the ragged shapes above (its register instance) and both instances
+    # at W = 64 and W = 33 across two seams
+    for shape, path in (((W_fault, 8, d_full), "fault"),
+                        ((cc.essp(3).effective_window, 8, d_lda), "lda"),
+                        ((5, 16, 100_003), None), ((11, 8, 50_001), None),
+                        ((64, 8, 4100), None), ((33, 4, 6147), None)):
+        check_spiked(shape, dev, path=path)
+    # the ptxas lines of vap_suffix_norms's kernels: no spills
+    vap_ptxas = kernel_ptxas("ps_view", "vap_norms")
+    fault_ring["vap_suffix_norms"]["ptxas"] = vap_ptxas
+    if len(vap_ptxas) < 5 or any(
+            ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+            for ln in vap_ptxas):
+        raise AssertionError(f"vap_suffix_norms's kernels spill or have no "
+                             f"ptxas lines: {vap_ptxas}")
     wcfg = wired_cfg(cc)
     pack_main = check_delta_pack(8, d_full, WIRED_TOPK, "normal", dev, rates,
                                  timed=True)
@@ -2249,7 +2323,10 @@ def main() -> int:
             "replaces": replaces, "launches": main_launches["essp3"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            # the fault path's ring, where this kernel was redesigned
+            f"W{fault_ring['W']}": {f: fault_ring[name][f] for f in (
+                "ms", "plain_ms", "bound_ms", "max_abs_err")}})
     pk = pack_main[wcfg.quant]
     kernels.append({
         "name": "delta_pack", "route": "cuda",

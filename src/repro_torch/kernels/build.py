@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) at first use into
 ``build/repro_torch_kernels/<hash>/`` at the repository root (git-ignored).
-The hash covers the sources and the flags, so an edited source rebuilds.
+The hash covers the sources, their shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 All sources compile at once, one ``nvcc`` process each.  A missing
 ``nvcc`` or a failed build raises: nothing falls back to the plain
 versions.
@@ -20,8 +21,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# -I csrc: copies of a source built elsewhere (the ablation scripts) still
+# find the shared headers (csrc/*.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -44,7 +48,7 @@ def _sources() -> list[Path]:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -0x1.fffffep+126f;   // float32 min / 2
@@ -428,44 +430,9 @@ __global__ void __launch_bounds__(128) fa_f32_kernel(
 // bf16, (Dk, Dv) in {(64, 64), (128, 128)}: TMA, wgmma, a warp-specialised
 // producer
 // ---------------------------------------------------------------------------
-// Hopper's asynchronous units, through PTX: mbarriers, TMA copies between
-// device memory and shared memory, and warpgroup products (wgmma).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
+// Hopper's asynchronous units, through PTX: mbarriers (mbarrier.cuh), TMA
+// copies between device memory and shared memory, and warpgroup products
+// (wgmma).
 
 // One box of a 4-d tensor map into shared memory; completion is counted in
 // bytes on `bar`.

@@ -10,9 +10,16 @@ counts the launch in :data:`launches` (shared with every kernel, see
 between the two by the tensor's device.
 
 Limits: ``P <= 64`` (one 64-bit reader mask per ring row) and
-``W <= 64`` (the largest register-resident window); ``d`` is any size
-(the ragged tail is masked).  The Pallas kernels took only
-``d % 128 == 0``, ``P <= 128`` and ``W <= 64``.
+``W <= 64`` (the largest window of ``vap_suffix_norms``'s register
+instance, and of its shared-memory maxima); ``d`` is any size (the ragged
+tail is masked).  The Pallas kernels took only ``d % 128 == 0``,
+``P <= 128`` and ``W <= 64``.
+
+``vap_suffix_norms`` streams a ring whose rows are 16-byte aligned
+(``d % 4 == 0`` and an aligned start) through shared memory in work items of
+:data:`VAP_TILE` columns of one producer (bulk copies); other rings take
+its register instance.  The tile's seams are where a dropped column would
+hide, so ``ref.vap_spiked_ring`` plants its spikes there.
 """
 from __future__ import annotations
 
@@ -23,11 +30,14 @@ import torch
 from .launch import check, launches, load_lib, raise_on, require_cuda, \
     reset_launches, stream
 
-__all__ = ["MAX_P", "MAX_W", "launches", "reset_launches", "ring_view",
-           "vap_suffix_norms"]
+__all__ = ["MAX_P", "MAX_W", "VAP_TILE", "launches", "reset_launches",
+           "ring_view", "vap_suffix_norms"]
 
 MAX_P = 64
 MAX_W = 64
+# Columns of one work item of vap_suffix_norms's bulk-copy kernel (VAP_TILE
+# in csrc/ps_view.cu).
+VAP_TILE = 2048
 
 _vp = ctypes.c_void_p
 _ARGTYPES = {

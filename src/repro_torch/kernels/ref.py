@@ -90,16 +90,87 @@ def vap_suffix_norms(uring, uclock, c: int):
     v_t, and the one-gather source of the in-transit metric in `core.ps`.
     The suffix is a float32 running sum over k, one ring row per step, as
     in the TPU and CUDA kernels (so all three agree exactly; torch's CPU
-    ``cumsum`` would accumulate in float64).
+    ``cumsum`` would accumulate in float64).  Like them it reads only the
+    row of the slot holding clock c-k (a NaN elsewhere in the ring does
+    not reach the norms; the slots hold distinct clocks).
     """
+    return _suffix_norms(uring, uclock, c, None)
+
+
+def _suffix_norms(uring, uclock, c, keep):
+    """``vap_suffix_norms`` over the columns where ``keep`` [d] is True
+    (all of them for ``None``)."""
     W, P, d = uring.shape
     suffix = uring.new_zeros((P, d))
     norms = [uring.new_zeros((P,))]
     for k in range(1, W + 1):
-        sel = (uclock == c - k).to(uring.dtype)                     # [W]
-        suffix = suffix + torch.einsum("w,wqd->qd", sel, uring)     # one row
-        norms.append(suffix.abs().amax(dim=-1))
+        hit = uclock == c - k                                       # [W]
+        row = uring.index_select(0, hit.to(torch.int32).argmax().reshape(1))
+        suffix = suffix + torch.where(hit.any(), row[0], 0.0)       # one row
+        mag = suffix.abs()
+        if keep is not None:
+            mag = torch.where(keep, mag, torch.zeros_like(mag))
+        norms.append(mag.amax(dim=-1))
     return torch.stack(norms)
+
+
+VAP_FAULTS = ("tail_dropped", "head_dropped", "seam_dropped",
+              "oldest_slot_skipped")
+
+
+def vap_spiked_ring(W, P, d, seams, *, c=1000, seed=0, device="cpu"):
+    """A ring on which ``vap_suffix_norms`` sees a dropped column.
+
+    ``uring [W, P, d]`` holds ``0.01·N(0, 1)`` draws from ``seed``, plus
+    ``±1`` in every slot of one column per producer; the slots hold the
+    clocks c-1..c-W in a random order.  So each producer's largest
+    ``|suffix|`` sits, at every k, in its spike column (k against at most
+    ~0.5 elsewhere), and a kernel that leaves that column out, or skips
+    a slot, gives other norms.  The spike columns are, producer by
+    producer and then over again: the first column, the last, and the
+    columns on both sides of the seams at multiples of ``seams`` (the
+    kernel's tile width): the first seam, the last, then others across
+    the row.  Returns ``(uring, uclock, c, spikes)``, ``spikes[q]`` the
+    column of producer q."""
+    gd = torch.Generator(device=device).manual_seed(seed)
+    uring = 0.01 * torch.randn((W, P, d), generator=gd, device=device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    uclock = (c - 1 - torch.randperm(W, generator=g)).to(torch.int32)
+    cuts = list(range(seams, d, seams))
+    if cuts:
+        cuts = [cuts[0], cuts[-1], *cuts[1:-1:max(1, len(cuts) // 8)]]
+    cols = [0, d - 1] + [j for s in cuts for j in (s - 1, s)]
+    cols = list(dict.fromkeys(cols))                # in order, once each
+    spikes = [cols[q % len(cols)] for q in range(P)]
+    sign = torch.tensor([1.0 if q % 2 == 0 else -1.0 for q in range(P)])
+    uring[:, torch.arange(P), torch.tensor(spikes)] += sign.to(device)
+    return uring, uclock.to(device), c, spikes
+
+
+def vap_suffix_norms_fault(uring, uclock, c, fault: str, seam: int):
+    """``vap_suffix_norms`` as a kernel with one of :data:`VAP_FAULTS`
+    would compute it: ``tail_dropped`` leaves out the last column,
+    ``head_dropped`` the first, ``seam_dropped`` the two columns on both
+    sides of each multiple of ``seam``, ``oldest_slot_skipped`` the slot
+    holding clock c-W.  A check of the kernel must tell each of them
+    from the contract."""
+    W, P, d = uring.shape
+    keep = torch.ones(d, dtype=torch.bool, device=uring.device)
+    if fault == "tail_dropped":
+        keep[d - 1] = False
+    elif fault == "head_dropped":
+        keep[0] = False
+    elif fault == "seam_dropped":
+        cuts = torch.arange(seam, max(seam, d), seam, device=uring.device)
+        keep[cuts] = False
+        keep[cuts - 1] = False
+    elif fault == "oldest_slot_skipped":
+        uclock = torch.where(uclock == c - W,
+                             torch.full_like(uclock, RING_EMPTY), uclock)
+        keep = None
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {VAP_FAULTS}")
+    return _suffix_norms(uring, uclock, c, keep)
 
 
 # ==========================================================================

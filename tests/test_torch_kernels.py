@@ -40,10 +40,22 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import launch, mf_sgd, ops, ps_view, ref, ssd_scan
 
 RING_EMPTY = ref.RING_EMPTY
+TILE = ps_view.VAP_TILE
 # (W, P, d, empty slots): the simulator's shapes (essp W=5, vap W=11),
 # P=1 and P=16, the quad app's d=16, LDA's d=2000, ragged and aligned d.
+# Then vap_suffix_norms's: the fault path's W = 22 over one tile and 4
+# columns, the edges of its register instances (W = 8, 9, 16, 17, 32, 33,
+# 64), d % 4 = 1, 2, 3 (the register instances), d one column below, at
+# and one past a tile, W = 64 across two seams, and every slot empty.
 SHAPES = [(5, 8, 1000, 0), (11, 8, 2000, 2), (5, 1, 300, 1), (5, 16, 128, 0),
-          (3, 4, 16, 1), (11, 4, 128, 4), (2, 8, 130, 2)]
+          (3, 4, 16, 1), (11, 4, 128, 4), (2, 8, 130, 2),
+          (22, 8, TILE + 4, 3), (8, 4, TILE, 1), (9, 4, TILE - 4, 2),
+          (16, 2, TILE + 1, 0), (17, 3, 1002, 5), (32, 2, 1003, 3),
+          (33, 2, 260, 0), (64, 2, 2 * TILE + 4, 7), (6, 4, 512, 6)]
+# spiked rings (W, P, d): the fault path's W over two seams, ragged d on
+# the register instances, W = 64 across two seams and a tail of 4
+SPIKED = [(22, 8, 2 * TILE + 904), (5, 16, 2 * TILE + 7),
+          (64, 4, 2 * TILE + 4)]
 
 
 def _ring(W, P, d, n_empty, c=40, seed=0):
@@ -144,6 +156,79 @@ def test_plain_versions_match_pallas_interpret(W, P, d, n_empty):
                                            interpret=True))
     np.testing.assert_array_equal(ref.vap_suffix_norms(u, uc, c).numpy(),
                                   want)
+
+
+def _spiked(W, P, d, device="cpu"):
+    return ref.vap_spiked_ring(W, P, d, TILE, seed=W + P, device=device)
+
+
+@pytest.mark.parametrize("fault", ref.VAP_FAULTS)
+@pytest.mark.parametrize(("W", "P", "d"), SPIKED)
+def test_spiked_ring_catches_each_fault(W, P, d, fault):
+    """A kernel with the planted fault gives other norms on the spiked
+    ring: the exact check of the kernel would see it."""
+    uring, uclock, c, _ = _spiked(W, P, d)
+    want = ref.vap_suffix_norms(uring, uclock, c)
+    bad = ref.vap_suffix_norms_fault(uring, uclock, c, fault, TILE)
+    assert (bad - want).abs().max().item() > 0.5
+
+
+def _named_columns(fault, d):
+    """The columns a fault leaves out, found without the fault's code."""
+    j = np.arange(d)
+    if fault == "tail_dropped":
+        return j == d - 1
+    if fault == "head_dropped":
+        return j == 0
+    return (j > 0) & ((j % TILE == 0) | (((j + 1) % TILE == 0) & (j + 1 < d)))
+
+
+@pytest.mark.parametrize("fault", ref.VAP_FAULTS)
+def test_vap_faults_are_what_they_name(fault):
+    """Each fault is the contract on a ring with its named columns zeroed,
+    or (``oldest_slot_skipped``) with the rows of clock c-W left out:
+    norms[W] then repeats norms[W-1]."""
+    W, P, d = 7, 3, 2 * TILE + 5
+    _, uring, uclock, _, c = _ring(W, P, d, 0, seed=5)
+    u, uc = _t(uring, uclock)
+    got = ref.vap_suffix_norms_fault(u, uc, c, fault, TILE)
+    want = ref.vap_suffix_norms(u, uc, c)
+    if fault == "oldest_slot_skipped":
+        np.testing.assert_array_equal(bits(got[:W]), bits(want[:W]))
+        np.testing.assert_array_equal(bits(got[W]), bits(want[W - 1]))
+        assert (got[W] != want[W]).any()
+        return
+    cols = _named_columns(fault, d)
+    assert cols.sum() == {"tail_dropped": 1, "head_dropped": 1,
+                          "seam_dropped": 4}[fault]
+    zeroed = uring.copy()
+    zeroed[:, :, cols] = 0.0
+    np.testing.assert_array_equal(
+        bits(got), bits(ref.vap_suffix_norms(_t(zeroed)[0], uc, c)))
+
+
+@pytest.mark.parametrize(("W", "P", "d"), SPIKED)
+def test_spiked_ring_matches_jax_ref(W, P, d):
+    """The spiked ring's norms match the JAX reference, and each
+    producer's largest |suffix| sits in its spike column at every k."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+    uring, uclock, c, spikes = _spiked(W, P, d)
+    u, uc = uring.numpy(), uclock.numpy()
+    got = ref.vap_suffix_norms(uring, uclock, c).numpy()
+    want = np.asarray(jref.vap_suffix_norms(u, uc, jax.numpy.int32(c)))
+    assert np.abs(got - want).max() <= _suffix_tolerance(u)
+    order = np.argsort(c - uc)                       # k = 1..W in turn
+    suffix = np.cumsum(u[order].astype(np.float64), axis=0)
+    assert (np.abs(suffix).argmax(axis=-1) == np.array(spikes)).all()
+    assert {0, d - 1, TILE - 1, TILE} <= set(spikes)
+
+
+def test_vap_tile_matches_the_kernel_source():
+    """``ps_view.VAP_TILE`` (the seams the spiked ring plants at) is the
+    bulk-copy kernel's tile."""
+    src = (Path(ps_view.__file__).parent / "csrc" / "ps_view.cu").read_text()
+    assert f"constexpr int VAP_TILE = {TILE};" in src
 
 
 def test_ops_dispatch_cpu_goes_to_plain_version():
@@ -253,6 +338,51 @@ def test_cuda_kernels_check_their_inputs(cuda):
         ps_view.vap_suffix_norms(torch.zeros((65, 2, 4), device=cuda),
                                  torch.zeros(65, dtype=torch.int32,
                                              device=cuda), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("W", "P", "d"), SPIKED)
+def test_cuda_vap_suffix_norms_on_spiked_rings(cuda, W, P, d):
+    """Exact on the spiked rings, where each planted fault differs."""
+    uring, uclock, c, _ = _spiked(W, P, d, device=cuda)
+    got = ps_view.vap_suffix_norms(uring, uclock, c)
+    want = ref.vap_suffix_norms(uring, uclock, c)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for fault in ref.VAP_FAULTS:
+        bad = ref.vap_suffix_norms_fault(uring, uclock, c, fault, TILE)
+        assert (bad - want).abs().max().item() > 0.5, fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["outside_window", "nan", "unaligned",
+                                  "repeat"])
+def test_cuda_vap_suffix_norms_edge_cases(cuda, case):
+    """Slots holding clocks outside c-W..c-1 are not read; a NaN in a
+    selected row propagates into every later norm of its producer, as
+    through the plain version's max; a ring that starts off a 16-byte
+    boundary takes the register instance; two calls are bit-equal."""
+    W, P, d = 22, 8, TILE + 4
+    _, uring, uclock, _, c = _ring(W, P, d, 2, seed=4)
+    if case == "outside_window":
+        uclock[:5] = [c, c + 3, c - W - 1, c - W - 7, RING_EMPTY + 1]
+    k_nan = c - np.sort(uclock[uclock >= c - W])[-2]  # second newest clock
+    if case == "nan":               # the row of clock c - k_nan
+        uring[np.flatnonzero(uclock == c - k_nan)[0], 5, TILE + 1] = np.nan
+    u, uc = _t(uring, uclock, device=cuda)
+    if case == "unaligned":                 # a view one float into a buffer
+        buf = torch.empty(W * P * d + 1, device=cuda)
+        buf[1:] = u.reshape(-1)
+        u = buf[1:].view(W, P, d)
+    got = ps_view.vap_suffix_norms(u, uc, c)
+    want = ref.vap_suffix_norms(u, uc, c)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    if case == "nan":
+        assert torch.isnan(got[k_nan:, 5]).all()
+        assert not torch.isnan(got[:k_nan]).any()
+        assert not torch.isnan(got[:, :5]).any()
+    if case == "repeat":
+        np.testing.assert_array_equal(
+            bits(got), bits(ps_view.vap_suffix_norms(u, uc, c)))
 
 
 @pytest.mark.cuda
