@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Twelve phases, one JSON line each (or more):
+JAX or the JAX package).  Thirteen phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -41,7 +41,11 @@ JAX or the JAX package).  Twelve phases, one JSON line each (or more):
    compaction's cases too; at ``main`` each of its kernels' device time
    from a profiled call and their ptxas lines (no spills); ``ring_view``
    and ``vap_suffix_norms`` also at the LDA path's rings (phases 7 and
-   8: W = 2, 5, 7 at d = 10,266,000), untimed;
+   8: W = 2, 5, 7 at d = 10,266,000), untimed; ``ring_view`` on readers
+   4-7 of 8 (``check_reader_block``, the launch of a shard of the
+   sharded runtime) at W = 5 and 22, d = 5,053,800, bit-equal to those
+   rows of the full launch, where the rows shifted by one reader (a
+   planted fault) must differ;
 3. the main path at full width: MF-SGD at the paper's Netflix rank and
    item count through ``simulate`` under ``essp(3)`` and ``vap(0.5)``,
    and through the comm substrate under two-pod ``essp(2)`` with int8
@@ -115,10 +119,23 @@ JAX or the JAX package).  Twelve phases, one JSON line each (or more):
 12. the tuner (``tuner_phase``): ``tune.frontier`` over ``ssp(3)``,
    ``essp(3)`` x three ``push_prob`` at full width, in runs per second;
    at ``MFConfig()`` its frontier and ``grad_knobs`` card against CPU.
-   Phases 10-12 take about a minute together.
+   Phases 10-12 take about a minute together;
+13. the flat sharded runtime (``psrun.PSRuntime``) as a world of one NCCL
+   rank at full width (``runtime_phase``): 30 clocks each of ``essp(3)``,
+   ``vap(0.5)`` and the fault path's config at W = 22 with the burst
+   faults and ``obs=ObsSpec()``, each counted and watched as phase 3's
+   runs (launches as ``expected_launches``, no host sync), held to
+   ``psrun.validate.contract`` against ``simulate`` on the card (essp and
+   the faulted run bit-identical, vap within the budget with exact
+   decisions; the obs accumulators equal), the clocks/s of the runtime
+   and of ``simulate`` in turns, peak memory; the ``essp(3)`` run's
+   checkpoint at clock 15 written to a temporary directory, restored,
+   resumed bit for bit and deleted (bytes, seconds); the faulted run's
+   event stream through ``obs.perfetto`` and ``obs.promtext`` (sizes).
 
-Then the ``kernels`` summary line, the card's ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+Then the ``kernels`` summary line (the ``ps_view`` and ``delta_pack``
+rows carry the runtime's launches too), the card's ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a GPU, or without the repository beside it, the script
 exits non-zero before printing any result.  Everything it prints also goes
 to ``chiprun_out/chip_smoke.jsonl``.
@@ -202,6 +219,12 @@ SMALL_FAULTS = dict(seed=21, drop_rate=0.2, dup_rate=0.2, delay_rate=0.3,
 SMALL_OUTAGE = dict(worker_outages=((3, 5, 11),), drop_inflight=True)
 # Phase 12: the tuner's grid at full width.
 TUNE_PUSH_PROBS = (0.25, 0.5, 1.0)
+# Phase 13: the flat sharded runtime as one NCCL rank, and the clock of
+# its essp(3) checkpoint.
+RUNTIME_CLOCKS = 30
+RUNTIME_CKPT_CLOCK = 15
+# ring_view on a shard's reader rows (phase 2): readers 4-7 of 8.
+READER_ROWS = (4, 4)
 
 
 def fault_cfg(cc):
@@ -506,6 +529,44 @@ def check_spiked(shape, device, path=None):
                              f"{err}, planted faults the check cannot see: "
                              f"{missed}")
     del uring, got, want
+    return rec
+
+
+def check_reader_block(W, P, d, device, path=None):
+    """``ring_view`` on a shard's reader rows (``READER_ROWS``: readers 4-7
+    of P = 8), as the sharded runtime launches it: bit-equal to the same
+    rows of the R = P launch, while the rows shifted by one reader (a
+    planted fault) must differ from them.  Both launches are timed."""
+    import torch
+    from repro_torch.kernels import ps_view
+    r0, R = READER_ROWS
+    base, uring, uclock, cview, _ = ring_inputs(W, P, d, 0, seed=W * 100 + 3,
+                                                device=device)
+    full = ps_view.ring_view(base, uring, uclock, cview)
+    got = ps_view.ring_view(base, uring, uclock,
+                            cview[r0:r0 + R].contiguous())
+    shifted = ps_view.ring_view(base, uring, uclock,
+                                cview[r0 - 1:r0 - 1 + R].contiguous())
+    torch.cuda.synchronize()
+    want = full[r0:r0 + R]
+    rec = {"phase": "kernels_reader_block", "W": W, "P": P, "d": d,
+           "readers": [r0, r0 + R - 1],
+           "ring_view": {"max_abs_err": (got - want).abs().max().item(),
+                         "tol": 0.0},
+           "bit_equal": bool(torch.equal(got, want)),
+           "planted_fault_err": (shifted - want).abs().max().item()}
+    rows = cview[r0:r0 + R].contiguous()
+    rec["ring_view"].update(
+        ms=time_ms(lambda: ps_view.ring_view(base, uring, uclock, rows), 10),
+        all_readers_ms=time_ms(
+            lambda: ps_view.ring_view(base, uring, uclock, cview), 10))
+    if path is not None:
+        rec["path"] = path
+    emit(rec)
+    if not rec["bit_equal"] or not rec["planted_fault_err"] > 0.0:
+        raise AssertionError(f"ring_view on readers {r0}-{r0 + R - 1} of "
+                             f"{P} at W={W}: {rec}")
+    del base, uring, full, got, shifted
     return rec
 
 
@@ -1279,6 +1340,168 @@ def tuner_phase(device):
     if not ok:
         raise AssertionError(f"tuner card vs CPU: {rec['card_vs_cpu']}")
     return rec
+
+
+def runtime_run(rt, app, cfg, name, n_clocks, **kw):
+    """Phase 13's run of one config: the flat runtime (``rt``, one NCCL
+    rank) counted and watched as phase 3's runs are, after a 2-clock
+    warm-up of both engines; then ``simulate`` on the card, the runtime
+    again and ``simulate`` again, in turns, for clocks/s.  The runtime's
+    trace must keep ``validate.contract`` against the simulator's (bsp,
+    ssp, essp bit-identical; vap within the budget with exact decisions),
+    and its ``obs``, when collected, must equal the simulator's.  Returns
+    ``(record, runtime trace)``."""
+    import torch
+    from repro_torch.core import ps
+    from repro_torch.kernels import launch
+    from repro_torch.psrun import validate
+    rt.run(app, cfg, 2, seed=1, **kw)     # communicators, PyTorch kernels
+    ps.simulate(app, cfg, 2, seed=1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    with watch_syncs() as found:
+        trace = rt.run(app, cfg, n_clocks, seed=0, **kw)
+    torch.cuda.synchronize()
+    rt_s = [time.perf_counter() - t0]
+    launches = dict(launch.launches)
+    peak = torch.cuda.max_memory_allocated()
+    def timed(run):
+        t0 = time.perf_counter()
+        out = run(app, cfg, n_clocks, seed=0, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    want, t_sim1 = timed(ps.simulate)       # the oracle; then in turns
+    rt_s.append(timed(rt.run)[1])
+    sim_s = [t_sim1, timed(ps.simulate)[1]]
+    res = validate.contract(trace, want, cfg, faults=kw.get("faults"))
+    rec = {"phase": "runtime", "config": name, "clocks": n_clocks,
+           "world": 1, "backend": "nccl", "d": app.dim,
+           "W": cfg.effective_window, "P": app.n_workers,
+           "runtime_seconds": rt_s,
+           "runtime_clocks_per_s": [n_clocks / t for t in rt_s],
+           "simulate_seconds": sim_s,
+           "simulate_clocks_per_s": [n_clocks / t for t in sim_s],
+           "launches": launches, "host_syncs": len(found),
+           "host_sync_sites": sorted({site for site, _ in found}),
+           "max_memory_allocated_bytes": peak,
+           "contract": {k: v for k, v in res.items()
+                        if k in ("ok", "max_diff", "max_ulp",
+                                 "decisions_exact", "violations")}}
+    if trace.obs is not None:
+        rec["obs_equal"] = all(torch.equal(trace.obs[k], want.obs[k])
+                               for k in want.obs)
+    if (launches != expected_launches(cfg, n_clocks) or found
+            or not res["ok"] or not rec.get("obs_equal", True)):
+        emit(rec)
+        raise AssertionError(f"runtime {name}: launches {launches} "
+                             f"(expected {expected_launches(cfg, n_clocks)})"
+                             f", host syncs {rec['host_sync_sites']}, "
+                             f"contract {rec['contract']}")
+    assert_finite(trace, f"runtime {name}")
+    del want
+    return rec, trace
+
+
+def runtime_checkpoint(rt, app, cfg, full, n_clocks, cut):
+    """Save the runtime's state at clock ``cut`` to a temporary directory,
+    restore it, resume: the stitched trace must equal the uninterrupted
+    one (``full``) in every field; the file's bytes and the seconds of
+    the save and the restore are recorded, and the directory deleted."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.psrun import validate
+    from repro_torch.utils.tree import named_leaves
+    tr1, mid = rt.run_from(app, cfg, cut, rt.init_state(app, cfg, seed=0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(tmp, f"clock{cut}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_runtime(path, mid)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = ckpt.restore_runtime(path, rt.init_state(app, cfg))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    leaves = all(a == b if isinstance(a, int) else torch.equal(a, b)
+                 for (_, a), (_, b) in zip(named_leaves(mid),
+                                           named_leaves(restored),
+                                           strict=True))
+    del mid
+    tr2, _ = rt.run_from(app, cfg, n_clocks - cut, restored)
+    unequal = [f for f in validate.TRACE_FIELDS if not torch.equal(
+        getattr(full, f), getattr(tr2, f) if f == "x_final" else torch.cat(
+            [getattr(tr1, f), getattr(tr2, f)]))]
+    rec = {"phase": "runtime_checkpoint", "config": cfg.model, "clock": cut,
+           "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+           "leaves_equal": leaves, "resume_unequal_fields": unequal}
+    if not leaves or unequal:
+        emit(rec)
+        raise AssertionError(f"runtime checkpoint at clock {cut}: {rec}")
+    return rec
+
+
+def runtime_phase(device):
+    """Phase 13: the flat sharded runtime (``psrun.PSRuntime``) as a world
+    of one NCCL rank at full width (``FULL_MF``), 30 clocks each of
+    essp(3), vap(0.5) and the fault path's config at its window (22) with
+    the burst faults and ``obs=ObsSpec()`` (:func:`runtime_run`); the
+    essp(3) run's checkpoint at clock 15 (:func:`runtime_checkpoint`);
+    the fault run's event stream through ``perfetto`` and ``promtext``,
+    with their sizes."""
+    import torch
+    from repro_torch.apps import matfact
+    from repro_torch.comm import wire
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import timemodel
+    from repro_torch.obs import MetricsRegistry, ObsSpec, drain_device, \
+        events, perfetto, promtext
+    from repro_torch.psrun import PSRuntime
+    t0 = time.perf_counter()
+    rt = PSRuntime(device=device)
+    mesh_s = time.perf_counter() - t0
+    app = matfact.make_mf_app(matfact.MFConfig(**FULL_MF), device=device)
+    T, P, d = RUNTIME_CLOCKS, app.n_workers, app.dim
+    faults = wire.make_faults(FAULT_CLOCKS, P, device=device, **FAULT_BURST)
+    fcfg = fault_cfg(cc)
+    fcfg = fcfg.replace(window=wire.required_window(fcfg, faults))
+    recs, traces = {}, {}
+    for name, cfg, kw in (("essp3", cc.essp(3), {}),
+                          ("vap", cc.vap(FULL_VAP_V0), {}),
+                          ("fault_burst", fcfg,
+                           dict(faults=faults, obs=ObsSpec()))):
+        recs[name], traces[name] = runtime_run(rt, app, cfg, name, T, **kw)
+    recs["essp3"]["mesh_setup_s"] = mesh_s
+    recs["essp3"]["checkpoint"] = runtime_checkpoint(
+        rt, app, cc.essp(3), traces["essp3"], T, RUNTIME_CKPT_CLOCK)
+    t_comp = matfact.mf_time_model().t_comp
+    tm = timemodel.TimeModel(t_comp=t_comp, bytes_per_channel=4.0 * d,
+                             bandwidth_xpod=4.0 * P * d / (3.0 * t_comp))
+    reg = MetricsRegistry()
+    drain_device(reg, traces["fault_burst"].obs)
+    ev = events.collect_events(traces["fault_burst"], fcfg, tm,
+                               faults=faults, run="runtime_faults",
+                               registry=reg)
+    events.validate_events(ev)
+    trace_json = json.dumps(perfetto.from_events(ev), sort_keys=True,
+                            separators=(",", ":"))
+    recs["fault_burst"]["exporters"] = {
+        "events": len(ev), "perfetto_bytes": len(trace_json.encode()),
+        "promtext_bytes": len(promtext.render(reg).encode())}
+    del traces, app, rt
+    torch.cuda.empty_cache()
+    # the runtime made this process's world of one NCCL rank: take it down
+    torch.distributed.destroy_process_group()
+    return recs
 
 
 def attn_inputs(shape, seed, device):
@@ -2191,6 +2414,11 @@ def main() -> int:
     W_fault = fault_window(cc, wire)
     fault_ring = check_kernels((W_fault, 8, d_full, 0), dev, rates,
                                timed=True, path="fault")
+    # ring_view on a shard's reader rows, as the sharded runtime (phase 13)
+    # launches it, at the essp and fault-path windows
+    reader_blocks = {W: check_reader_block(W, 8, d_full, dev, path=p)
+                     for W, p in ((cc.essp(3).effective_window, None),
+                                  (W_fault, "fault"))}
     # vap_suffix_norms on spiked rings, where a dropped first, last or seam
     # column, or a skipped oldest slot, shows: the fault path's ring, LDA's,
     # the ragged shapes above (its register instance) and both instances
@@ -2310,6 +2538,12 @@ def main() -> int:
     # --- 12. the tuner ------------------------------------------------------------
     tuned = tuner_phase(dev)
 
+    # --- 13. the sharded runtime as one NCCL rank ------------------------------
+    runtime = runtime_phase(dev)
+    for rec in runtime.values():
+        emit(rec)
+    runtime_launches = {n: r["launches"] for n, r in runtime.items()}
+
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
     source = "src/repro_torch/kernels/csrc/ps_view.cu"
@@ -2326,7 +2560,15 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             # the fault path's ring, where this kernel was redesigned
             f"W{fault_ring['W']}": {f: fault_ring[name][f] for f in (
-                "ms", "plain_ms", "bound_ms", "max_abs_err")}})
+                "ms", "plain_ms", "bound_ms", "max_abs_err")},
+            # the sharded runtime's launches (phase 13)
+            "runtime_launches": {n: r[name]
+                                 for n, r in runtime_launches.items()}})
+        if name == "ring_view":
+            kernels[-1]["reader_block"] = {
+                f"W{W}": {"bit_equal": r["bit_equal"],
+                          "planted_fault_err": r["planted_fault_err"]}
+                for W, r in reader_blocks.items()}
     pk = pack_main[wcfg.quant]
     kernels.append({
         "name": "delta_pack", "route": "cuda",
@@ -2335,7 +2577,9 @@ def main() -> int:
         "launches": main_launches["essp2_wired_int8"]["delta_pack"],
         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
-        "bound_by": pk["bound_by"], "library_ms": pk["library_ms"]})
+        "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
+        "runtime_launches": {n: r["delta_pack"]
+                             for n, r in runtime_launches.items()}})
     for name, rec, src, replaces, arch in (
             ("flash_attention", attn_main, "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:93", "qwen3-0.6b"),
@@ -2382,7 +2626,14 @@ def main() -> int:
               for n, r in faulted.items()},
           "fault_controller_actions": {
               n: len(r["controller"]["actions"]) for n, r in faulted.items()},
-          "tuner_runs_per_s": tuned["runs_per_s"]})
+          "tuner_runs_per_s": tuned["runs_per_s"],
+          "runtime": {n: {k: r[k] for k in (
+              "runtime_clocks_per_s", "simulate_clocks_per_s",
+              "max_memory_allocated_bytes", "host_syncs")}
+              for n, r in runtime.items()},
+          "runtime_checkpoint": {k: runtime["essp3"]["checkpoint"][k]
+                                 for k in ("bytes", "save_s",
+                                           "restore_s")}})
     emit({"kernels": kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -138,21 +138,25 @@ def lda_app(cfg: LDAConfig, x0, local0: dict) -> PSApp:
     dev = x0.device
     alpha, beta = _f32(cfg.alpha, dev), _f32(cfg.beta, dev)
     vbeta, kalpha = _f32(V * cfg.beta, dev), _f32(K * cfg.alpha, dev)
-    pidx = torch.arange(P, device=dev)[:, None]
+    pidx_all = torch.arange(P, device=dev)[:, None]
     ks = torch.arange(K, device=dev)
     steps = torch.arange(B, device=dev)
     words = local0["words"].long()
     docid = local0["docid"].long()
 
-    def worker_update(views, local, _wids, clock: int, keys):
-        nkw = views.view(P, K, V)
+    def worker_update(views, local, wids, clock: int, keys):
+        # R rows: all P workers in the simulator, a shard's own workers in
+        # the sharded runtime (its rows of the corpus by worker id)
+        R = views.shape[0]
+        pidx, rows = pidx_all[:R], wids.long()
+        nkw = views.view(R, K, V)
         # staleness can make counts transiently negative: clamp at read
-        nk = torch.clamp(nkw, min=0.0).sum(dim=-1)              # [P, K]
+        nk = torch.clamp(nkw, min=0.0).sum(dim=-1)              # [R, K]
         start = (clock * B) % ntok                              # host int
         idx = (steps + start) % ntok
-        w, d = words[:, idx], docid[:, idx]                     # [P, B]
+        w, d = words[rows][:, idx], docid[rows][:, idx]         # [R, B]
         zold = local["z"][:, idx].long()
-        oh_old = _onehot(zold, K)                               # [P, B, K]
+        oh_old = _onehot(zold, K)                               # [R, B, K]
         ndk_tok = local["ndk"][pidx, d] - oh_old                # exclude self
         nkw_tok = torch.clamp(nkw[pidx[..., None], ks, w[..., None]],
                               min=0.0) - oh_old
@@ -160,23 +164,23 @@ def lda_app(cfg: LDAConfig, x0, local0: dict) -> PSApp:
         logits = ((jrng.log(ndk_tok + alpha)
                    + jrng.log(torch.clamp(nkw_tok, min=0.0) + beta))
                   - jrng.log(torch.clamp(nk_tok, min=0.0) + vbeta))
-        znew = jrng.categorical(keys, logits).long()            # [P, B]
-        ndk = local["ndk"].index_put((pidx.expand(P, B), d),
+        znew = jrng.categorical(keys, logits).long()            # [R, B]
+        ndk = local["ndk"].index_put((pidx.expand(R, B), d),
                                      _onehot(znew, K) - oh_old,
                                      accumulate=True)
         z = local["z"].clone()
         z[:, idx] = znew.to(z.dtype)
         # INC deltas on the shared topic-word table: +1 for the new
         # topic, -1 for the old, exact float32 counts in any order
-        delta = torch.zeros((P * K * V,), dtype=torch.float32, device=dev)
+        delta = torch.zeros((R * K * V,), dtype=torch.float32, device=dev)
         base = pidx * (K * V) + w
         delta.index_put_((torch.cat([(base + znew * V).reshape(-1),
                                      (base + zold * V).reshape(-1)]),),
-                         torch.cat([torch.ones(P * B, device=dev),
-                                    torch.full((P * B,), -1.0,
+                         torch.cat([torch.ones(R * B, device=dev),
+                                    torch.full((R * B,), -1.0,
                                                device=dev)]),
                          accumulate=True)
-        return delta.view(P, K * V), dict(local, z=z, ndk=ndk)
+        return delta.view(R, K * V), dict(local, z=z, ndk=ndk)
 
     n_all = _f32(float(P * ntok), dev)
 
@@ -186,7 +190,7 @@ def lda_app(cfg: LDAConfig, x0, local0: dict) -> PSApp:
         phi = (nkw + beta) / (nkw.sum(dim=-1, keepdim=True) + vbeta)
         ndk = locals_["ndk"]                                    # [P, Dp, K]
         theta = (ndk + alpha) / (ndk.sum(dim=-1, keepdim=True) + kalpha)
-        th = theta[pidx, docid]                                 # [P, ntok, K]
+        th = theta[pidx_all, docid]                             # [P, ntok, K]
         ph = phi.t()[words]                                     # [P, ntok, K]
         ll = jrng.log((th * ph).sum(dim=-1) + 1e-30)
         # a tensor divisor: on CUDA a Python one is a reciprocal multiply

@@ -13,7 +13,8 @@ deltas.  The synthetic data is drawn from :mod:`repro_torch.rng`, so the
 observed indices equal the JAX app's and the values agree to float
 rounding.
 
-The worker update runs all ``P`` workers in one batched call.  The
+The worker update runs a batch of workers in one call: all ``P`` in the
+simulator, a shard's own rows in the sharded runtime (``psrun``).  The
 scatter of duplicate indices (the JAX app's ``.at[i].add``) is
 ``index_put_(..., accumulate=True)`` over a flattened ``(worker, row)``
 index: sequential in index order on the CPU; on CUDA PyTorch sums
@@ -125,6 +126,10 @@ def mf_app(cfg: MFConfig, x0, ii, jj, vv) -> PSApp:
         return x[: n * k].reshape(n, k), x[n * k:].reshape(k, m)
 
     def worker_update(views, local, _wids, clock: int, keys):
+        # R rows: all P workers in the simulator, a shard's own workers in
+        # the sharded runtime; each row's arithmetic is the same either way
+        R = views.shape[0]
+        pidx_r = pidx[:R]
         if cfg.lr_decay:
             gamma = lr / torch.sqrt(_f32(1.0 + clock, dev))
         else:
@@ -135,20 +140,20 @@ def mf_app(cfg: MFConfig, x0, ii, jj, vv) -> PSApp:
         v = torch.gather(local["vv"], 1, idx)
         # rows L[i] and columns R[:, j] of each worker's view, gathered
         # from the packed vector: L[i, :] at i*k + ks, R[:, j] at n*k + ks*m + j
-        pb = pidx[..., None]
-        Li = views[pb, i[..., None] * k + ks]                 # [P, B, k]
-        Rj = views[pb, n * k + ks * m + j[..., None]]         # [P, B, k]
+        pb = pidx_r[..., None]
+        Li = views[pb, i[..., None] * k + ks]                 # [R, B, k]
+        Rj = views[pb, n * k + ks * m + j[..., None]]         # [R, B, k]
         e = v - torch.sum(Li * Rj, dim=-1)
         gL = gamma * (e[..., None] * Rj - lam * Li)
         gR = gamma * (e[..., None] * Li - lam * Rj)
-        dL = torch.zeros((P * n, k), dtype=torch.float32, device=dev)
-        dL.index_put_(((pidx * n + i).reshape(-1),), gL.reshape(-1, k),
+        dL = torch.zeros((R * n, k), dtype=torch.float32, device=dev)
+        dL.index_put_(((pidx_r * n + i).reshape(-1),), gL.reshape(-1, k),
                       accumulate=True)
-        dRt = torch.zeros((P * m, k), dtype=torch.float32, device=dev)
-        dRt.index_put_(((pidx * m + j).reshape(-1),), gR.reshape(-1, k),
+        dRt = torch.zeros((R * m, k), dtype=torch.float32, device=dev)
+        dRt.index_put_(((pidx_r * m + j).reshape(-1),), gR.reshape(-1, k),
                        accumulate=True)
-        dR = dRt.reshape(P, m, k).transpose(1, 2)
-        return torch.cat([dL.reshape(P, n * k), dR.reshape(P, k * m)],
+        dR = dRt.reshape(R, m, k).transpose(1, 2)
+        return torch.cat([dL.reshape(R, n * k), dR.reshape(R, k * m)],
                          dim=1), local
 
     all_i = ii.reshape(-1).long()

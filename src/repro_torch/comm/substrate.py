@@ -108,10 +108,18 @@ def selected_count(delta, thresh):
 
 def pack(delta, topk_frac: float, quant: str):
     """One shipment pack on full rows: ``(wire, residual, nnz)``."""
-    thresh = row_threshold(delta, topk_frac)
-    scale = quant_scale(delta, quant)
+    return pack_block(delta, delta, topk_frac, quant)
+
+
+def pack_block(delta, delta_full, topk_frac: float, quant: str):
+    """One shipment pack of a column block ``delta [P, dl]`` whose full
+    rows are ``delta_full [P, d]``: the threshold, the int8 scale and the
+    count come from the full rows, the pack itself is elementwise on the
+    block (a shard of the sharded runtime).  ``(wire, residual, nnz)``."""
+    thresh = row_threshold(delta_full, topk_frac)
+    scale = quant_scale(delta_full, quant)
     wire, residual = ops.delta_pack(delta, thresh, scale, quant)
-    return wire, residual, selected_count(delta, thresh)
+    return wire, residual, selected_count(delta_full, thresh)
 
 
 def wire_floats(nnz, d: int, quant: str):
@@ -140,22 +148,42 @@ def init_state(W: int, P: int, d: int, n_pods: int, device=None) -> dict:
                 base_pod=z(n_pods, d), xbase_pod=z(n_pods, d))
 
 
+def sum_rows(x):
+    """``x.sum(0)`` in a fixed order: the rows of ``x`` added one after
+    another, first to last, each add elementwise.
+
+    ``torch.sum`` over a leading dimension picks its order by the number
+    of columns (on the CPU a vectorized body and a scalar tail), so a
+    block of columns would not sum as the same columns of the whole.  The
+    simulator and the sharded runtime (whose shards own column blocks)
+    both reduce producers, pods and ring slots through this, so their
+    floats agree bit for bit at any column split."""
+    if x.shape[0] == 1:
+        return x[0].clone()
+    out = x[0] + x[1]
+    for i in range(2, x.shape[0]):
+        out.add_(x[i])
+    return out
+
+
 def reader_base(x0, base_pod, xbase_pod, reader_pods):
     """Per-reader folded base ``(x0 + base_pod[own]) + Σ_{other}
     xbase_pod``: ``x0 [d]``, ``base_pod``/``xbase_pod [G, d]``,
-    ``reader_pods [Pl]``.  The other-pod sum is a masked product over
-    ``G`` (never a subtraction from the total), the JAX package's float
-    association."""
+    ``reader_pods [Pl]``.  The other-pod sum is a masked sum over ``G``
+    in pod order (never a subtraction from the total), the JAX package's
+    float association."""
     G = base_pod.shape[0]
     own = base_pod[reader_pods.long()]                        # [Pl, d]
     other = (torch.arange(G, device=base_pod.device)[:, None]
              != reader_pods[None, :]).to(torch.float32)        # [G, Pl]
-    xother = torch.einsum("gp,gd->pd", other, xbase_pod)
+    xother = other[0][:, None] * xbase_pod[0]
+    for g in range(1, G):                                     # pod order
+        xother = xother + other[g][:, None] * xbase_pod[g]
     return (x0[None, :] + own) + xother
 
 
 def fold_pods(ring_slot, n_pods: int):
     """Fold one recycled ring slot ``[P, d]`` into per-producer-pod sums
-    ``[G, d]`` over contiguous pod blocks."""
+    ``[G, d]`` over contiguous pod blocks (:func:`sum_rows` order)."""
     P, d = ring_slot.shape
-    return ring_slot.reshape(n_pods, P // n_pods, d).sum(dim=1)
+    return sum_rows(ring_slot.reshape(n_pods, P // n_pods, d).transpose(0, 1))

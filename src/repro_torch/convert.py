@@ -3,8 +3,9 @@
 The port never imports JAX; the caller hands over numpy arrays (what
 ``np.asarray`` gives for a JAX array) and gets tensors back, and the
 reverse for traces.  The parity tests use this to start both simulators
-from the very same ``x0`` and ``local0``, and both model zoos from the
-very same weights.
+from the very same ``x0`` and ``local0``, both model zoos from the very
+same weights, and both sharded runtimes from the very same mid-run state
+(``psstate_from_jax``).
 """
 from __future__ import annotations
 
@@ -54,6 +55,30 @@ def lda_app_from_state(cfg: LDAConfig, x0, local0: dict,
     """The port's LDA app over the JAX LDA app's ``x0`` and ``local0``
     (``{"words", "docid", "z", "ndk"}``), as numpy arrays."""
     return lda_app(cfg, to_tensors(x0, device), to_tensors(local0, device))
+
+
+def psstate_from_jax(state, device=None):
+    """The port's `psrun.runtime.PSState` holding a JAX ``PSState`` whose
+    leaves are numpy arrays (``jax.tree.map(np.asarray, state)``): the
+    clock as an int, the uint32 key as the port's int64 words, every other
+    leaf as a tensor of its dtype on ``device``.  The two runtimes share
+    the padded layout, so the state resumes in the port where it stopped
+    in the JAX package."""
+    from .psrun.runtime import PSState
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    def tree(x):
+        return None if x is None else {k: tree(v) if isinstance(v, dict)
+                                       else t(v) for k, v in x.items()}
+    return PSState(
+        clock=int(np.asarray(state.clock)), base=t(state.base),
+        uring=t(state.uring), uclock=t(state.uclock), cview=t(state.cview),
+        local=tree(state.local),
+        rng=t(np.asarray(state.rng).astype(np.int64)),
+        comm=tree(state.comm))
 
 
 def _to_numpy(x):

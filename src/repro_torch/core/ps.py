@@ -163,11 +163,18 @@ def enforce_vap(cfg: ConsistencyConfig, c: int, cview, norms, W: int):
 
 
 def _x_ref(base, uring, uclock):
-    """Reference parameters: base plus every stored (valid) ring slot."""
+    """Reference parameters: base plus every stored (valid) ring slot,
+    the producers summed first (the temporaries are ``[W, d]``, not the
+    ring's ``[W, P, d]``), each sum in ``comm.sum_rows``'s fixed order."""
     valid = (uclock > RING_INVALID).to(uring.dtype)
-    # sum the producers first: the temporaries are [W, d], not the ring's
-    # [W, P, d]
-    return base + (uring.sum(dim=1) * valid[:, None]).sum(dim=0)
+    per_slot = comm.sum_rows(uring.transpose(0, 1))           # [W, d]
+    return base + comm.sum_rows(per_slot * valid[:, None])
+
+
+def _folded(base, cst, wired: bool):
+    """Everything folded out of the ring: ``base``, plus on the comm
+    substrate the per-pod folds of the raw ring."""
+    return base + comm.sum_rows(cst["base_pod"]) if wired else base
 
 
 def _select_local(mask, new, old):
@@ -352,7 +359,7 @@ def simulate_with_state(app: PSApp, cfg: ConsistencyConfig, n_clocks: int,
             cst["xbase_pod"] = (cst["xbase_pod"] + w_old
                                 * comm.fold_pods(cst["xring"][slot], G))
         else:
-            base = base + w_old * uring[slot].sum(0)
+            base = base + w_old * comm.sum_rows(uring[slot])
         uring[slot] = u
         uclock[slot].fill_(c)       # a fill: `= c` copies from the host
         if wired:
@@ -391,8 +398,7 @@ def simulate_with_state(app: PSApp, cfg: ConsistencyConfig, n_clocks: int,
                 cview = torch.where(delivered, c, cview)
 
         # --- 6. record ----------------------------------------------------
-        x_ref = _x_ref(base + cst["base_pod"].sum(0) if wired else base,
-                       uring, uclock)
+        x_ref = _x_ref(_folded(base, cst, wired), uring, uclock)
         rec["loss_ref"].append(app.loss(x_ref, local))
         rec["loss_view"].append(app.loss(views[0], local))
         rec["staleness"].append(staleness)
@@ -426,8 +432,7 @@ def simulate_with_state(app: PSApp, cfg: ConsistencyConfig, n_clocks: int,
         ship_floats=stacked("ship_floats", (P,), f32),
         live=stacked("live", (P,), torch.bool),
         views0=stacked("views0", (d,), f32) if record_views else None,
-        x_final=_x_ref(base + cst["base_pod"].sum(0) if wired else base,
-                       uring, uclock),
+        x_final=_x_ref(_folded(base, cst, wired), uring, uclock),
         locals_final=local, obs=oacc if obs_enabled else None)
     return trace, cst
 
@@ -444,7 +449,8 @@ def _xpod_target(cst, in_pod, intra: int, xpod: int, faulted: bool):
     return tip.masked_fill(in_pod, intra)
 
 
-def _ship(cst, u, c: int, cfg, d: int, live, faults, no_ship, slot: int):
+def _ship(cst, u, c: int, cfg, d: int, live, faults, no_ship, slot: int,
+          full_rows=None):
     """Section 4b of a clock on the comm substrate, updating ``cst``:
     accumulate ``u``, pack and ship at a boundary, run the lossy wire's
     ARQ under ``faults``.  Returns the clock's ``ship_floats [P]``.
@@ -452,14 +458,21 @@ def _ship(cst, u, c: int, cfg, d: int, live, faults, no_ship, slot: int):
     ``ship_now`` is a test of the host's clock, so the pack runs (one
     ``delta_pack`` launch) on boundary clocks only.  Under churn or faults
     who ships is a ``[P]`` device mask (boundary x liveness x idleness),
-    applied to the packed rows with ``torch.where``."""
+    applied to the packed rows with ``torch.where``.  A shard of the
+    sharded runtime passes its column block as ``u`` and ``full_rows``,
+    which gathers a block's full rows (the threshold, the scale and the
+    count are taken on them)."""
     cst["acc"].add_(u)              # acc is the state's own tensor
     boundary = comm.ship_now(c, cfg.agg_clocks)
     masked = live is not None or faults is not None
     wire_u = floats = ship = None
     if boundary:
         delta = cst["acc"] + cst["res"]
-        wire_u, resid, nnz = comm.pack(delta, cfg.topk_frac, cfg.quant)
+        if full_rows is None:
+            wire_u, resid, nnz = comm.pack(delta, cfg.topk_frac, cfg.quant)
+        else:
+            wire_u, resid, nnz = comm.pack_block(
+                delta, full_rows(delta), cfg.topk_frac, cfg.quant)
         floats = comm.wire_floats(nnz, d, cfg.quant)
         if not masked:
             cst["acc"].zero_()

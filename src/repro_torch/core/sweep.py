@@ -29,8 +29,9 @@ that a family shares its launches, is ROADMAP queue 2 work.
 ``obs`` (an `obs.ObsSpec`) threads the telemetry accumulators through
 every run; each trace's ``obs`` comes back batched like its other fields.
 Sharding the batch over several devices (``devices``, ``mesh``,
-``mesh_axis``) raises ``NotImplementedError``: it comes with the sharded
-runtimes (ROADMAP queue 1, item 14).
+``mesh_axis``) raises ``NotImplementedError``: it is ROADMAP queue 1,
+item 14b (the sharded runtimes it would run on, ``psrun`` and ``pods``,
+are ported).
 """
 from __future__ import annotations
 
@@ -152,12 +153,12 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
       obs: an `obs.ObsSpec`: collect telemetry in every run
         (``Trace.obs``); ``None`` leaves every other field bit-equal.
       devices, mesh, mesh_axis: the JAX engine's multi-device sharding,
-        which raises here (ROADMAP queue 1, item 14).
+        which raises here (ROADMAP queue 1, item 14b).
     """
     if devices is not None or mesh is not None or mesh_axis is not None:
         _not_ported("a sweep sharded over devices (devices=, mesh=, "
                     "mesh_axis=)",
-                    "item 14")
+                    "item 14b")
     if not keep_traces and post is None:
         raise ValueError("keep_traces=False requires a post callback")
     configs = list(configs)

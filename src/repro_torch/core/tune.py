@@ -30,7 +30,7 @@ tuner.
 What changed in the port: each sweep runs its (config, seed) pairs in
 turn (``core.sweep``), so ``history`` records ``n_runs`` where the JAX
 package records ``n_compiles``; ``devices`` (a sharded sweep) waits for
-ROADMAP queue 1, item 14.
+ROADMAP queue 1, item 14b.
 """
 from __future__ import annotations
 

@@ -41,26 +41,32 @@ long long blocks_for(long long work, long long cap) {
 //
 // Replaces the TPU kernel repro/kernels/ps_view.py::ring_view
 // (_ring_view_kernel): view[r, j] = base[j] + sum_{w,q visible to r}
-// uring[w, q, j], visible iff RING_INVALID < uclock[w] <= cview[r, q].
+// uring[w, q, j], visible iff RING_INVALID < uclock[w] <= cview[r, q], for
+// R <= P readers: cview is [R, P] and out [R, d].  The simulator passes all
+// P readers; a shard of the sharded runtime (psrun) passes its own reader
+// rows over its own column block of the ring.
 //
 // Bound: bytes.  The ring is read once and the views written once:
-// (W*P*d + P*d + d) * 4 bytes for W*P*P*d adds, far below the card's
-// operation rate; P (4-16) is far below any tensor-core tile, so the sums run
-// on CUDA cores.  Design: the [P, W*P] visibility mask is reduced per block to
+// (W*P*d + R*d + d) * 4 bytes for W*P*R*d adds, far below the card's
+// operation rate; R (4-16) is far below any tensor-core tile, so the sums run
+// on CUDA cores.  Design: the [R, W*P] visibility mask is reduced per block to
 // one 64-bit reader mask per ring row (w, q) in shared memory, computed once
 // per block; blocks then stride over the columns.  Each thread owns one
 // column at a time, loads every visible ring row's value once (four rows in
-// flight) and adds it into PMAX per-reader register accumulators in (w, q)
-// order; base is added last, as in the plain version.  Ring rows that no
-// reader sees are not read.  The ragged tail of d is masked by the column
-// loop bound.  It is not fused with vap_suffix_norms: under VAP the views'
-// clocks cview come from enforce_vap, which reads those norms (core/ps.py),
-// so the norms of a clock must be complete before its views are read.
-template <int PMAX>
+// flight) and adds it into RMAX per-reader register accumulators in (w, q)
+// order; base is added last, as in the plain version.  A view element's
+// adds therefore run in the same order whatever R, d and the column's
+// offset are: a shard's views equal the same rows and columns of the whole
+// matrix's bit for bit.  Ring rows that no reader sees are not read.  The
+// ragged tail of d is masked by the column loop bound.  It is not fused with
+// vap_suffix_norms: under VAP the views' clocks cview come from enforce_vap,
+// which reads those norms (core/ps.py), so the norms of a clock must be
+// complete before its views are read.
+template <int RMAX>
 __global__ void __launch_bounds__(THREADS)
 ring_view_kernel(const float* __restrict__ base, const float* __restrict__ uring,
                  const int* __restrict__ uclock, const int* __restrict__ cview,
-                 float* __restrict__ out, int W, int P, long long d) {
+                 float* __restrict__ out, int W, int P, int R, long long d) {
   extern __shared__ unsigned long long vis[];          // [W*P] reader bits
   const int S = W * P;
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
@@ -68,7 +74,7 @@ ring_view_kernel(const float* __restrict__ base, const float* __restrict__ uring
     const int uc = uclock[w];
     unsigned long long m = 0ull;
     if (uc > RING_INVALID)
-      for (int r = 0; r < P; ++r)
+      for (int r = 0; r < R; ++r)
         if (uc <= cview[r * P + q]) m |= 1ull << r;
     vis[s] = m;
   }
@@ -77,9 +83,9 @@ ring_view_kernel(const float* __restrict__ base, const float* __restrict__ uring
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
-    float acc[PMAX];
+    float acc[RMAX];
 #pragma unroll
-    for (int r = 0; r < PMAX; ++r) acc[r] = 0.f;
+    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
     const float* col = uring + j;
     int s = 0;
     for (; s + 4 <= S; s += 4) {
@@ -90,7 +96,7 @@ ring_view_kernel(const float* __restrict__ base, const float* __restrict__ uring
       const float u2 = m2 ? __ldg(col + (long long)(s + 2) * d) : 0.f;
       const float u3 = m3 ? __ldg(col + (long long)(s + 3) * d) : 0.f;
 #pragma unroll
-      for (int r = 0; r < PMAX; ++r) {
+      for (int r = 0; r < RMAX; ++r) {
         if ((m0 >> r) & 1ull) acc[r] += u0;
         if ((m1 >> r) & 1ull) acc[r] += u1;
         if ((m2 >> r) & 1ull) acc[r] += u2;
@@ -102,24 +108,24 @@ ring_view_kernel(const float* __restrict__ base, const float* __restrict__ uring
       if (!m) continue;
       const float u = __ldg(col + (long long)s * d);
 #pragma unroll
-      for (int r = 0; r < PMAX; ++r)
+      for (int r = 0; r < RMAX; ++r)
         if ((m >> r) & 1ull) acc[r] += u;
     }
     const float b = __ldg(base + j);
 #pragma unroll
-    for (int r = 0; r < PMAX; ++r)
-      if (r < P) out[(long long)r * d + j] = b + acc[r];
+    for (int r = 0; r < RMAX; ++r)
+      if (r < R) out[(long long)r * d + j] = b + acc[r];
   }
 }
 
-template <int PMAX>
+template <int RMAX>
 void launch_ring_view(const float* base, const float* uring, const int* uclock,
-                      const int* cview, float* out, int W, int P, long long d,
-                      cudaStream_t stream) {
+                      const int* cview, float* out, int W, int P, int R,
+                      long long d, cudaStream_t stream) {
   const long long blocks = blocks_for(d, 8LL * sm_count());
   const size_t smem = sizeof(unsigned long long) * (size_t)W * P;
-  ring_view_kernel<PMAX><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      base, uring, uclock, cview, out, W, P, d);
+  ring_view_kernel<RMAX><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      base, uring, uclock, cview, out, W, P, R, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -419,18 +425,18 @@ cudaError_t launch_vap_bulk(const float* uring, const int* uclock, int c,
 
 extern "C" {
 
-// P <= 64 and W <= 64 (kernels/ps_view.py checks both before a launch).
+// R <= P <= 64 and W <= 64 (kernels/ps_view.py checks them before a launch).
 int ps_ring_view(const float* base, const float* uring, const int* uclock,
-                 const int* cview, float* out, int W, int P, long long d,
-                 cudaStream_t stream) {
-  if (P <= 8)
-    launch_ring_view<8>(base, uring, uclock, cview, out, W, P, d, stream);
-  else if (P <= 16)
-    launch_ring_view<16>(base, uring, uclock, cview, out, W, P, d, stream);
-  else if (P <= 32)
-    launch_ring_view<32>(base, uring, uclock, cview, out, W, P, d, stream);
+                 const int* cview, float* out, int W, int P, int R,
+                 long long d, cudaStream_t stream) {
+  if (R <= 8)
+    launch_ring_view<8>(base, uring, uclock, cview, out, W, P, R, d, stream);
+  else if (R <= 16)
+    launch_ring_view<16>(base, uring, uclock, cview, out, W, P, R, d, stream);
+  else if (R <= 32)
+    launch_ring_view<32>(base, uring, uclock, cview, out, W, P, R, d, stream);
   else
-    launch_ring_view<64>(base, uring, uclock, cview, out, W, P, d, stream);
+    launch_ring_view<64>(base, uring, uclock, cview, out, W, P, R, d, stream);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,7 @@ counts the launch in :data:`launches` (shared with every kernel, see
 ``launch.py``).  The plain versions are in ``ref.py``; ``ops.py`` picks
 between the two by the tensor's device.
 
-Limits: ``P <= 64`` (one 64-bit reader mask per ring row) and
+Limits: ``R <= P <= 64`` (one 64-bit reader mask per ring row) and
 ``W <= 64`` (the largest window of ``vap_suffix_norms``'s register
 instance, and of its shared-memory maxima); ``d`` is any size (the ragged
 tail is masked).  The Pallas kernels took only ``d % 128 == 0``,
@@ -42,7 +42,7 @@ VAP_TILE = 2048
 _vp = ctypes.c_void_p
 _ARGTYPES = {
     "ps_ring_view": [_vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_longlong, _vp],
+                     ctypes.c_int, ctypes.c_longlong, _vp],
     "ps_vap_suffix_norms": [_vp, _vp, ctypes.c_int, _vp, ctypes.c_int,
                             ctypes.c_int, ctypes.c_longlong, _vp],
 }
@@ -67,16 +67,25 @@ def _check_ring(uring, uclock):
 
 def ring_view(base, uring, uclock, cview):
     """``view[r] = base + Σ_{w,q: RING_INVALID < uclock[w] <= cview[r,q]}
-    uring[w,q]``, on the card; contract of ``ref.ring_view``."""
+    uring[w,q]``, on the card, for the ``R <= P`` readers of ``cview
+    [R, P]`` -> ``[R, d]``; contract of ``ref.ring_view``.  Each element's
+    adds run in one order whatever ``R``, ``d`` and the block's column
+    offset, so a shard's views equal the same rows of the whole matrix's
+    bit for bit."""
     W, P, d = _check_ring(uring, uclock)
     check("base", base, torch.float32, (d,), uring.device)
-    check("cview", cview, torch.int32, (P, P), uring.device)
-    out = torch.empty((P, d), dtype=torch.float32, device=uring.device)
+    R = cview.shape[0] if cview.dim() == 2 else -1
+    if not 1 <= R <= P:
+        raise ValueError(f"cview must be [R, {P}] with 1 <= R <= {P}, got "
+                         f"{tuple(cview.shape)}")
+    check("cview", cview, torch.int32, (R, P), uring.device)
+    out = torch.empty((R, d), dtype=torch.float32, device=uring.device)
     lib = _lib()
     with torch.cuda.device(uring.device):
         err = lib.ps_ring_view(base.data_ptr(), uring.data_ptr(),
                                uclock.data_ptr(), cview.data_ptr(),
-                               out.data_ptr(), W, P, d, stream(uring.device))
+                               out.data_ptr(), W, P, R, d,
+                               stream(uring.device))
     raise_on(lib, err, "ring_view")
     launches["ring_view"] += 1
     return out

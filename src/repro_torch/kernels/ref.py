@@ -18,8 +18,10 @@ def ring_view(base, uring, uclock, cview):
     """Materialize per-reader parameter views from the update ring.
 
     base [d], uring [W,P,d] (slot, producer, dim), uclock [W] int32 (clock
-    stored in each slot; < RING_INVALID when empty), cview [P,P] int32
-    (reader, producer) visibility clocks.  Returns views [P,d]:
+    stored in each slot; < RING_INVALID when empty), cview [R,P] int32
+    (reader, producer) visibility clocks for R <= P readers (all P in the
+    simulator, a shard's own rows in the sharded runtime).  Returns views
+    [R,d]:
 
         view[r] = base + Σ_{w,q : uclock[w] <= cview[r,q], slot valid} uring[w,q]
     """

@@ -10,16 +10,21 @@ The port of ``repro/obs``' device half, events and monitor:
 - ``monitor``: the online failure detector and the windowed SLO monitors
   over that stream.
 
+- ``perfetto``, ``promtext``, ``report``, ``diff``: the exporters of
+  that stream (a Chrome/Perfetto trace, OpenMetrics text, markdown run
+  reports, regression attribution between two runs), and
+  ``python -m repro_torch.obs`` over JSONL stream files.
+
 With ``obs=None`` (the default) no accumulator exists and every other
-`Trace` field is bit-equal to a run with ``obs=ObsSpec()``.  The
-exporters (Perfetto, markdown reports, Prometheus text, stream diffs and
-their CLI) are ported in a later slice.
+`Trace` field is bit-equal to a run with ``obs=ObsSpec()``; the sharded
+runtimes fold their shards' accumulators with ``device_reduce``.
 """
 from .metrics import (DEFAULT_LAG_BUCKETS, MetricsRegistry, ObsSpec,
-                      device_init, device_update, drain_device, obs_on,
-                      record_timing)
+                      device_init, device_reduce, device_update,
+                      drain_device, obs_on, record_timing)
 
 __all__ = [
     "DEFAULT_LAG_BUCKETS", "MetricsRegistry", "ObsSpec", "device_init",
-    "device_update", "drain_device", "obs_on", "record_timing",
+    "device_reduce", "device_update", "drain_device", "obs_on",
+    "record_timing",
 ]

@@ -12,10 +12,10 @@ The port of ``repro/obs/metrics.py``.  Two halves with one boundary:
   histograms that :func:`drain_device` fills from ``Trace.obs``, plus the
   modeled seconds of :func:`record_timing`.
 
-What has no counterpart here: ``device_reduce`` folds per-shard
-accumulators over a mesh with one collective per leaf; it comes with the
-sharded runtimes (ROADMAP queue 1, item 14), and the simulator, which
-holds the whole reader matrix, never needs it.  ``record_compiles``
+:func:`device_reduce` folds a sharded runtime's per-shard accumulators
+over the worker ranks after the run, one ``all_reduce`` per reduced
+leaf; the simulator holds the whole reader matrix and never calls it.
+What has no counterpart here: ``record_compiles``
 snapshots the JAX engines' compile counters; nothing in the port is
 compiled per config family (the kernels are built once per process), so
 there is no count to record and none is made up.
@@ -105,8 +105,26 @@ def device_update(acc: dict, *, staleness, forced, delivered, ship_floats,
     }
 
 
-# ``device_reduce`` (one collective per accumulator over a mesh's worker
-# axes) comes with the sharded runtimes, ROADMAP queue 1 item 14.
+# The accumulators a worker shard folds over its own reader rows only; the
+# others (clocks, ship_floats, dead_worker_clocks) are the same on every
+# shard.
+_REDUCE = {"lag_hist": "sum", "lag_max": "max", "forced_intra": "sum",
+           "forced_xpod": "sum", "delivered": "sum"}
+
+
+def device_reduce(acc: dict, group=None) -> dict:
+    """Fold per-shard accumulators over the worker ranks of ``group`` (a
+    ``torch.distributed`` process group; ``None`` is the world): one
+    ``all_reduce`` (SUM or MAX) per reduced leaf, after the run.  The
+    replicated leaves pass through."""
+    import torch.distributed as dist
+    out = dict(acc)
+    for k, op in _REDUCE.items():
+        t = acc[k].clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
+        out[k] = t
+    return out
 
 
 # --------------------------------------------------------------------------

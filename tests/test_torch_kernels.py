@@ -325,6 +325,55 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
                                rtol=0, atol=0)
 
 
+# ring_view on a block of reader rows and columns, as a shard of the
+# sharded runtime launches it: (W, P, d, first reader, readers, first
+# column, columns).  R = 4 of P = 8 at the essp and fault-path windows, R =
+# 2 at a ragged column offset, R = 8 of 16 on an aligned half.
+READER_BLOCKS = [(5, 8, 1000, 4, 4, 0, 1000),
+                 (22, 8, TILE + 4, 4, 4, 0, TILE + 4),
+                 (11, 8, 2003, 2, 2, 1001, 1002),
+                 (5, 16, 128, 8, 8, 64, 64)]
+
+
+def _reader_block(arrays, r0, R, j0, n):
+    b, u, uc, cv = arrays
+    return (b[j0:j0 + n].contiguous(), u[:, :, j0:j0 + n].contiguous(), uc,
+            cv[r0:r0 + R].contiguous())
+
+
+@pytest.mark.parametrize(("W", "P", "d", "r0", "R", "j0", "n"),
+                         READER_BLOCKS)
+def test_plain_ring_view_reader_block(W, P, d, r0, R, j0, n):
+    """The plain version takes any R <= P readers and any column block;
+    its rows equal the same rows of the whole matrix bit for bit (the
+    sharded runtime's CPU path)."""
+    arrays = _t(*_ring(W, P, d, 1, seed=3)[:4])
+    full = ref.ring_view(*arrays)
+    got = ref.ring_view(*_reader_block(arrays, r0, R, j0, n))
+    assert torch.equal(got, full[r0:r0 + R, j0:j0 + n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("W", "P", "d", "r0", "R", "j0", "n"),
+                         READER_BLOCKS)
+def test_cuda_ring_view_reader_block(cuda, W, P, d, r0, R, j0, n):
+    """``ring_view`` at R <= P readers on a column block equals the same
+    rows and columns of the R = P launch bit for bit; the rows shifted by
+    one reader (a planted fault) do not."""
+    arrays = _t(*_ring(W, P, d, 1, seed=3)[:4], device=cuda)
+    full = ps_view.ring_view(*arrays)
+    got = ps_view.ring_view(*_reader_block(arrays, r0, R, j0, n))
+    shifted = ps_view.ring_view(*_reader_block(arrays, r0 - 1, R, j0, n))
+    torch.cuda.synchronize()
+    want = full[r0:r0 + R, j0:j0 + n]
+    assert torch.equal(got, want)
+    assert not torch.equal(shifted, want)
+    with pytest.raises(ValueError, match="R <="):
+        ps_view.ring_view(arrays[0], arrays[1], arrays[2],
+                          torch.zeros((P + 1, P), dtype=torch.int32,
+                                      device=cuda))
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_check_their_inputs(cuda):
     base, uring, uclock, cview, c = _ring(4, 3, 50, 1)
