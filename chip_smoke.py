@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Thirteen phases, one JSON line each (or more):
+JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -131,10 +131,20 @@ JAX or the JAX package).  Thirteen phases, one JSON line each (or more):
    and of ``simulate`` in turns, peak memory; the ``essp(3)`` run's
    checkpoint at clock 15 written to a temporary directory, restored,
    resumed bit for bit and deleted (bytes, seconds); the faulted run's
-   event stream through ``obs.perfetto`` and ``obs.promtext`` (sizes).
+   event stream through ``obs.perfetto`` and ``obs.promtext`` (sizes);
+14. the sweep sharded over a mesh (``sharded_sweep_phase``): the C2-LDA
+   figure at full width with two seeds through ``sweep(...,
+   mesh=make_batch_mesh())`` on a world of one NCCL rank and through the
+   unsharded sweep, in turns: bit-equal traces and posts, one
+   ``ring_view`` and one ``vap_suffix_norms`` per clock of every run, no
+   host sync in a run's clock loop, runs per second of both, peak
+   memory, the gathered bytes; ``tune.frontier(..., devices=[the card])``
+   at ``MFConfig()`` equal to the unsharded frontier; ``python -m
+   repro_torch.analysis src/repro_torch --strict`` as a subprocess (exit
+   0, 0 findings, its seconds).
 
 Then the ``kernels`` summary line (the ``ps_view`` and ``delta_pack``
-rows carry the runtime's launches too), the card's ``nvidia-smi`` line,
+rows carry the runtime's launches too, the ``ps_view`` rows phase 14's), the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a GPU, or without the repository beside it, the script
 exits non-zero before printing any result.  Everything it prints also goes
@@ -223,6 +233,8 @@ TUNE_PUSH_PROBS = (0.25, 0.5, 1.0)
 # its essp(3) checkpoint.
 RUNTIME_CLOCKS = 30
 RUNTIME_CKPT_CLOCK = 15
+# The C2-LDA figure through the sharded sweep (phase 14): two seeds.
+SHARDED_SEEDS = (0, 1)
 # ring_view on a shard's reader rows (phase 2): readers 4-7 of 8.
 READER_ROWS = (4, 4)
 
@@ -1504,6 +1516,185 @@ def runtime_phase(device):
     return recs
 
 
+def tree_equal(a, b) -> bool:
+    """Exact equality (dtype included) of two trees of tensors: dicts,
+    `Trace`s, None."""
+    import dataclasses
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    if dataclasses.is_dataclass(a):
+        return all(tree_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def tree_bytes(tree) -> int:
+    import dataclasses
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return tree.numel() * tree.element_size()
+
+
+def sharded_sweep_phase(device):
+    """Phase 14: (a) the C2-LDA figure (``bsp``, ``ssp(5)``, ``essp(5)``)
+    at full width (``FULL_LDA``), two seeds, with phase 8's ``post``,
+    through ``sweep(..., mesh=make_batch_mesh())`` on a world of one NCCL
+    rank and through the unsharded sweep, in turns (sharded, unsharded,
+    sharded, unsharded): every trace and post of the sharded runs
+    bit-equal to the unsharded ones; one ``ring_view`` and one
+    ``vap_suffix_norms`` per clock of every run in each sweep; no host
+    sync inside a run's clock loop (the gather after the runs may
+    synchronize); runs per second of both and peak memory (each turn's
+    own, above what it started with), after a 2-clock warm-up of both.  (b)
+    ``tune.frontier(..., devices=[the card])`` at ``MFConfig()`` equal to
+    the unsharded frontier point for point.  (c) ``python -m
+    repro_torch.analysis src/repro_torch --strict`` in a subprocess:
+    exit 0, 0 findings, its seconds."""
+    import os
+    import torch
+    from repro_torch.apps import lda, matfact
+    from repro_torch.core import consistency as cc
+    from repro_torch.core import sweep, tune
+    from repro_torch.kernels import launch
+    from repro_torch.launch.mesh import make_batch_mesh
+    rec = {"phase": "sharded_sweep", "clocks": LDA_CLOCKS,
+           "seeds": list(SHARDED_SEEDS)}
+    t0 = time.perf_counter()
+    app = lda.make_lda_app(lda.LDAConfig(**FULL_LDA), device=device)
+    torch.cuda.synchronize()
+    rec["make_lda_app_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_batch_mesh()
+    rec["mesh_setup_s"] = time.perf_counter() - t0
+    rec["mesh"] = {"shape": list(mesh.shape),
+                   "dims": list(mesh.mesh_dim_names),
+                   "backend": torch.distributed.get_backend()}
+    cfgs = lda_figure_cfgs(cc)
+    post = lda_breakdown_post(lda.lda_time_model())
+    runs = len(cfgs) * len(SHARDED_SEEDS)
+    want = {"ring_view": runs * LDA_CLOCKS,
+            "vap_suffix_norms": runs * LDA_CLOCKS}
+
+    def counted(name, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        launch.reset_launches()
+        with watch_syncs() as found:
+            t = time.perf_counter()
+            res = sweep.sweep(app, cfgs, LDA_CLOCKS, seeds=SHARDED_SEEDS,
+                              post=post, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        launches = dict(launch.launches)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"sharded sweep ({name}): launches "
+                                 f"{launches}, expected {want}")
+        in_loop = sorted({site for site, names in found
+                          if "simulate_with_state" in names})
+        return res, {"seconds": secs, "runs_per_s": runs / secs,
+                     "t_first_s": res.t_first_s, "n_runs": res.n_runs,
+                     "launches": launches, "host_syncs": len(found),
+                     "clock_loop_syncs": in_loop,
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated(),
+                     # the turn's own peak (earlier turns' results are held)
+                     "peak_above_start_bytes":
+                         torch.cuda.max_memory_allocated() - start}
+
+    # a 2-clock warm-up of both paths (the NCCL communicator, PyTorch's
+    # kernels and allocator), then the counted turns
+    for kw in (dict(mesh=mesh), {}):
+        sweep.sweep(app, cfgs, 2, seeds=SHARDED_SEEDS, post=post, **kw)
+    turns = []
+    for name, kw in (("sharded", dict(mesh=mesh)), ("unsharded", {}),
+                     ("sharded", dict(mesh=mesh)), ("unsharded", {})):
+        res, stats = counted(name, **kw)
+        turns.append((name, res, stats))
+    shard, flat = turns[0][1], turns[1][1]
+    unequal = [i for i in range(len(cfgs))
+               if not (tree_equal(shard.traces[i], flat.traces[i])
+                       and tree_equal(shard.posts[i], flat.posts[i]))]
+    again = [i for i in range(len(cfgs))
+             if not tree_equal(turns[2][1].traces[i], shard.traces[i])]
+    syncs = {f"{n}{k}": s["clock_loop_syncs"]
+             for k, (n, _, s) in enumerate(turns) if s["clock_loop_syncs"]}
+    rec["turns"] = [{"sweep": n, **s} for n, _, s in turns]
+    rec["runs"] = runs
+    rec["gather_bytes"] = sum(tree_bytes(t) + tree_bytes(p)
+                              for t, p in zip(shard.traces, shard.posts,
+                                              strict=True))
+    rec["sharded_runs_per_s"] = [s["runs_per_s"] for n, _, s in turns
+                                 if n == "sharded"]
+    rec["unsharded_runs_per_s"] = [s["runs_per_s"] for n, _, s in turns
+                                   if n == "unsharded"]
+    rec["sharded_over_unsharded"] = [
+        a / b for a, b in zip(rec["sharded_runs_per_s"],
+                              rec["unsharded_runs_per_s"], strict=True)]
+    rec["bit_equal"] = not unequal and not again
+    rec["launches"] = turns[0][2]["launches"]
+    for i, cfg in enumerate(cfgs):
+        assert_finite(shard.trace(i, 0), f"sharded sweep {cfg.model}")
+    del turns, shard, flat, app
+    torch.cuda.empty_cache()
+    if unequal or again:
+        raise AssertionError(f"sharded sweep: configs {unequal} differ from "
+                             f"the unsharded sweep, {again} between turns")
+    if syncs:
+        raise AssertionError(f"sharded sweep: host syncs in a run's clock "
+                             f"loop: {syncs}")
+
+    # (b) the tuner through the sharded path, at MFConfig()
+    bases, grid = (cc.ssp(3), cc.essp(3)), {"push_prob": TUNE_PUSH_PROBS}
+    tm = matfact.mf_time_model()
+    small = matfact.make_mf_app(matfact.MFConfig(), device=device)
+    fronts = [tune.frontier(small, bases, grid, time_model=tm,
+                            n_clocks=SMALL_CLOCKS, seeds=[0], devices=dv)
+              for dv in ([torch.device(device)], None)]
+
+    def points(fr):
+        return [(p["config"].model, float(p["config"].push_prob),
+                 p["final_loss"], p["wall_to_threshold"],
+                 p["final_loss_per_seed"], p["wall_to_threshold_per_seed"])
+                for p in fr.points]
+    tuner_equal = (points(fronts[0]) == points(fronts[1])
+                   and fronts[0].frontier_idx == fronts[1].frontier_idx
+                   and fronts[0].threshold == fronts[1].threshold)
+    rec["tuner"] = {"points": len(fronts[0].points),
+                    "frontier_idx": fronts[0].frontier_idx,
+                    "equal_to_unsharded": tuner_equal}
+    del small
+    torch.cuda.empty_cache()
+    # the sweep made this process's world of one NCCL rank: take it down
+    torch.distributed.destroy_process_group()
+    if not tuner_equal:
+        raise AssertionError("sharded tuner: the frontier differs from the "
+                             "unsharded one")
+
+    # (c) the static checker, on this machine (no JAX here)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "src/repro_torch", "--strict"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    last = (out.stdout.strip().splitlines() or [""])[-1]
+    rec["analysis"] = {"seconds": time.perf_counter() - t0,
+                       "returncode": out.returncode, "summary": last}
+    if out.returncode != 0 or not last.endswith("(strict): 0 findings"):
+        raise AssertionError(f"repro_torch.analysis: rc {out.returncode}, "
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    return rec
+
+
 def attn_inputs(shape, seed, device):
     """``(q, k, v, q_pos, kv_pos)`` on the card for one attention shape,
     made from a seed; positions as `ATTN_SHAPES` names them."""
@@ -2544,6 +2735,11 @@ def main() -> int:
         emit(rec)
     runtime_launches = {n: r["launches"] for n, r in runtime.items()}
 
+    # --- 14. the sharded sweep, the sharded tuner, the static checker ------
+    sharded = sharded_sweep_phase(dev)
+    sharded["nvidia_smi"] = smi
+    emit(sharded)
+
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
     source = "src/repro_torch/kernels/csrc/ps_view.cu"
@@ -2563,7 +2759,9 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "max_abs_err")},
             # the sharded runtime's launches (phase 13)
             "runtime_launches": {n: r[name]
-                                 for n, r in runtime_launches.items()}})
+                                 for n, r in runtime_launches.items()},
+            # the first sharded C2-LDA sweep's launches (phase 14)
+            "sharded_sweep_launches": sharded["launches"][name]})
         if name == "ring_view":
             kernels[-1]["reader_block"] = {
                 f"W{W}": {"bit_equal": r["bit_equal"],
@@ -2633,7 +2831,14 @@ def main() -> int:
               for n, r in runtime.items()},
           "runtime_checkpoint": {k: runtime["essp3"]["checkpoint"][k]
                                  for k in ("bytes", "save_s",
-                                           "restore_s")}})
+                                           "restore_s")},
+          "sharded_sweep": {k: sharded[k] for k in (
+              "sharded_runs_per_s", "unsharded_runs_per_s",
+              "sharded_over_unsharded", "gather_bytes", "bit_equal")},
+          "sharded_sweep_peak_above_start_bytes": [
+              t["peak_above_start_bytes"] for t in sharded["turns"]],
+          "sharded_tuner_equal": sharded["tuner"]["equal_to_unsharded"],
+          "analysis_s": sharded["analysis"]["seconds"]})
     emit({"kernels": kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

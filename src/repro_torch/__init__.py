@@ -3,8 +3,15 @@
 Mirrors the JAX package's layout (``core/``, ``kernels/``, ``apps/``,
 ``psrun/``), imports ``torch`` and never ``jax`` or ``repro``.  Entry
 points take an explicit ``device`` and default to ``cuda``
-(:func:`repro_torch.device.resolve_device`).
+(:func:`repro_torch.device.resolve_device`).  Importing the package
+itself loads nothing (``repro_torch.analysis`` runs without ``torch``).
 """
-from .device import resolve_device
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -42,6 +42,12 @@ import torch
 from ..core.consistency import QUANT_BITS
 from ..kernels import ops
 
+# The per-clock functions (``repro_torch.analysis``'s clock-step scope: no
+# host sync may run in them or in what they call).
+CLOCK_STEP = ("ship_now", "row_threshold", "quant_scale", "selected_count",
+              "pack", "pack_block", "wire_floats", "sum_rows", "reader_base",
+              "fold_pods")
+
 # --------------------------------------------------------------- schedule
 
 

@@ -50,6 +50,10 @@ import torch
 # retry_at sentinel for "no retry scheduled": `c >= retry_at` never fires
 _NEVER = 2 ** 30
 
+# The per-clock functions (``repro_torch.analysis``'s clock-step scope: no
+# host sync may run in them or in what they call).
+CLOCK_STEP = ("wire_step", "drop_pending", "idle")
+
 
 @dataclass(frozen=True)
 class WireFaults:

@@ -83,6 +83,10 @@ from .consistency import ConsistencyConfig
 from .delays import ChurnSchedule, churn_live, churn_rates, \
     delivery_matrix, pod_of, same_pod_mask, staleness_bound_matrix
 
+# The per-clock functions (``repro_torch.analysis``'s clock-step scope: no
+# host sync may run in them or in what they call).
+CLOCK_STEP = ("simulate_with_state",)
+
 
 @dataclass
 class PSApp:

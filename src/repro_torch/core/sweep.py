@@ -28,19 +28,30 @@ that a family shares its launches, is ROADMAP queue 2 work.
 
 ``obs`` (an `obs.ObsSpec`) threads the telemetry accumulators through
 every run; each trace's ``obs`` comes back batched like its other fields.
-Sharding the batch over several devices (``devices``, ``mesh``,
-``mesh_axis``) raises ``NotImplementedError``: it is ROADMAP queue 1,
-item 14b (the sharded runtimes it would run on, ``psrun`` and ``pods``,
-are ported).
+
+With ``mesh`` (or ``devices``) the runs shard over one dimension of a
+``DeviceMesh``, one rank per mesh point, where the JAX engine
+``shard_map``s its batch: per family the runs are flattened config-major
+and seed-minor, padded to a multiple of the shard count by repeating the
+first run, and each shard runs a contiguous block.  After the runs every
+Trace field and ``post`` leaf is gathered over the shard group
+(``all_gather_into_tensor`` per leaf), so that every rank holds the whole
+result, and the padding is sliced off.  Ranks that differ only in the
+other dimensions run the same block (the JAX engine replicates its batch
+over them).  The sharded result is bit-equal to the unsharded one when
+each rank runs on the same kind of device with the same intra-op thread
+count.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field, fields
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .consistency import ConsistencyConfig
 from .ps import PSApp, Trace, simulate
@@ -53,7 +64,7 @@ def family_window(configs: Sequence[ConsistencyConfig]) -> int:
 
 def _stack(items: list):
     """Stack a list of like trees (tensors, dicts, `Trace`s, None) along a
-    new leading axis."""
+    new leading axis; a leaf that is no tensor stays a list."""
     first = items[0]
     if first is None:
         return None
@@ -62,18 +73,9 @@ def _stack(items: list):
     if isinstance(first, Trace):
         return Trace(**{f.name: _stack([getattr(it, f.name) for it in items])
                         for f in fields(Trace)})
-    return torch.stack(items)
-
-
-def _index(tree, j: int):
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _index(v, j) for k, v in tree.items()}
-    if isinstance(tree, Trace):
-        return Trace(**{f.name: _index(getattr(tree, f.name), j)
-                        for f in fields(Trace)})
-    return tree[j]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    return list(items)
 
 
 @dataclass
@@ -91,7 +93,8 @@ class SweepResult:
     harmonized: list
     seeds: np.ndarray
     traces: list
-    n_runs: int               # simulate runs made (no compile counterpart)
+    n_runs: int               # simulate runs made here (no compile
+                              # counterpart; sharded: this rank's)
     t_first_s: float          # the first pass over every (config, seed)
     t_exec_s: float | None    # a second pass (timeit=True)
     families: dict = field(default_factory=dict)
@@ -104,7 +107,7 @@ class SweepResult:
         if self.traces[i] is None:
             raise ValueError("sweep ran with keep_traces=False; only `posts` "
                              "outputs were kept")
-        return _index(self.traces[i], seed_idx)
+        return _map(self.traces[i], lambda t: t[seed_idx])
 
     def post(self, i: int, seed_idx: int | None = None):
         """Post-callback output for config ``i`` (one seed, or batched)."""
@@ -112,13 +115,54 @@ class SweepResult:
             raise ValueError("sweep ran without a post callback")
         if seed_idx is None:
             return self.posts[i]
-        return _index(self.posts[i], seed_idx)
+        return _map(self.posts[i], lambda t: t[seed_idx])
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
-        f"{item}); run it on the JAX package")
+def _map(tree, fn):
+    """``fn`` on every leaf of a tree of dicts, `Trace`s and None, in the
+    tree's order (the same on every rank)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, Trace):
+        return Trace(**{f.name: _map(getattr(tree, f.name), fn)
+                        for f in fields(Trace)})
+    return fn(tree)
+
+
+def _shard_group(mesh, mesh_axis: str | None):
+    """The process group of ``mesh``'s dimension ``mesh_axis`` (its only
+    dimension when ``None``)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if mesh_axis is None:
+        if len(names) != 1:
+            raise ValueError(f"the mesh has dimensions {names}; name the one "
+                             f"to shard the runs over (mesh_axis=)")
+        mesh_axis = names[0]
+    if mesh_axis not in names:
+        raise ValueError(f"mesh_axis={mesh_axis!r} is not a dimension of the "
+                         f"mesh {names}")
+    return mesh.get_group(mesh_axis)
+
+
+def _gather_leaf(t, group, n_shards: int):
+    """A shard's ``[b, ...]`` leaf gathered over ``group`` into ``[n_shards
+    * b, ...]``, in group-rank order; a leaf that is no tensor (a list of
+    ``b`` values) through ``all_gather_object``."""
+    if not isinstance(t, torch.Tensor):
+        parts = [None] * n_shards
+        dist.all_gather_object(parts, list(t), group=group)
+        return [v for p in parts for v in p]
+    src = t.contiguous()
+    if src.dtype == torch.bool:      # bools travel as their bytes
+        src = src.view(torch.uint8)
+    out = torch.empty((n_shards * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    with warnings.catch_warnings():   # renamed all_gather_single in newer torch
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out.view(torch.bool) if t.dtype == torch.bool else out
 
 
 def _sync(device: torch.device):
@@ -152,13 +196,21 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
         post has run and keep only the post outputs.
       obs: an `obs.ObsSpec`: collect telemetry in every run
         (``Trace.obs``); ``None`` leaves every other field bit-equal.
-      devices, mesh, mesh_axis: the JAX engine's multi-device sharding,
-        which raises here (ROADMAP queue 1, item 14b).
+      mesh, mesh_axis: shard the runs over the dimension ``mesh_axis`` of
+        a ``DeviceMesh`` (its only dimension when ``None``; e.g.
+        ``mesh=make_pods_mesh(), mesh_axis="pod"``), replicated over the
+        other dimensions.  Every rank of the mesh must make the same call,
+        and gets the whole result.  A mesh of one rank runs the sharded
+        path too.  A failed collective raises.
+      devices: one device per rank of the world: ``sweep`` shards over
+        ``launch.mesh.make_batch_mesh(devices)`` (ignored when ``mesh`` is
+        given).
+
+    ``devices=None, mesh=None`` runs everything in this process.  Under
+    sharding ``n_runs`` counts this rank's ``simulate`` runs, its padding
+    included, and the times are taken between two barriers of the shard
+    group.
     """
-    if devices is not None or mesh is not None or mesh_axis is not None:
-        _not_ported("a sweep sharded over devices (devices=, mesh=, "
-                    "mesh_axis=)",
-                    "item 14b")
     if not keep_traces and post is None:
         raise ValueError("keep_traces=False requires a post callback")
     configs = list(configs)
@@ -166,6 +218,20 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
         seeds = np.arange(seeds)
     seeds = np.asarray(seeds, np.uint32)
     dev = app.x0.device
+    group = None
+    if mesh is None and devices is not None:
+        from ..launch.mesh import make_batch_mesh
+        mesh = make_batch_mesh(devices)
+    if mesh is not None:
+        group = _shard_group(mesh, mesh_axis)
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the app lives on {dev}, the mesh on "
+                             f"{mesh.device_type}")
+    elif mesh_axis is not None:
+        raise ValueError("mesh_axis names a dimension of a mesh: pass mesh= "
+                         "(or devices=)")
+    n_shards = 1 if group is None else dist.get_world_size(group)
+    shard = 0 if group is None else dist.get_rank(group)
 
     groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(configs):
@@ -181,33 +247,58 @@ def sweep(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
             harmonized[i] = configs[i].replace(window=W)
         fam_info[fam] = {"configs": len(idxs), "window": W}
 
-    def one_pass():
-        for i in range(len(configs)):
-            runs, outs = [], []
-            for sd in seeds:
-                tr = simulate(app, harmonized[i], n_clocks, seed=int(sd),
-                              record_views=record_views, obs=obs)
-                if post is not None:
-                    outs.append(post(tr, harmonized[i], int(sd), i))
-                if keep_traces:
-                    runs.append(tr)
-            traces[i] = _stack(runs) if keep_traces else None
-            posts[i] = _stack(outs) if post is not None else None
+    def run(i, sd):
+        tr = simulate(app, harmonized[i], n_clocks, seed=int(sd),
+                      record_views=record_views, obs=obs)
+        out = post(tr, harmonized[i], int(sd), i) if post is not None \
+            else None
+        return (tr if keep_traces else None), out
 
-    t0 = time.perf_counter()
-    one_pass()
-    _sync(dev)
-    t_first = time.perf_counter() - t0
+    def one_pass():
+        if group is None:
+            for i in range(len(configs)):
+                runs = [run(i, sd) for sd in seeds]
+                traces[i] = _stack([r for r, _ in runs]) if keep_traces \
+                    else None
+                posts[i] = _stack([o for _, o in runs]) if post is not None \
+                    else None
+            return len(configs) * len(seeds)
+        made = 0
+        for idxs in groups.values():
+            # config-major, seed-minor; padded with the first run
+            flat = [(i, sd) for i in idxs for sd in seeds]
+            n = len(flat)
+            flat += [flat[0]] * ((-n) % n_shards)
+            b = len(flat) // n_shards
+            runs = [run(i, sd) for i, sd in flat[shard * b:(shard + 1) * b]]
+            made += b
+            # the gather, after every clock loop of the block
+            block = _stack([{"trace": r, "post": o} for r, o in runs])
+            whole = _map(block, lambda t: _gather_leaf(t, group, n_shards))
+            S = len(seeds)
+            for j, i in enumerate(idxs):
+                sl = slice(j * S, (j + 1) * S)
+                traces[i] = _map(whole["trace"], lambda t: t[sl])
+                posts[i] = _map(whole["post"], lambda t: t[sl])
+        return made
+
+    def timed_pass():
+        if group is not None:
+            dist.barrier(group=group)
+        t0 = time.perf_counter()
+        made = one_pass()
+        _sync(dev)
+        if group is not None:
+            dist.barrier(group=group)
+        return made, time.perf_counter() - t0
+
+    n_runs, t_first = timed_pass()
     t_exec = None
     if timeit:
-        t0 = time.perf_counter()
-        one_pass()
-        _sync(dev)
-        t_exec = time.perf_counter() - t0
+        made, t_exec = timed_pass()
+        n_runs += made
 
     return SweepResult(configs=configs, harmonized=harmonized, seeds=seeds,
-                       traces=traces,
-                       n_runs=len(configs) * len(seeds) * (2 if timeit
-                                                           else 1),
+                       traces=traces, n_runs=n_runs,
                        t_first_s=t_first, t_exec_s=t_exec,
                        families=fam_info, posts=posts)

@@ -29,8 +29,10 @@ tuner.
 
 What changed in the port: each sweep runs its (config, seed) pairs in
 turn (``core.sweep``), so ``history`` records ``n_runs`` where the JAX
-package records ``n_compiles``; ``devices`` (a sharded sweep) waits for
-ROADMAP queue 1, item 14b.
+package records ``n_compiles``.  ``devices`` (one device per rank of the
+world) shards every sweep of ``score`` and ``frontier`` over the world's
+ranks (``sweep(devices=...)``); each rank gets every point, and the
+frontier equals the unsharded one point for point.
 """
 from __future__ import annotations
 
@@ -164,7 +166,8 @@ def score(app: PSApp, configs: Sequence[ConsistencyConfig], n_clocks: int,
           threshold: float | None = None, threshold_frac: float = 0.05,
           tail: int = 10, devices=None) -> tuple[list[dict], float,
                                                  SweepResult]:
-    """Run the grid through one sweep and score every (config, seed)."""
+    """Run the grid through one sweep and score every (config, seed);
+    ``devices`` shards it over the world's ranks (`core.sweep.sweep`)."""
     res = sweep(app, configs, n_clocks, seeds=seeds, devices=devices,
                 post=metrics_post(time_model, tail=tail), keep_traces=False)
     loss = np.stack([_host(res.posts[i]["loss"])

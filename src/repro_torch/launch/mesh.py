@@ -1,9 +1,10 @@
 """Device meshes of the port's sharded runtimes, on ``torch.distributed``.
 
 The port of ``repro/launch/mesh.py``'s PS meshes: ``make_ps_mesh`` (dims
-``("data", "model")``) and ``make_pods_mesh`` (``("pod", "data",
-"model")``), each a ``DeviceMesh`` over the whole world, one process per
-mesh point.  The JAX package builds its meshes over the devices one
+``("data", "model")``), ``make_pods_mesh`` (``("pod", "data",
+"model")``) and ``make_batch_mesh`` (``("batch",)``, over which
+``core.sweep`` shards its runs), each a ``DeviceMesh`` over the whole
+world, one process per mesh point.  The JAX package builds its meshes over the devices one
 process sees; here every rank is a process with one device, so a mesh's
 size is the world's.  The production and dry-run meshes of the TPU pods
 and their roofline constants have no counterpart.
@@ -69,6 +70,29 @@ def _mesh(device, shape, names) -> DeviceMesh:
                          f"{tuple(names)} needs {size} ranks; the world has "
                          f"{n} (one process per mesh point)")
     return init_device_mesh(device.type, tuple(shape), mesh_dim_names=names)
+
+
+def make_batch_mesh(devices=None) -> DeviceMesh:
+    """1-D ``("batch",)`` mesh over every rank of the world, for the
+    sweep's (config x seed) runs.  ``devices`` lists one device per rank
+    (rank ``r`` runs on ``devices[r]``), so its length must be the world
+    size; ``None`` takes each rank's default device (``process_device``).
+    Without a process group this makes a world of one rank."""
+    if devices is None:
+        ensure_world(process_device(None))
+        return _mesh(None, (dist.get_world_size(),), ("batch",))
+    devices = list(devices)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if not devices or rank >= len(devices):
+        raise ValueError(f"devices lists {len(devices)} device(s); rank "
+                         f"{rank} has none (one device per rank)")
+    device = process_device(devices[rank])
+    ensure_world(device)
+    n = dist.get_world_size()
+    if len(devices) != n:
+        raise ValueError(f"devices lists {len(devices)} device(s); the "
+                         f"world has {n} ranks (one device per rank)")
+    return _mesh(device, (n,), ("batch",))
 
 
 def make_ps_mesh(data: int | None = None, model: int | None = None,

@@ -31,6 +31,11 @@ import torch
 # k, the last bucket is ">= n_buckets - 1".
 DEFAULT_LAG_BUCKETS = 16
 
+# The per-clock functions (``repro_torch.analysis``'s clock-step scope: no
+# host sync may run in them or in what they call); the host half below
+# drains the accumulators after the run.
+CLOCK_STEP = ("device_update",)
+
 
 @dataclass(frozen=True)
 class ObsSpec:

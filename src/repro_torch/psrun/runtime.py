@@ -88,6 +88,10 @@ from ..kernels.ref import RING_EMPTY, RING_INVALID
 from ..launch.mesh import ensure_world, make_ps_mesh, process_device
 from ..obs import metrics as obsm
 
+# The per-clock functions (``repro_torch.analysis``'s clock-step scope: no
+# host sync may run in them or in what they call).
+CLOCK_STEP = ("run_from_local",)
+
 
 @dataclass(frozen=True)
 class PSState:

@@ -199,16 +199,32 @@ def test_lda_figure_sweep_matches_jax():
         _assert_posts(res.post(i), want.post(i), f"lda post[{i}]")
 
 
-def test_unported_options_raise(tquad):
-    """Sharding over devices still raises, naming item 14; telemetry is
-    ported and comes back batched per config
-    (``test_torch_obs.py::test_sweep_threads_obs`` holds its values)."""
+def test_sharding_options_checked(tquad):
+    """The sharding options check their arguments (an unknown
+    ``mesh_axis``, a mesh of several dimensions without one, ``mesh_axis``
+    without a mesh, ``devices`` that do not list one device per rank);
+    telemetry comes back batched per config
+    (``test_torch_obs.py::test_sweep_threads_obs`` holds its values).
+    ``test_torch_sweep_sharded.py`` runs the sharded sweep itself."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_batch_mesh, make_pods_mesh
     from repro_torch.obs import ObsSpec
-    for kw in (dict(devices=["cpu"]), dict(mesh=object()),
-               dict(mesh_axis="batch")):
-        with pytest.raises(NotImplementedError,
-                           match="not ported.*item 14"):
-            tsweep.sweep(tquad, [tc.ssp(1)], 2, **kw)
+    made = not dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="the world has 1 ranks"):
+            tsweep.sweep(tquad, [tc.ssp(1)], 2, devices=["cpu", "cpu"])
+        with pytest.raises(ValueError, match="not a dimension"):
+            tsweep.sweep(tquad, [tc.ssp(1)], 2,
+                         mesh=make_batch_mesh(["cpu"]), mesh_axis="pod")
+        with pytest.raises(ValueError, match="name the one"):
+            tsweep.sweep(tquad, [tc.ssp(1)], 2,
+                         mesh=make_pods_mesh(1, 1, 1, device="cpu"))
+        with pytest.raises(ValueError, match="pass mesh="):
+            tsweep.sweep(tquad, [tc.ssp(1)], 2, mesh_axis="batch")
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
     res = tsweep.sweep(tquad, [tc.ssp(1)], 2, seeds=2, obs=ObsSpec())
     assert res.traces[0].obs["clocks"].tolist() == [2, 2]
     with pytest.raises(ValueError, match="requires a post"):
