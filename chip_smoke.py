@@ -15,14 +15,18 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    (over the H100 SXM data-sheet rates).  ``delta_pack`` must be
    bit-equal for f32, bf16 and int8; the comm substrate's threshold
    selection is timed beside the other exact selections;
-   ``flash_attention`` (at the models' prefill shape, beside one
-   ``scaled_dot_product_attention`` call as the library yardstick) and
+   ``flash_attention`` (at the models' prefill shape and at MLA's,
+   ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, each
+   beside one ``scaled_dot_product_attention`` call as the library
+   yardstick, with the backend it ran; also at MLA's and head size 80's
+   edge shapes, bf16 and float32) and
    ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
    versions at the main path's shapes and at edge shapes (each record
    naming the kernel that ran, ``variant``; at ``main`` the kernel's ptxas
-   lines, which must show no spills for ``ssd``, the wgmma attention
-   kernel's tile classes, and planted faults the limits must fail: two
-   for attention, two for ssd's y at ``main`` and ``carry``, two for its
+   lines, which must show no spills for ``ssd`` and the timed attention
+   kernels (wgmma, MLA), their tile classes, and planted faults the
+   limits must fail: two for attention at each timed shape, two for ssd's
+   y at ``main`` and ``carry``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
    path's rings (W = 22, P = 8, d = 5,053,800), ``path: "fault"``, with
@@ -71,18 +75,32 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    selected in one run only must lie within the budget of its row's
    threshold in both (a near tie); the integer fields and
    ``ship_floats`` are held exactly up to the clock before it;
-5. the serving path at full width and depth (``serve_path``): qwen3-0.6b
-   and mamba2-130m with random weights from a seed, batch 8, a 2048-token
-   prompt from ``token_batch`` and 32 new tokens, through
-   ``repro_torch.launch.serve``: prefill and decode times and rates, peak
-   memory, the kernels' launches per prefill (``flash_attention`` once
-   per qwen3 layer, ``ssd`` once per mamba2 layer), no host sync in the
-   decode loop, and the device's idle share and each kernel's device ms
-   per prefill from profiled runs;
-6. both models' smoke configs on the card against the CPU
-   (``serve_card_vs_cpu``): prefill and teacher-forced decode logits within
-   the stated tolerance, greedy tokens equal wherever the CPU's top-2
-   margin exceeds it;
+5. the serving path at full width and depth (``serve_path``):
+   qwen3-0.6b, mamba2-130m, deepseek-v2-lite-16b (MLA, 64 routed + 2
+   shared experts, top-6; bf16 weights) and qwen3-moe-30b-a3b (128
+   experts, top-8), all at their published depth, with random weights
+   from a seed, batch 8, a 2048-token prompt from ``token_batch`` and 32
+   new tokens, through ``repro_torch.launch.serve``, one model freed
+   before the next is built: set-up (the weights' draw) seconds, prefill
+   and decode times and rates, peak memory, the kernels' launches
+   per prefill (``flash_attention`` once per layer, ``ssd`` once per
+   mamba2 layer), no host sync in the decode loop, and the device's idle
+   share and each kernel's device ms per prefill from profiled runs;
+6. every served arch's smoke config (the five above and llama3-8b,
+   qwen3-4b, stablelm-3b) on the card against the CPU, in bf16 and
+   float32 (``serve_card_vs_cpu``): the prefill and each decode step held
+   on the same inputs (the CPU runs the step again from a copy of the
+   card's cache): the card's cache within the stated tolerance at every
+   step, its logits within the tolerance plus twice what the step makes
+   of its own rounding (the CPU's distance from its run of the step one
+   precision up, bf16 in float32 and float32 in float64), and greedy
+   tokens equal wherever the CPU's top-2 margin exceeds that; the card no
+   farther from the run one precision up than the CPU plus the
+   tolerance; the free-running distance within the bound plus what the
+   caches' difference makes of the step; for the moe archs each layer's
+   routing on both devices, logits held in the sequences whose routing
+   agreed at that step, every flip a near tie, at most an eighth of the
+   (step, sequence) pairs let go;
 7. LDA at full width (``FULL_LDA``: K = 100, the NYTimes vocabulary,
    d = 10,266,000) through ``simulate`` under ``ssp(3)`` and ``essp(3)``,
    with the MF main path's checks (one ``ring_view`` and one
@@ -294,8 +312,39 @@ ATTN_SHAPES = {
     # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
     "kernels_bench": (1, 512, 512, 8, 4, 64, 64, True, None, "f32",
                       "arange"),
+    # MLA's latent heads (Dk 576 = 512 + 64, Dv 512, one KV head):
+    # "mla_main" is deepseek-v2-lite's prefill (batch 8, 2048 tokens, 16
+    # heads, bf16), timed; then ragged Sq = Sk = 333, a window of 100
+    # cutting through the MLA kernel's 32-key tiles, masked keys, rows that
+    # see no key, non-causal Sq != Sk, float32; then the head size 80 of
+    # the MLA smoke config (80, 64) and of stablelm-3b (80, 80)
+    "mla_main": (8, 2048, 2048, 16, 1, 576, 512, True, None, "bf16",
+                 "arange"),
+    "mla_ragged333": (1, 333, 333, 16, 1, 576, 512, True, None, "bf16",
+                      "arange"),
+    "mla_window100": (2, 384, 384, 16, 1, 576, 512, True, 100, "bf16",
+                      "arange"),
+    "mla_holes": (2, 256, 256, 16, 1, 576, 512, True, None, "bf16",
+                  "holes"),
+    "mla_late_keys": (2, 200, 200, 16, 1, 576, 512, True, None, "bf16",
+                      "late_keys"),
+    "mla_noncausal": (2, 200, 300, 16, 1, 576, 512, False, None, "bf16",
+                      "arange"),
+    "mla_f32": (1, 200, 200, 16, 1, 576, 512, True, None, "f32", "arange"),
+    "bf16_d80_64": (2, 300, 300, 16, 16, 80, 64, True, None, "bf16",
+                    "arange"),
+    "f32_d80_64": (2, 300, 300, 16, 16, 80, 64, True, None, "f32",
+                   "arange"),
+    "bf16_d80_80": (2, 300, 300, 32, 32, 80, 80, True, None, "bf16",
+                    "arange"),
+    "f32_d80_80": (2, 300, 300, 32, 32, 80, 80, True, None, "f32",
+                   "arange"),
 }
+# the timed cases and the kernel each runs
+ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_kernel"}
 ATTN_TILE = 128     # the wgmma kernel's query block and KV tile
+MLA_TILE = 32       # the MLA kernel's KV tile
+MLA_ROWS = 64       # the MLA kernel's (query, head) rows a block
 # ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
 # d_state 128, chunk 128, bf16); then a ragged s, float32, and dt in
@@ -343,9 +392,17 @@ MF_CASES = {
 }
 MF_TILE = 128       # the columns planted fault (b) leaves out
 
-# The serving path: both ported families at full width and depth.
-SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
+# The serving path: the dense, ssm and moe families at full width and
+# depth; phase 6 runs the smoke config of every served arch.
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "deepseek-v2-lite-16b",
+               "qwen3-moe-30b-a3b")
+SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
+               "stablelm-3b", "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+# The profiled run that splits decode from prefill takes this many tokens
+# (the profiler's events of 31 steps at 48 MoE layers took minutes to
+# collect and read).
+PROFILE_NEW = 8
 # Card against CPU on the smoke configs: logits within this share of their
 # largest magnitude.  float32: the products run in full float32 on both
 # (no TF32), in other orders.  bfloat16: both round every product to
@@ -354,11 +411,22 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 # JAX package on the CPU stays within 0.6 %).
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 4, 100, 8
+# A router near tie is a rounding decision: phase 6 compares each MoE
+# layer's routing on the card and the CPU at every step on the same
+# inputs, holds logits only in the sequences whose routing agreed at that
+# step, and fails if a flip's CPU margin is wider than SERVE_TOL of the
+# token's |x| @ |W_router| or if more than this share of the (step,
+# sequence) pairs was let go (4 of 32; the card's runs so far flipped at
+# most one token of one sequence).
+FLIP_SHARE = 1 / 8
 
 _lines: list[str] = []
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T0)
     line = obj if isinstance(obj, str) else json.dumps(obj)
     _lines.append(line)
     print(line, flush=True)
@@ -1746,12 +1814,14 @@ def kernel_ptxas(source: str, entry: str) -> list[str]:
     return [ln for ln in ptxas_report(log) if entry in ln]
 
 
-def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol):
+def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol,
+                             tile=ATTN_TILE):
     """Max error of two faults made with the plain version, each of which
     the limit must fail: (a) one key tile dropped (keys 0-63 masked for
     the second half of the queries, rows that see over a thousand keys);
     (b) a partial tile treated as full (every query's position rounded up
-    to the end of its 128-block, so it sees the whole diagonal tile)."""
+    to the end of its ``tile``-block, so it sees the whole diagonal
+    tile)."""
     from repro_torch.kernels import ref
     h = q.shape[1] // 2
     kp_drop = kp.clone()
@@ -1763,7 +1833,7 @@ def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol):
             want[:, h:]),
         "planted_fault_partial_as_full_err": (
             ref.attention(q, k, v, **dict(
-                kw, q_pos=qp // ATTN_TILE * ATTN_TILE + ATTN_TILE - 1)),
+                kw, q_pos=qp // tile * tile + tile - 1)),
             want)}
     errs, missed = {}, []
     for key, (bad, ref_out) in faults.items():
@@ -1775,16 +1845,44 @@ def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol):
     return errs, missed
 
 
+def sdpa_call(q, k, v, causal, scale):
+    """One ``scaled_dot_product_attention`` call on the port's layout, the
+    library yardstick, with the backend PyTorch's dispatch picks for it
+    (``torch._fused_sdp_choice``): with ``enable_gqa`` where K and V share
+    q's head size, else with K and V expanded to q's heads (a view), which
+    the efficient kernel takes at Dk != Dv.  ``(None, "none")`` if no
+    backend takes the inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = q.shape[-1] == v.shape[-1]
+    if not gqa:
+        H = q.shape[2]
+        kt, vt = kt.expand(-1, H, -1, -1), vt.expand(-1, H, -1, -1)
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale, enable_gqa=gqa)
+    try:
+        call()
+    except RuntimeError:
+        return None, "none"
+    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal,
+                                     scale=scale, enable_gqa=gqa)
+    return call, SDPBackend(choice).name.lower()
+
+
 def check_flash_attention(name, device, rates, timed: bool):
     """``flash_attention`` against its plain version on one shape of
     `ATTN_SHAPES`, within ``ref.attention_tolerance``, with the kernel
-    that ran (``variant``); timed at the main path's shape beside one
-    ``scaled_dot_product_attention`` call, where the limit must also fail
-    two planted faults (one key tile dropped, a partial tile treated as
-    full) and the wgmma kernel's tile classes and ptxas line are
+    that ran (``variant``); timed at the main path's shapes (``main``,
+    ``mla_main``) beside one ``scaled_dot_product_attention`` call (and
+    the backend it ran), where the limit must also fail two planted faults
+    (one key tile dropped, a partial tile of the kernel treated as full)
+    and the kernel's tile classes and ptxas line (no spills) are
     recorded."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     shape = ATTN_SHAPES[name]
@@ -1808,9 +1906,11 @@ def check_flash_attention(name, device, rates, timed: bool):
         rec["unseeing_rows_zero"] = not bool(got[:, :5].any())
         bad = bad or not rec["unseeing_rows_zero"]
     del got, diff
+    mla = shape[5:7] == (576, 512)
+    tile = MLA_TILE if mla else ATTN_TILE
     if timed and not bad:
         errs, missed = planted_attention_faults(q, k, v, qp, kp, kw, want,
-                                                atol, rtol)
+                                                atol, rtol, tile)
         rec.update(errs)
         if missed:
             emit(rec)
@@ -1824,21 +1924,29 @@ def check_flash_attention(name, device, rates, timed: bool):
     if timed:
         bound, by, pairs = attention_bound(q, k, v, qp, kp, causal, window,
                                            rates)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library, backend = sdpa_call(q, k, v, causal, scale)
         rec.update(
             ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20),
             plain_ms=time_ms(lambda: ref.attention(q, k, v, **kw), 3),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale,
-                enable_gqa=True), 20),
-            bound_ms=bound, bound_by=by, visible_pairs=pairs)
-        cls = ref.attention_tile_classes(qp, kp, causal, window, ATTN_TILE,
-                                         ATTN_TILE)
+            library_ms=None if library is None else time_ms(library, 20),
+            library_backend=backend, bound_ms=bound, bound_by=by,
+            visible_pairs=pairs)
+        # the kernel's blocks: 128 queries (wgmma), or 64 (query, head)
+        # rows of one KV head (MLA: 64 / rep queries) over 32-key tiles
+        rep = q.shape[2] // k.shape[2]
+        bq = max(1, MLA_ROWS // rep) if mla else ATTN_TILE
+        cls = ref.attention_tile_classes(qp, kp, causal, window, bq, tile)
         rec["tile_classes_per_head"] = {
             n: int((cls == c).sum()) for n, c in (
                 ("skip", ref.TILE_SKIP), ("full", ref.TILE_FULL),
                 ("partial", ref.TILE_PARTIAL))}
-        rec["ptxas"] = kernel_ptxas("flash_attention", "fa_wgmma_kernel")
+        rec["ptxas"] = kernel_ptxas("flash_attention", ATTN_TIMED[name])
+        if not rec["ptxas"] or any(
+                ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                for ln in rec["ptxas"]):
+            emit(rec)
+            raise AssertionError(f"{ATTN_TIMED[name]} spills or has no "
+                                 f"ptxas line: {rec['ptxas']}")
     emit(rec)
     return rec
 
@@ -2371,14 +2479,14 @@ def lda_card_vs_cpu(device):
 
 
 SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
-                                     "fa_f32_kernel"),
+                                     "fa_mla_kernel", "fa_f32_kernel"),
                  "ssd": ("split::split_kernel", "5split12split_kernel",
                          "ssd_kernel")}
 
 
 def profiled_run(model, prompts, new):
     """Host ms and device-busy ms of one ``serve.run`` under the profiler,
-    with the port's kernels' share (in all and per kernel) and the five
+    with the port's kernels' share (in all and per kernel) and the eight
     ops that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2399,7 +2507,7 @@ def profiled_run(model, prompts, new):
                     per_kernel[name] += e.self_device_time_total
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:5]
+                 key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_ms": wall_ms, "device_ms": busy / 1e3,
             "kernel_ms": sum(per_kernel.values()) / 1e3,
             "kernel_ms_by_name": {k: v / 1e3 for k, v in per_kernel.items()},
@@ -2412,7 +2520,8 @@ def serve_path(arch, device):
     ``repro_torch.launch.serve``: a warm-up run, then one counted run
     (launch counts set to 0 just before and read just after; the whole run
     under the sync watch), then two profiled runs (prefill alone, and
-    prefill with the decode loop) for the device's idle share."""
+    prefill with the decode loop) for the device's idle share.  The depth
+    is the published one."""
     import torch
     from repro_torch.kernels import launch
     from repro_torch.launch import serve
@@ -2438,6 +2547,9 @@ def serve_path(arch, device):
     tok, logits = res["tokens"], res["logits"]
     rec = {"phase": "serve_path", "arch": arch, "n_params": model.n_params,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "param_dtype": cfg.param_dtype,
+           "total_memory_bytes": torch.cuda.get_device_properties(
+               device).total_memory,
            "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
            "batch": B, "prompt": S, "new": new, "setup_s": setup_s,
            "prefill_ms": res["prefill_s"] * 1e3,
@@ -2458,18 +2570,22 @@ def serve_path(arch, device):
                              f"(expected {want}), decode-loop syncs "
                              f"{decode_syncs}, tokens/logits ok: {ok}")
     pre = profiled_run(model, prompts, 1)
-    full = profiled_run(model, prompts, new)
-    dec_wall = full["wall_ms"] - pre["wall_ms"]
-    dec_dev = full["device_ms"] - pre["device_ms"]
+    full = profiled_run(model, prompts, PROFILE_NEW)
+    dec_wall = (full["wall_ms"] - pre["wall_ms"]) / (PROFILE_NEW - 1)
+    dec_dev = (full["device_ms"] - pre["device_ms"]) / (PROFILE_NEW - 1)
     rec["profiled"] = {
         "prefill_wall_ms": pre["wall_ms"], "prefill_device_ms":
         pre["device_ms"], "prefill_kernel_ms": pre["kernel_ms"],
         "prefill_kernel_ms_by_name": pre["kernel_ms_by_name"],
         "prefill_device_idle_share": 1.0 - pre["device_ms"] / pre["wall_ms"],
         "prefill_top_ops_ms": pre["top_ops_ms"],
-        "decode_wall_ms_per_step": dec_wall / (new - 1),
-        "decode_device_ms_per_step": dec_dev / (new - 1),
+        "decode_wall_ms_per_step": dec_wall,
+        "decode_device_ms_per_step": dec_dev,
         "decode_device_idle_share": 1.0 - dec_dev / dec_wall,
+        "decode_profiled_steps": PROFILE_NEW - 1,
+        "decode_top_ops_ms_per_step": {
+            k: (v - pre["top_ops_ms"].get(k, 0.0)) / (PROFILE_NEW - 1)
+            for k, v in full["top_ops_ms"].items()},
         "run_device_idle_share": 1.0 - full["device_ms"] / full["wall_ms"]}
     unseen = [k for k, n in want.items()
               if n and not pre["kernel_ms_by_name"].get(k)]
@@ -2490,54 +2606,163 @@ def _to(tree, device):
 
 def serve_card_vs_cpu(arch, compute, device):
     """The smoke config of ``arch`` (compute dtype ``compute``), with the
-    same weights on the card and on the CPU: prefill logits and
-    ``SMOKE_NEW - 1`` teacher-forced decode steps (both fed the CPU run's
-    greedy tokens) within ``SERVE_TOL`` of the logits' scale, greedy tokens
-    equal wherever the CPU's top-2 margin is wider than that, and
-    ``generate_scan`` through ``launch.serve.run`` on both."""
+    same weights on the card and on the CPU: the prefill and
+    ``SMOKE_NEW - 1`` greedy decode steps, each held on the same inputs.
+    The prefill is; each decode step runs on the CPU a second time from a
+    copy of the card's cache, fed the token of the CPU's free-running run.
+    At every step the card's updated cache lies within ``SERVE_TOL`` of
+    that run's (of each cache tensor's largest magnitude), its logits
+    within ``bound`` of the logits' scale, and its greedy token is the
+    CPU's wherever the CPU's top-2 margin is wider than ``bound``.
+
+    ``bound`` is ``SERVE_TOL`` plus twice ``d``, what the step makes of its
+    own rounding: the CPU also runs each step one precision up on the same
+    inputs (bfloat16 in float32, float32 in float64), and ``d`` is the
+    CPU's distance from that run.  The card runs the same code as the CPU
+    and rounds at the same points, so its own distance from that run must
+    stay within ``d`` plus ``SERVE_TOL`` (then the two lie within ``2 d``
+    plus ``SERVE_TOL`` of each other).  ``d`` is far under ``SERVE_TOL``
+    but in the archs without qk-norm (llama3-8b, stablelm-3b) and
+    deepseek-v2-lite's smoke config, whose steps amplify a rounding at
+    random init.
+
+    The free-running distance (each device on its own cache) is held
+    within ``bound`` plus the distance between the CPU's two runs, what
+    the caches' difference makes of the step.  For a moe arch each MoE
+    layer's routing is recorded (``moe.recording``) and compared first: a
+    sequence whose routing flipped at a step (the card against the CPU on
+    the same inputs) is not held at that step, every flip must be a near
+    tie (the CPU's margin within ``SERVE_TOL`` of the token's ``|x| @
+    |W_router|``), and at most ``FLIP_SHARE`` of the (step, sequence)
+    pairs may be let go; ``d`` counts, and the card's distance from the
+    run one precision up is held, only where that run's routing is the
+    CPU's (a different routing is not a rounding).  Last,
+    ``generate_scan`` through ``launch.serve.run`` on both (the share of
+    equal tokens is recorded)."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
+    from repro_torch.models import moe
     from repro_torch.models.registry import Model, build_model
-    from repro_torch.serve import decode
     cfg = get_smoke_config(arch).replace(compute_dtype=compute)
     cpu = build_model(cfg, seed=0, device="cpu")
     card = Model(cfg, _to(cpu.params, device))
+    up = {"bfloat16": "float32", "float32": "float64"}[compute]
+    hi = Model(cfg.replace(compute_dtype=up), cpu.params)
     prompts = serve.make_prompts(cpu, SMOKE_BATCH, SMOKE_PROMPT, seed=0)
     tol = SERVE_TOL[compute]
-    steps = []
-    caches = {m: m.init_cache(SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW)
-              for m in (cpu, card)}
-    lg_h, caches[cpu] = cpu.prefill(prompts, caches[cpu])
-    lg_c, caches[card] = card.prefill(prompts.to(device), caches[card])
+    B, n = SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW
+    ones = torch.ones(B, dtype=torch.bool)
+    flips, steps = [], []
+
+    def step(model, tokens, cache):
+        """``model``'s prefill (a ``None`` cache) or decode step: last
+        logits on the CPU (float64), the cache, the routing."""
+        dev = "cpu" if model is not card else device
+        with moe.recording() as route:
+            if cache is None:
+                lg, cache = model.prefill(tokens.to(dev),
+                                          model.init_cache(B, n))
+            else:
+                lg, cache = model.decode_step(tokens.to(dev), cache)
+        return lg[:, -1].double().cpu(), cache, route
+
+    def rows(a, b, scale):
+        return (a - b).abs().amax(-1) / scale
+
+    def peak(t):
+        """The largest magnitude of ``t`` (a tiny one when it is empty)."""
+        return float(t.double().abs().max()) if t.numel() else 1e-30
+
+    got, card_cache, route = step(card, prompts, None)
+    free, cpu_cache, want_route = step(cpu, prompts, None)
+    same, same_cache = free, cpu_cache
+    exact, _, exact_route = step(hi, prompts, None)
     for i in range(SMOKE_NEW):
-        want, got = lg_h[:, -1].float(), lg_c[:, -1].float().cpu()
-        scale = want.abs().max().item()
-        top2 = torch.topk(want, 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > tol * scale
-        same = decode.greedy_sample(lg_h) == decode.greedy_sample(lg_c).cpu()
-        steps.append({"rel_err": (got - want).abs().max().item() / scale,
-                      "clear_margins": int(clear.sum()),
-                      "tokens_differ_where_clear": int((clear & ~same)
-                                                       .sum())})
+        held, agree = ones.clone(), ones
+        if want_route:
+            held, fl = moe.routing_agreement(route, want_route, tol)
+            flips.extend((i, *f) for f in fl)
+            agree = moe.routing_agreement(exact_route, want_route, tol)[0]
+        cache_err = max((peak(card_cache[k][:, held].cpu().double()
+                              - w[:, held].double()) / peak(w[:, held])
+                         for k, w in same_cache.items()
+                         if w.is_floating_point()), default=0.0)
+        ints_equal = all(torch.equal(card_cache[k].cpu(), w)
+                         for k, w in same_cache.items()
+                         if not w.is_floating_point())
+        scale = peak(same[held])
+        d, own = rows(same, exact, scale), rows(got, exact, scale)
+        bound = tol + torch.where(agree, 2 * d, 0.0)
+        err = rows(got, same, scale)
+        moved = rows(free, same, scale)
+        free_err = rows(got, free, scale)
+        top2 = torch.topk(same, 2, dim=-1).values
+        clear = held & ((top2[:, 0] - top2[:, 1]) > bound * scale)
+        steps.append({
+            "held_sequences": int(held.sum()),
+            "rel_err": [float(e) for e in err],
+            "bound": [float(b) for b in bound],
+            "d": [float(x) for x in d], "own": [float(x) for x in own],
+            "free_rel_err": [float(e) for e in free_err],
+            "moved": [float(e) for e in moved],
+            "cache_rel_err": cache_err, "cache_ints_equal": ints_equal,
+            "over_bound": int((held & (err > bound)).sum()),
+            "free_over_bound": int((held & (free_err > bound + moved))
+                                   .sum()),
+            "far_from_exact": int((held & agree & (own > d + tol)).sum()),
+            "clear_margins": int(clear.sum()),
+            "tokens_differ_where_clear": int(
+                (clear & (same.argmax(-1) != got.argmax(-1))).sum())})
         if i + 1 == SMOKE_NEW:
             break
-        tok = decode.greedy_sample(lg_h)[:, None]
-        lg_h, caches[cpu] = cpu.decode_step(tok, caches[cpu])
-        lg_c, caches[card] = card.decode_step(tok.to(device), caches[card])
+        tok = free.argmax(-1)[:, None]
+        snap = {k: v.detach().to("cpu", copy=True)
+                for k, v in card_cache.items()}
+        exact, _, exact_route = step(hi, tok, {
+            k: v.to(hi.cfg.cdtype) if v.is_floating_point() else v.clone()
+            for k, v in snap.items()})
+        free, cpu_cache, _ = step(cpu, tok, cpu_cache)
+        same, same_cache, want_route = step(cpu, tok, snap)
+        got, card_cache, route = step(card, tok, card_cache)
     gen_h = serve.run(cpu, prompts, SMOKE_NEW)["tokens"]
     gen_c = serve.run(card, prompts.to(device), SMOKE_NEW)["tokens"].cpu()
+    let_go = sum(B - s["held_sequences"] for s in steps)
+    pairs = [(e, b, x) for s in steps
+             for e, b, x in zip(s["rel_err"], s["bound"], s["d"])]
     rec = {"phase": "serve_card_vs_cpu", "arch": arch, "compute": compute,
-           "batch": SMOKE_BATCH, "prompt": SMOKE_PROMPT, "tol": tol,
-           "max_rel_err": max(s["rel_err"] for s in steps),
+           "batch": B, "prompt": SMOKE_PROMPT, "tol": tol, "up": up,
+           "max_rel_err": max(e for e, _, _ in pairs),
+           "max_err_over_bound": max(e / b for e, b, _ in pairs),
+           "max_d": max(x for *_, x in pairs),
+           "pairs_d_over_tol": sum(x > tol for *_, x in pairs),
+           "max_cache_rel_err": max(s["cache_rel_err"] for s in steps),
+           "over_bound": sum(s["over_bound"] + s["free_over_bound"]
+                             for s in steps),
+           "cache_over_bound": sum(s["cache_rel_err"] > tol
+                                   or not s["cache_ints_equal"]
+                                   for s in steps),
+           "far_from_exact": sum(s["far_from_exact"] for s in steps),
            "tokens_differ_where_clear": sum(s["tokens_differ_where_clear"]
                                             for s in steps),
            "clear_margins": sum(s["clear_margins"] for s in steps),
-           "steps": len(steps),
+           "let_go_pairs": let_go, "pairs": B * SMOKE_NEW, "steps": steps,
            "generate_tokens_equal": float((gen_h == gen_c).float().mean())}
+    if cfg.family == "moe":
+        rec["routing_flips"] = {
+            "tokens": len(flips),
+            "max_margin_over_budget": max(
+                (m / b for *_, m, b in flips), default=0.0),
+            "first": [dict(zip(("step", "layer", "seq", "pos", "margin",
+                                "budget"), f, strict=True))
+                      for f in flips[:4]]}
     emit(rec)
-    if rec["max_rel_err"] > tol or rec["tokens_differ_where_clear"]:
-        raise AssertionError(f"serve card vs CPU ({arch}, {compute}): {rec}")
+    wide = [f for f in flips if f[4] > f[5]]
+    if (rec["over_bound"] or rec["cache_over_bound"] or rec["far_from_exact"]
+            or rec["tokens_differ_where_clear"] or wide
+            or let_go > FLIP_SHARE * B * SMOKE_NEW):
+        raise AssertionError(f"serve card vs CPU ({arch}, {compute}): {rec}; "
+                             f"flips wider than their budget: {wide}")
     return rec
 
 
@@ -2642,9 +2867,10 @@ def main() -> int:
                              (4, 4096, 0.5, "halves")):
         check_delta_pack(P, d, topk, case, dev, rates, timed=False)
     selection = time_selection(8, d_full, WIRED_TOPK, dev)
-    attn_main = check_flash_attention("main", dev, rates, timed=True)
+    attn_timed = {name: check_flash_attention(name, dev, rates, timed=True)
+                  for name in ATTN_TIMED}
     for name in ATTN_SHAPES:
-        if name != "main":
+        if name not in ATTN_TIMED:
             check_flash_attention(name, dev, rates, timed=False)
     ssd_main = check_ssd("main", dev, rates, timed=True)
     for name in SSD_SHAPES:
@@ -2687,7 +2913,7 @@ def main() -> int:
     served = {arch: serve_path(arch, dev) for arch in SERVE_ARCHS}
 
     # --- 6. serving, card against CPU -----------------------------------------
-    for arch in SERVE_ARCHS:
+    for arch in SMOKE_ARCHS:
         for compute in ("bfloat16", "float32"):
             serve_card_vs_cpu(arch, compute, dev)
 
@@ -2778,21 +3004,33 @@ def main() -> int:
         "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
         "runtime_launches": {n: r["delta_pack"]
                              for n, r in runtime_launches.items()}})
-    for name, rec, src, replaces, arch in (
-            ("flash_attention", attn_main, "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:93", "qwen3-0.6b"),
+    # flash_attention's rows: the wgmma kernel at qwen3-0.6b's prefill
+    # (launched once a layer by qwen3-0.6b and qwen3-moe-30b-a3b), the MLA
+    # kernel at deepseek-v2-lite's
+    for name, rec, src, replaces, archs in (
+            ("flash_attention", attn_timed["main"], "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:93",
+             ("qwen3-0.6b", "qwen3-moe-30b-a3b")),
+            ("flash_attention[mla_mma_sync]", attn_timed["mla_main"],
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
+             ("deepseek-v2-lite-16b",)),
             ("ssd", ssd_main, "ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:79", "mamba2-130m")):
+             "src/repro/kernels/ssd_scan.py:79", ("mamba2-130m",))):
+        counter = name.split("[")[0]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": served[arch]["launches_per_prefill"][name],
+            "launches": served[archs[0]]["launches_per_prefill"][counter],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if "variant" in rec:
             kernels[-1]["variant"] = rec["variant"]
+        if counter == "flash_attention":
+            kernels[-1]["library_backend"] = rec["library_backend"]
+            kernels[-1]["launches_per_prefill_by_arch"] = {
+                a: served[a]["launches_per_prefill"][counter] for a in archs}
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",
@@ -2805,6 +3043,9 @@ def main() -> int:
           "serve_prefill": {a: {
               "prefill_ms": r["prefill_ms"],
               "prefill_tokens_per_s": r["prefill_tokens_per_s"],
+              "decode_ms_per_step": r["decode_ms_per_step"],
+              "setup_s": r["setup_s"], "layers": r["layers"],
+              "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
               "profiled_kernel_ms": r["profiled"]["prefill_kernel_ms_by_name"]}
               for a, r in served.items()},
           "main_path_launches": main_launches,

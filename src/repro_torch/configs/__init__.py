@@ -7,12 +7,13 @@ from __future__ import annotations
 
 import importlib
 
-from .base import AttnConfig, MambaConfig, ModelConfig
+from .base import AttnConfig, MambaConfig, MLAConfig, ModelConfig, MoEConfig
 
-ARCHS = ("mamba2-130m", "qwen3-0.6b")
+ARCHS = ("deepseek-v2-lite-16b", "llama3-8b", "mamba2-130m", "qwen3-0.6b",
+         "qwen3-4b", "qwen3-moe-30b-a3b", "stablelm-3b")
 
-__all__ = ["ARCHS", "AttnConfig", "MambaConfig", "ModelConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "AttnConfig", "MLAConfig", "MambaConfig", "ModelConfig",
+           "MoEConfig", "get_config", "get_smoke_config"]
 
 
 def _module(arch: str):

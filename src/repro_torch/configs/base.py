@@ -1,11 +1,10 @@
 """Model configuration dataclasses of the ported families.
 
 The counterpart of the JAX package's ``configs/base.py``, for the families
-the port serves so far (dense and ssm).  ``pdtype``/``cdtype`` are
-``torch.dtype``s.  The MoE, MLA, encoder and vision configs wait for the
-slices that port those families (ROADMAP queue 1, item 16); their fields
-stay on ``ModelConfig`` as ``None`` so a config reads the same in both
-packages.
+the port serves so far (dense, moe and ssm).  ``pdtype``/``cdtype`` are
+``torch.dtype``s.  The encoder and vision configs wait for the slices
+that port those families (ROADMAP queue 1, item 16); their fields stay on
+``ModelConfig`` as ``None`` so a config reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -13,6 +12,16 @@ import dataclasses
 from dataclasses import dataclass, field
 
 import torch
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention (compressed KV)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -24,7 +33,17 @@ class AttnConfig:
     rope_theta: float = 10000.0
     causal: bool = True
     window: int | None = None         # sliding-window size (None = full)
-    mla: object | None = None         # MLA is not ported (must stay None)
+    mla: MLAConfig | None = None      # if set, use MLA instead of GQA
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8                # routed experts
+    top_k: int = 2
+    d_ff_expert: int = 1408           # per-expert hidden dim
+    n_shared: int = 0                 # always-on shared experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -42,10 +61,10 @@ class ModelConfig:
     family: str = "dense"             # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int = 12
     d_model: int = 768
-    d_ff: int = 3072                  # dense-MLP hidden
+    d_ff: int = 3072                  # dense-MLP hidden (MoE: shared path)
     vocab_size: int = 32000
     attn: AttnConfig | None = field(default_factory=AttnConfig)
-    moe: object | None = None
+    moe: MoEConfig | None = None
     mamba: MambaConfig | None = None
     attn_every: int | None = None
     encoder: object | None = None

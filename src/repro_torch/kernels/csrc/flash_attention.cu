@@ -12,8 +12,11 @@
 // What bounds it: at the models' prefill shape (B 8, S 2048, H 16, Hkv 8,
 // D 128, causal) the visible pairs need 137.5 GFLOP of bf16 products
 // against 201 MB of q/k/v/out, so the tensor cores bound it (0.139 ms on
-// an H100 SXM at 989 TFLOP/s), not memory (0.06 ms).  Three kernels, one
-// picked by a fixed rule from (dtype, Dk, Dv) (`variant_of`):
+// an H100 SXM at 989 TFLOP/s), not memory (0.06 ms); at MLA's prefill
+// (deepseek-v2-lite: B 8, S 2048, H 16, Hkv 1, Dk 576, Dv 512, causal) the
+// 268.6 M visible pairs need 584 GFLOP (0.59 ms) against 606 MB (0.18 ms).
+// Four kernels, one picked by a fixed rule from (dtype, Dk, Dv)
+// (`variant_of`):
 //
 // - bf16 at (64, 64) and (128, 128), the models' head sizes:
 //   `fa_wgmma_kernel`, built from Hopper's asynchronous units.  A
@@ -41,21 +44,26 @@
 //   the TMA store of O writes no row past Sq.  Tensor maps are built per
 //   call with cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint.
-// - bf16 at (32, 16) and (32, 32): `fa_bf16_kernel`, 4 warps x 16 query
-//   rows, mma.sync m16n8k16 with K and a transposed V staged in padded
-//   shared memory.
+// - bf16 at (32, 16), (32, 32), (80, 64) and (80, 80): `fa_bf16_kernel`, 4
+//   warps x 16 query rows, mma.sync m16n8k16 with K and a transposed V
+//   staged in padded shared memory.
+// - bf16 at (576, 512), MLA's latent heads: `fa_mla_kernel`, 8 warps over
+//   64 (query, head) rows of one KV head, mma.sync with Dv split across
+//   the two warps of each 16-row group, Q resident in shared memory and
+//   cp.async double-buffered K/V tiles of 32 keys (see its section).
 // - float32: `fa_f32_kernel`, full float32 products on the CUDA cores (no
 //   TF32), 32 query rows x 32 keys per tile, 4 threads per query row.
 //
-// The older two launch one CTA per (query block, head, batch), heaviest
-// query block first (causal: the last block sees the most keys), with the
-// rep = H/Hkv CTAs of one KV head next to each other so their K/V tiles
-// are read from L2; the wgmma kernel's items keep that order within each
-// KV head.  The older two skip a KV tile with no visible (query, key) pair
-// before loading it (`pl.when(jnp.any(valid))`, :61) and mask ragged Sq
-// and Sk in the kernel: a query row past Sq has position 2^30 and is not
-// stored, a key past Sk has position -1 (the TPU wrapper's padding,
-// :105-112).  None of the three needs the wrapper to copy anything.
+// The mma.sync and CUDA-core kernels launch one CTA per (query block,
+// head, batch), heaviest query block first (causal: the last block sees
+// the most keys), with the rep = H/Hkv CTAs of one KV head next to each
+// other so their K/V tiles are read from L2; the wgmma kernel's items keep
+// that order within each KV head, and the MLA kernel's blocks hold the rep
+// heads themselves.  Those two skip a KV tile with no visible (query, key)
+// pair before loading it (`pl.when(jnp.any(valid))`, :61) and mask ragged
+// Sq and Sk in the kernel: a query row past Sq has position 2^30 and is
+// not stored, a key past Sk has position -1 (the TPU wrapper's padding,
+// :105-112).  None of the four needs the wrapper to copy anything.
 //
 // Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t,
 // fa_variant names the kernel it runs.
@@ -1090,6 +1098,370 @@ __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
 #undef EMPTY_V
 }
 
+// ---------------------------------------------------------------------------
+// bf16, (Dk, Dv) = (576, 512): MLA's latent attention (DeepSeek-V2: keys of
+// 512 latent + 64 rope columns, the 512 latent columns as values, one KV
+// head), mma.sync with the value columns split across warps
+// ---------------------------------------------------------------------------
+// A 64-row float32 O of width 512 is 256 registers a thread for one
+// warpgroup, so neither the wgmma kernel nor fa_bf16_kernel (all of Dv in
+// each warp) takes this shape.  A CTA of 8 warps takes 64 rows of one KV
+// head's (query, head) pairs, in q's own order (query-major, its rep = H /
+// Hkv heads within), so that all 64 rows share every K/V tile (at Hkv = 1,
+// 4 queries x 16 heads, contiguous in q and out).  Warps 2g and 2g + 1
+// hold rows 16g..16g+15: each computes S for its half of a 32-key tile (16
+// keys over the whole depth of 576) and owns half of O's columns (256: 32
+// mma n-tiles, 128 float32 registers).  The pair swaps its row maxima and
+// its P fragments (bf16, in mma's A layout) through shared memory, keeps
+// its own share of l, and adds the two shares at the end.  Q [64, 576]
+// stays in shared memory; K and V tiles of 32 keys are double-buffered with
+// cp.async (rows past Sk zero-filled); ldmatrix feeds the tensor cores (V
+// through ldmatrix.trans, so it is never transposed in memory).  Rows are
+// padded by 16 bytes so that ldmatrix's 8 rows fall on 8 distinct bank
+// groups: 73 KB of Q, 2 x (37 + 33) KB of K and V, 216 KB in all.  A KV
+// tile is skipped (not loaded) when its key range cannot meet the block's
+// query range (tile_class, 256 tiles classed at a time, a thread a tile,
+// into a bitmap), and masked element by element otherwise, its key
+// positions loaded beside it; rows past the end have position 2^30 and
+// are not stored.  One CTA fits an SM, so each warp's S runs as four
+// independent mma chains (the depth's even and odd steps apart).
+template <int DK, int DV>
+struct MlaLayout {
+  static constexpr int BQ = 64, BK = 32, WARPS = 8;
+  static constexpr int QS = DK + 8, VS = DV + 8;  // row strides (bf16)
+  static constexpr int Q_BYTES = BQ * QS * 2;
+  static constexpr int K_BYTES = BK * QS * 2, V_BYTES = BK * VS * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + 2 * K_BYTES;
+  static constexpr int MX_OFF = V_OFF + 2 * V_BYTES;     // [WARPS][16] f32
+  static constexpr int PF_OFF = MX_OFF + WARPS * 16 * 4;  // [WARPS][32] x 16 B
+  static constexpr int KP_OFF = PF_OFF + WARPS * 32 * 16;  // [2][BK] int
+  static constexpr int VIS_OFF = KP_OFF + 2 * BK * 4;      // [WARPS] u32
+  static constexpr int BYTES = VIS_OFF + WARPS * 4;
+};
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+// (nothing is read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 address the
+// rows of matrix i), as mma fragments; `_t` transposes each.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The two warps of row group g (named barrier 1 + g).
+__device__ __forceinline__ void pair_sync(int g) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + g) : "memory");
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(256, 1) fa_mla_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int Sq,
+    int Sk, int H, int Hkv, float scale, int causal, int window) {
+  using L = MlaLayout<DK, DV>;
+  constexpr int BQ = L::BQ, BK = L::BK, QS = L::QS, VS = L::VS;
+  constexpr int DKC = DK / 8, DVC = DV / 8;  // 16-byte chunks of a row
+  constexpr int NT = DV / 16;                // O's n-tiles per warp
+  constexpr int ROUND = L::WARPS * 32;       // tiles classed at a time
+  static_assert(DK % 32 == 0 && DV % 32 == 0 && BK == 32, "head sizes");
+  extern __shared__ __align__(16) uint8_t smem_mla[];
+  const uint32_t q_s = smem_u32(smem_mla);
+  const uint32_t k_s = q_s + L::K_OFF, v_s = q_s + L::V_OFF;
+  float* mx_s = reinterpret_cast<float*>(smem_mla + L::MX_OFF);
+  uint4* pf_s = reinterpret_cast<uint4*>(smem_mla + L::PF_OFF);
+  const int* kp_s = reinterpret_cast<const int*>(smem_mla + L::KP_OFF);
+  uint32_t* vis_s = reinterpret_cast<uint32_t*>(smem_mla + L::VIS_OFF);
+
+  // rows: Sq * rep < 2^31 (the launcher checks)
+  const int rep = H / Hkv, rows = Sq * rep;
+  const int n_blk = (rows + BQ - 1) / BQ;
+  const int rr0 = (n_blk - 1 - blockIdx.x) * BQ;  // heaviest block first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int g = warp >> 1, half = warp & 1;
+  const int* kp_row = kpos + (long long)b * Sk;
+  // block row r's pair: its row of q / out ([B, Sq, H] rows), or -1
+  auto pair_row = [&](int r, int* qp) -> long long {
+    const int rr = rr0 + r;
+    if (rr >= rows) {
+      *qp = PAD_QPOS;
+      return -1;
+    }
+    const int i = rr / rep, j = rr - i * rep;
+    *qp = qpos[(long long)b * Sq + i];
+    return ((long long)b * Sq + i) * H + hk * rep + j;
+  };
+
+  for (int e = tid; e < BQ * DKC; e += 256) {
+    const int r = e / DKC, c = e % DKC;
+    int qp;
+    const long long row = pair_row(r, &qp);
+    cp_async16(q_s + (r * QS + c * 8) * 2,
+               row < 0 ? q : q + row * DK + c * 8, row >= 0);
+  }
+  int qp0, qp1;
+  const long long orow0 = pair_row(16 * g + gr, &qp0);
+  const long long orow1 = pair_row(16 * g + gr + 8, &qp1);
+
+  // the block's query range (rows past the end left out), in every warp
+  int qmin = INT_HI, qmax = INT_LO;
+  for (int r = lane; r < BQ; r += 32) {
+    int qp;
+    if (pair_row(r, &qp) >= 0) {
+      qmin = min(qmin, qp);
+      qmax = max(qmax, qp);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  }
+  // Which KV tiles some pair may see, ROUND tiles at a time (a thread a
+  // tile, a bit each in vis_s); next_tile(t) is the first from t on.
+  // Every thread calls it with the same t, so the round's barriers are
+  // uniform.
+  const int n_kb = (Sk + BK - 1) / BK;
+  int round0 = -ROUND;
+  auto next_tile = [&](int t) -> int {
+    for (; t < n_kb; ++t) {
+      if (t >= round0 + ROUND) {
+        round0 = t;
+        __syncthreads();  // the last round's bits are read out
+        const int tt = t + tid;
+        bool vis = false;
+        if (tt < n_kb) {
+          int lo = INT_HI, hi = INT_LO;
+          bool neg = false;
+#pragma unroll 8
+          for (int e = 0; e < BK; ++e) {
+            const int j = tt * BK + e;
+            const int kp = j < Sk ? kp_row[j] : -1;
+            neg |= kp < 0;
+            lo = kp < 0 ? lo : min(lo, kp);
+            hi = kp < 0 ? hi : max(hi, kp);
+          }
+          vis = tile_class(lo, hi, neg, qmin, qmax, causal, window) !=
+                TILE_SKIP;
+        }
+        const uint32_t bits = __ballot_sync(0xffffffffu, vis);
+        if (lane == 0) vis_s[warp] = bits;
+        __syncthreads();
+      }
+      const int o = t - round0;
+      if ((vis_s[o >> 5] >> (o & 31)) & 1u) break;
+    }
+    return t;
+  };
+  // tile t's K, V and key positions into buffer buf, asynchronously
+  auto load_kv = [&](int t, int buf) {
+    const uint32_t kd = k_s + buf * L::K_BYTES, vd = v_s + buf * L::V_BYTES;
+    for (int e = tid; e < BK * DKC; e += 256) {
+      const int r = e / DKC, c = e % DKC, j = t * BK + r;
+      cp_async16(kd + (r * QS + c * 8) * 2,
+                 j < Sk ? k + (((long long)b * Sk + j) * Hkv + hk) * DK + c * 8
+                        : k,
+                 j < Sk);
+    }
+    for (int e = tid; e < BK * DVC; e += 256) {
+      const int r = e / DVC, c = e % DVC, j = t * BK + r;
+      cp_async16(vd + (r * VS + c * 8) * 2,
+                 j < Sk ? v + (((long long)b * Sk + j) * Hkv + hk) * DV + c * 8
+                        : v,
+                 j < Sk);
+    }
+    if (tid < BK) {
+      const int j = t * BK + tid;
+      cp_async4(smem_u32(kp_s + buf * BK + tid), j < Sk ? kp_row + j : kp_row,
+                j < Sk);
+    }
+  };
+
+  const float sl = scale * 1.4426950408889634f;  // scores in log2 units
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float o[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  // ldmatrix row addresses: A (Q rows of the group), B (K: this half's 16
+  // keys), V (16 keys x this half's columns, transposed)
+  const uint32_t qa = q_s + ((16 * g + (lane & 15)) * QS + (lane >> 4) * 8) * 2;
+  const uint32_t ko =
+      ((16 * half + (lane >> 4) * 8 + (lane & 7)) * QS + ((lane >> 3) & 1) * 8) *
+      2;
+  const uint32_t vo = ((lane & 15) * VS + half * (DV / 2) + (lane >> 4) * 8) * 2;
+
+  int t = next_tile(0), buf = 0;
+  if (t < n_kb) load_kv(t, 0);
+  cp_async_commit();  // Q and the first tile
+  while (t < n_kb) {
+    const int tn = next_tile(t + 1);
+    if (tn < n_kb) load_kv(tn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q) have landed
+    __syncthreads();
+
+    // S = Q K^T: the group's 16 rows x this half's 16 keys, the depth's
+    // even and odd 16-column steps in two accumulators (four independent
+    // mma chains a warp)
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float s2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const uint32_t kb = k_s + buf * L::K_BYTES + ko;
+#pragma unroll 2
+    for (int ks = 0; ks < DK / 16; ks += 2) {
+      uint32_t a[4], bb[4], a2[4], bb2[4];
+      ldsm_x4(a, qa + ks * 32);
+      ldsm_x4(bb, kb + ks * 32);
+      ldsm_x4(a2, qa + ks * 32 + 32);
+      ldsm_x4(bb2, kb + ks * 32 + 32);
+      mma_bf16(s[0], a, bb[0], bb[1]);
+      mma_bf16(s[1], a, bb[2], bb[3]);
+      mma_bf16(s2[0], a2, bb2[0], bb2[1]);
+      mma_bf16(s2[1], a2, bb2[2], bb2[3]);
+    }
+    // scale and mask; row maxima over the quad, then over the pair
+    const int* kpt = kp_s + buf * BK;
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 16 * half + nt * 8 + 2 * tq + e;
+        const int kp = t * BK + c < Sk ? kpt[c] : -1;
+        s[nt][e] = visible(qp0, kp, causal, window)
+                       ? (s[nt][e] + s2[nt][e]) * sl : NEG_INF;
+        s[nt][2 + e] = visible(qp1, kp, causal, window)
+                           ? (s[nt][2 + e] + s2[nt][2 + e]) * sl : NEG_INF;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    if (tq == 0) {
+      mx_s[warp * 16 + gr] = mx0;
+      mx_s[warp * 16 + gr + 8] = mx1;
+    }
+    pair_sync(g);
+    mx0 = fmaxf(mx0, mx_s[(warp ^ 1) * 16 + gr]);
+    mx1 = fmaxf(mx1, mx_s[(warp ^ 1) * 16 + gr + 8]);
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
+    const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
+    const float c0 = m0 <= NEG_INF ? 0.f : ex2(m0 - ms0);
+    const float c1 = m1 <= NEG_INF ? 0.f : ex2(m1 - ms1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = s[nt][e] <= NEG_INF ? 0.f : ex2(s[nt][e] - ms0);
+        s[nt][2 + e] = s[nt][2 + e] <= NEG_INF ? 0.f : ex2(s[nt][2 + e] - ms1);
+        sum0 += s[nt][e];
+        sum1 += s[nt][2 + e];
+      }
+    }
+    l0 = l0 * c0 + sum0;  // this thread's share of l
+    l1 = l1 * c1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+    // P in bf16 as mma's A fragment of this half's 16 keys; the pair swaps
+    const uint4 mine = make_uint4(pack_bf16(s[0][0], s[0][1]),
+                                  pack_bf16(s[0][2], s[0][3]),
+                                  pack_bf16(s[1][0], s[1][1]),
+                                  pack_bf16(s[1][2], s[1][3]));
+    pf_s[warp * 32 + lane] = mine;
+    pair_sync(g);
+    const uint4 other = pf_s[(warp ^ 1) * 32 + lane];
+    const uint4 p0 = half ? other : mine, p1 = half ? mine : other;
+    const uint32_t pa[2][4] = {{p0.x, p0.y, p0.z, p0.w},
+                               {p1.x, p1.y, p1.z, p1.w}};
+    // O = O * corr + P V over this half's columns
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      o[nt][0] *= c0;
+      o[nt][1] *= c0;
+      o[nt][2] *= c1;
+      o[nt][3] *= c1;
+    }
+    const uint32_t vb = v_s + buf * L::V_BYTES + vo;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vb + (kk * 16 * VS + np * 16) * 2);
+        mma_bf16(o[2 * np], pa[kk], bb[0], bb[1]);
+        mma_bf16(o[2 * np + 1], pa[kk], bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // buffer `buf` and the exchange slots are read out
+    buf ^= 1;
+    t = tn;
+  }
+  cp_async_wait<0>();
+
+  // l: the quad's shares, then the pair's
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (tq == 0) {
+    mx_s[warp * 16 + gr] = l0;
+    mx_s[warp * 16 + gr + 8] = l1;
+  }
+  pair_sync(g);
+  l0 = fmaxf(l0 + mx_s[(warp ^ 1) * 16 + gr], 1e-30f);
+  l1 = fmaxf(l1 + mx_s[(warp ^ 1) * 16 + gr + 8], 1e-30f);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = half * (DV / 2) + nt * 8 + 2 * tq;
+    if (orow0 >= 0)
+      *reinterpret_cast<uint32_t*>(out + orow0 * DV + c) =
+          pack_bf16(o[nt][0] / l0, o[nt][1] / l0);
+    if (orow1 >= 0)
+      *reinterpret_cast<uint32_t*>(out + orow1 * DV + c) =
+          pack_bf16(o[nt][2] / l1, o[nt][3] / l1);
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, found through the runtime, so
 // the library needs no -lcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -1186,6 +1558,28 @@ cudaError_t launch_mma_sync(const void* q, const void* k, const void* v,
 }
 
 template <int DK, int DV>
+cudaError_t launch_mla(const void* q, const void* k, const void* v,
+                       const int* qpos, const int* kpos, void* out, int B,
+                       int Sq, int Sk, int H, int Hkv, float scale,
+                       int causal, int window, cudaStream_t stream) {
+  using L = MlaLayout<DK, DV>;
+  const long long rows = (long long)Sq * (H / Hkv);
+  if (rows > 0x7fffffffLL - L::BQ) return cudaErrorInvalidValue;
+  const long long blocks = (rows + L::BQ - 1) / L::BQ;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_mla_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(blocks), Hkv, B);
+  fa_mla_kernel<DK, DV><<<grid, 256, L::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), qpos, kpos,
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int DK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int Sq, int Sk, int H, int Hkv, float scale,
@@ -1203,17 +1597,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-enum Variant { V_NONE = -1, V_WGMMA = 0, V_MMA_SYNC = 1, V_F32 = 2 };
+enum Variant {
+  V_NONE = -1, V_WGMMA = 0, V_MMA_SYNC = 1, V_F32 = 2, V_MLA = 3
+};
 
 // The fixed rule (flash_attention.py's docstring states it): bf16 at
-// (64, 64) and (128, 128) -> the wgmma kernel; bf16 at (32, 16) and
-// (32, 32) -> the mma.sync kernel; float32 at any compiled head size ->
-// the CUDA-core kernel.
+// (64, 64) and (128, 128) -> the wgmma kernel; bf16 at (32, 16), (32, 32),
+// (80, 64) and (80, 80) -> the mma.sync kernel; bf16 at (576, 512) -> the
+// MLA kernel; float32 at any compiled head size -> the CUDA-core kernel.
 int variant_of(int bf16, int dk, int dv) {
   const bool wide = (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
-  const bool narrow = dk == 32 && (dv == 16 || dv == 32);
-  if (bf16) return wide ? V_WGMMA : narrow ? V_MMA_SYNC : V_NONE;
-  return wide || narrow ? V_F32 : V_NONE;
+  const bool narrow = (dk == 32 && (dv == 16 || dv == 32)) ||
+                      (dk == 80 && (dv == 64 || dv == 80));
+  const bool mla = dk == 576 && dv == 512;
+  if (bf16)
+    return wide ? V_WGMMA : narrow ? V_MMA_SYNC : mla ? V_MLA : V_NONE;
+  return wide || narrow || mla ? V_F32 : V_NONE;
 }
 
 }  // namespace
@@ -1234,11 +1633,19 @@ int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
     case V_WGMMA:
       return dk == 64 ? launch_wgmma<64>(FA_ARGS) : launch_wgmma<128>(FA_ARGS);
     case V_MMA_SYNC:
+      if (dk == 80)
+        return dv == 64 ? launch_mma_sync<80, 64>(FA_ARGS)
+                        : launch_mma_sync<80, 80>(FA_ARGS);
       return dv == 16 ? launch_mma_sync<32, 16>(FA_ARGS)
                       : launch_mma_sync<32, 32>(FA_ARGS);
+    case V_MLA:
+      return launch_mla<576, 512>(FA_ARGS);
     case V_F32:
       if (dk == 32) return dv == 16 ? launch_f32<32, 16>(FA_ARGS)
                                     : launch_f32<32, 32>(FA_ARGS);
+      if (dk == 80) return dv == 64 ? launch_f32<80, 64>(FA_ARGS)
+                                    : launch_f32<80, 80>(FA_ARGS);
+      if (dk == 576) return launch_f32<576, 512>(FA_ARGS);
       return dk == 64 ? launch_f32<64, 64>(FA_ARGS)
                       : launch_f32<128, 128>(FA_ARGS);
     default:

@@ -4,7 +4,7 @@
 They replace the Pallas kernel of ``repro/kernels/flash_attention.py``:
 GQA attention with an online softmax, positional masks (causal, sliding
 window, ``kv_pos < 0``), KV tiles with no visible key skipped, and
-``Dk != Dv``.  ``fa_forward`` picks one of three kernels by a fixed rule
+``Dk != Dv``.  ``fa_forward`` picks one of four kernels by a fixed rule
 from the dtype and the head sizes ``(Dk, Dv)``; the name of the one that
 ran is :data:`last_variant` after each call, and :func:`variant` gives it
 beforehand:
@@ -14,8 +14,14 @@ beforehand:
   warpgroup, ``wgmma`` products for two consumer warpgroups, float32
   accumulate; tensor maps built per call through
   ``cudaGetDriverEntryPoint``;
-- ``"mma_sync"``: bf16 at ``(32, 16)`` and ``(32, 32)``: ``mma.sync``
-  products, float32 accumulate;
+- ``"mma_sync"``: bf16 at ``(32, 16)``, ``(32, 32)``, ``(80, 64)`` (the
+  MLA smoke config's latent heads) and ``(80, 80)`` (stablelm-3b):
+  ``mma.sync`` products, float32 accumulate;
+- ``"mla_mma_sync"``: bf16 at ``(576, 512)``, MLA's latent heads
+  (deepseek-v2-lite: 512 latent + 64 rope columns of the key, the latent
+  as the value, one KV head): ``mma.sync`` over 64 (query, head) rows of a
+  KV head a CTA, the value columns split across warp pairs, Q resident in
+  shared memory, ``cp.async`` double-buffered K/V tiles;
 - ``"f32_cuda_cores"``: float32 at every head size of :data:`HEAD_DIMS`,
   in full float32 on the CUDA cores.
 
@@ -40,11 +46,12 @@ import torch
 
 from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 
-HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (128, 128))
+HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (80, 64), (80, 80), (128, 128),
+             (576, 512))
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
-VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores")
+VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores", "mla_mma_sync")
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,

@@ -181,6 +181,13 @@ def vap_suffix_norms_fault(uring, uclock, c, fault: str, seam: int):
 NEG_INF = torch.finfo(torch.float32).min / 2
 
 
+def acc_dtype(dtype):
+    """The type values of ``dtype`` accumulate, norm and softmax in:
+    float32, or float64 for float64 (a plain run one precision above
+    float32, which the card-against-CPU checks take as the exact step)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _block_mask(q_pos, kv_pos, causal, window):
     """[B,Sq,Sk] visibility of kv positions (pad slots have kv_pos < 0)."""
     valid = (kv_pos >= 0)[:, None, :]
@@ -247,7 +254,8 @@ def attention_dense(q, k, v, *, scale, q_pos, kv_pos, causal=True,
     Hkv = k.shape[2]
     rep = H // Hkv
     qg = q.reshape(B, Sq, Hkv, rep, Dk)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float()) * scale
+    ft = acc_dtype(q.dtype)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(ft), k.to(ft)) * scale
     mask = _block_mask(q_pos, kv_pos, causal, window)       # [B,Sq,Sk]
     s = torch.where(mask[:, None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
@@ -285,17 +293,16 @@ def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
     Dv = v.shape[-1]
     rep = H // Hkv
     C = min(kv_chunk, Sk)
-    qg = q.reshape(B, Sq, Hkv, rep, Dk).float()
-    m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, rep, Sq, Dv), dtype=torch.float32,
-                      device=q.device)
+    ft = acc_dtype(q.dtype)
+    qg = q.reshape(B, Sq, Hkv, rep, Dk).to(ft)
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=ft, device=q.device)
+    l = torch.zeros((B, Hkv, rep, Sq), dtype=ft, device=q.device)
+    acc = torch.zeros((B, Hkv, rep, Sq, Dv), dtype=ft, device=q.device)
     # the last chunk may be short: the JAX reference pads it with masked
     # keys (kv_pos = -1), which add nothing
     for c0 in range(0, Sk, C):
         kb, vb = k[:, c0:c0 + C], v[:, c0:c0 + C]
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()) * scale
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.to(ft)) * scale
         mask = _block_mask(q_pos, kv_pos[:, c0:c0 + C], causal,
                            window)[:, None, None]           # [B,1,1,Sq,C]
         s = torch.where(mask, s, NEG_INF)
@@ -305,7 +312,7 @@ def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
         corr = torch.exp(torch.where(m <= NEG_INF, NEG_INF, m - m_safe))
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), vb.float())
+            "bgrqk,bkgd->bgrqd", p.to(v.dtype).to(ft), vb.to(ft))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
@@ -384,16 +391,17 @@ def _ssd_parts(x, dt, A, B, C, chunk):
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", w, xc)
 
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)       # [b,nc,l,h]
+    ft = xc.dtype
     state_c = torch.einsum("bclhn,bclhp->bchpn",
-                           Bh.float() * decay_to_end[..., None], xc)
+                           Bh.to(ft) * decay_to_end[..., None], xc)
     chunk_decay = torch.exp(cum[:, :, -1, :])               # [b,nc,h]
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, p, n), dtype=ft, device=x.device)
     prev = []
     for c in range(nc):
         prev.append(state)
         state = state * chunk_decay[:, c, :, None, None] + state_c[:, c]
     prev_states = torch.stack(prev, dim=1)                  # [b,nc,h,p,n]
-    return y_intra, Ch.float() * torch.exp(cum)[..., None], prev_states, state
+    return y_intra, Ch.to(ft) * torch.exp(cum)[..., None], prev_states, state
 
 
 def _ssd_output(x, y_intra, c_decayed, prev_states):
@@ -412,8 +420,9 @@ def ssd_recurrent(x, dt, A, B, C, state):
     g = B.shape[1]
     h = x.shape[1]
     rep = h // g
-    Bh = torch.repeat_interleave(B, rep, dim=1).float()     # [b,h,n]
-    Ch = torch.repeat_interleave(C, rep, dim=1).float()
+    ft = acc_dtype(x.dtype)
+    Bh = torch.repeat_interleave(B, rep, dim=1).to(ft)      # [b,h,n]
+    Ch = torch.repeat_interleave(C, rep, dim=1).to(ft)
     decay = torch.exp(dt * A[None, :])[..., None, None]     # [b,h,1,1]
     upd = (dt[..., None] * x)[..., None] * Bh[:, :, None, :]
     state = state * decay + upd

@@ -1,6 +1,7 @@
 """Serving launcher: batched prefill + greedy decode on synthetic prompts.
 
 ``python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 --new 32``
+``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full``
 
 The JAX package's ``launch/serve.py`` on one card: random weights from
 ``--seed`` and prompts from ``data.synthetic.token_batch``.  It runs on

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import acc_dtype
 from .params import spec
 
 
@@ -20,31 +21,31 @@ def rmsnorm_spec(d, dtype=torch.float32):
 
 def rmsnorm(p, x, eps=1e-5):
     dt = x.dtype
-    xf = x.float()
+    xf = x.to(acc_dtype(dt))
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(dt)
+    return (y * p["scale"].to(xf.dtype)).to(dt)
 
 
 def head_rmsnorm(scale, x, eps=1e-5):
     """qwen3-style per-head q/k norm: x [..., H, Dh], scale [Dh]."""
     dt = x.dtype
-    xf = x.float()
+    xf = x.to(acc_dtype(dt))
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+    return (xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)).to(dt)
 
 
 def rope(x, positions, theta=10000.0):
     """Apply rotary embedding. x: [..., S, H, Dh], positions: [..., S]."""
     dh = x.shape[-1]
     half = dh // 2
-    expo = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    ft = acc_dtype(x.dtype)
+    expo = torch.arange(0, half, dtype=ft, device=x.device)
     # a tensor divisor: CUDA divides by a Python scalar as a multiply by
     # its reciprocal, which rounds otherwise than JAX's division
-    freq = torch.pow(float(theta), -expo / torch.full((), half,
-                                                      dtype=torch.float32,
+    freq = torch.pow(float(theta), -expo / torch.full((), half, dtype=ft,
                                                       device=x.device))
-    ang = positions[..., :, None].float() * freq             # [..., S, half]
+    ang = positions[..., :, None].to(ft) * freq             # [..., S, half]
     cos = torch.cos(ang)[..., :, None, :]                    # [..., S, 1, half]
     sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from ..configs.base import MambaConfig
 from ..kernels import ops
+from ..kernels.ref import acc_dtype
 from .params import spec
 
 
@@ -51,9 +52,9 @@ def _split(cfg: MambaConfig, d_model: int, zxbcdt):
 def _gated_norm(p, y, z, eps=1e-5):
     """Mamba-2's RMSNorm(y * silu(z)) with learned scale."""
     h = y * F.silu(z)
-    hf = h.float()
+    hf = h.to(acc_dtype(h.dtype))
     var = torch.mean(torch.square(hf), dim=-1, keepdim=True)
-    out = hf * torch.rsqrt(var + eps) * p["norm_scale"].float()
+    out = hf * torch.rsqrt(var + eps) * p["norm_scale"].to(hf.dtype)
     return out.to(y.dtype)
 
 
@@ -83,7 +84,7 @@ def conv_ssd(p, cfg: MambaConfig, d_model: int, x):
     xh = xin.reshape(B, S, H, cfg.headdim)
     Bm = Braw.reshape(B, S, G, n)
     Cm = Craw.reshape(B, S, G, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])               # [B,S,H]
+    dt = F.softplus(dt.to(acc_dtype(cdt)) + p["dt_bias"])    # [B,S,H]
     A = -torch.exp(p["a_log"])                               # [H], negative
 
     y, state = ops.ssd(xh.contiguous(), dt.contiguous(), A, Bm.contiguous(),
@@ -131,7 +132,7 @@ def mamba_decode(p, cfg: MambaConfig, d_model: int, x, cache):
     xh = xin.reshape(B, H, cfg.headdim)
     Bm = Braw.reshape(B, G, n)
     Cm = Craw.reshape(B, G, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])               # [B,H]
+    dt = F.softplus(dt.to(acc_dtype(cdt)) + p["dt_bias"])    # [B,H]
     A = -torch.exp(p["a_log"])
 
     y, ssm = ops.ssd_decode(xh, dt, A, Bm, Cm, cache["ssm"])

@@ -55,13 +55,17 @@ def _init_one(ps: ParamSpec, key) -> torch.Tensor:
         return torch.zeros(ps.shape, dtype=ps.dtype, device=dev)
     if ps.init == "ones":
         return torch.ones(ps.shape, dtype=ps.dtype, device=dev)
+    # each leaf drawn in float32, scaled and rounded to its dtype a chunk
+    # at a time straight into the output (qwen3-moe's wi_gate, 9.66 B
+    # values, would stand at 38.7 GB as one float32 draw)
     if ps.init == "embed":
         std = ps.scale if ps.scale is not None else 1.0
-        return (std * trng.normal(key, ps.shape)).to(ps.dtype)
+        return trng.normal(key, ps.shape, scale=std, dtype=ps.dtype)
     # normal / scaled: truncated-normal, fan-in scaled
     std = (ps.scale if ps.scale is not None
            else 1.0 / math.sqrt(max(1, _fan_in(ps.shape))))
-    return (std * trng.truncated_normal(key, -2.0, 2.0, ps.shape)).to(ps.dtype)
+    return trng.truncated_normal(key, -2.0, 2.0, ps.shape, scale=std,
+                                 dtype=ps.dtype)
 
 
 def map_specs(fn: Callable[[str, ParamSpec], Any], tree, prefix=""):

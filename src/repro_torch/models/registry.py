@@ -1,5 +1,5 @@
-"""Top-level model API: specs, forward, prefill and decode for the dense
-and ssm families.
+"""Top-level model API: specs, forward, prefill and decode for the dense,
+moe and ssm families.
 
 `build_model(cfg, seed, device)` returns a `Model`, an ``nn.Module`` whose
 parameters keep the JAX parameter tree's paths with ``.`` for ``/`` and
@@ -18,13 +18,12 @@ from torch import nn
 from .. import rng
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import attention as attn_mod
 from . import mamba2
 from . import transformer as tf
 from .layers import embed, embed_spec, rmsnorm, rmsnorm_spec, unembed
 from .params import init_params, param_count, spec
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def model_specs(cfg: ModelConfig):
@@ -65,7 +64,8 @@ def _tree(m: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A served model of the dense or ssm family (see module docstring)."""
+    """A served model of the dense, moe or ssm family (see module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -104,18 +104,19 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, tokens):
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
-        auxiliary loss (0.0 for these families)."""
+        auxiliary loss: the MoE layers' load-balance losses summed (a
+        float32 scalar), 0.0 for the dense and ssm families."""
         cfg, p = self.cfg, self.params
         B, S = tokens.shape
         x = embed(p["embed"], tokens, cfg.cdtype)
         if cfg.family == "ssm":
-            x = tf._scan_blocks(lambda pl, x: tf.mamba_block_fwd(pl, cfg, x),
-                                p["blocks"], x)
+            x, aux = tf._scan_blocks(
+                lambda pl, x: tf.mamba_block_fwd(pl, cfg, x), p["blocks"], x)
         else:
             pos = self._positions(B, S)
-            x = tf._scan_blocks(lambda pl, x: tf.block_fwd(pl, cfg, x, pos),
-                                p["blocks"], x)
-        return self._logits(p, x), 0.0
+            x, aux = tf._scan_blocks(
+                lambda pl, x: tf.block_fwd(pl, cfg, x, pos), p["blocks"], x)
+        return self._logits(p, x), aux
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
         """Zeroed caches with a leading layers axis, in ``dtype`` (the
@@ -126,8 +127,7 @@ class Model(nn.Module):
             one = mamba2.mamba_init_cache(cfg.mamba, cfg.d_model, batch, dt,
                                           "meta")
         else:
-            one = attn_mod.gqa_init_cache(cfg.attn, cfg.d_model, batch,
-                                          max_len, dt, "meta")
+            one = tf._attn_cache(cfg, batch, max_len, dt, "meta")
         return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
                                dtype=v.dtype, device=self.device)
                 for k, v in one.items()}

@@ -1,11 +1,12 @@
-"""Decoder stacks of the ported families (dense and ssm), built from
-stacked ParamSpec trees and run layer after layer.
+"""Decoder stacks of the ported families (dense, moe and ssm), built
+from stacked ParamSpec trees and run layer after layer.
 
 The JAX package's ``models/transformer.py``: its ``lax.scan`` over the
 stacked ``layers`` axis is a plain loop here (`_scan_blocks`,
-`_scan_blocks_cache`), and ``remat`` has no counterpart in serving.  The
-MoE FFN, the hybrid (Jamba) groups and the VLM groups raise
-``NotImplementedError`` (ROADMAP queue 1, item 16).
+`_scan_blocks_cache`), and ``remat`` has no counterpart in serving.  A
+block's attention is GQA or MLA and its FFN the dense MLP or the MoE
+layer (``_attn_*``, ``_ffn_*``).  The hybrid (Jamba) groups and the VLM
+groups raise ``NotImplementedError`` (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -14,11 +15,12 @@ import dataclasses
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import mamba2
+from . import moe as moe_mod
 from .layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from .params import map_specs
 
-NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 16: the MoE "
-              "FFN, MLA, hybrid, VLM and audio families)")
+NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 16: the "
+              "hybrid, VLM and audio families)")
 
 
 def stack_specs(n: int, tree):
@@ -41,10 +43,13 @@ def n_layers(tree) -> int:
 
 
 def _scan_blocks(block_fn, stacked_params, x):
-    """Run x through stacked blocks; block_fn(p_layer, x) -> x."""
+    """Run x through stacked blocks; block_fn(p_layer, x) -> (x, aux).
+    Returns x and the blocks' aux losses summed."""
+    aux = 0.0
     for i in range(n_layers(stacked_params)):
-        x = block_fn(layer(stacked_params, i), x)
-    return x
+        x, a = block_fn(layer(stacked_params, i), x)
+        aux = aux + a
+    return x, aux
 
 
 def _scan_blocks_cache(block_fn, stacked_params, caches, x):
@@ -62,43 +67,91 @@ def _scan_blocks_cache(block_fn, stacked_params, caches, x):
     return x, caches
 
 
-def _check_attn(cfg: ModelConfig):
-    if cfg.attn.mla is not None:
-        raise NotImplementedError(NOT_PORTED.format("MLA"))
+# ---- attention and FFN dispatch -----------------------------------------------
+def _attn_spec(cfg: ModelConfig, dtype):
+    a = cfg.attn
+    if a.mla is not None:
+        return attn_mod.mla_spec(a, cfg.d_model, dtype)
+    return attn_mod.gqa_spec(a, cfg.d_model, dtype)
 
 
-# ---- standard transformer block (dense ffn) --------------------------------
-def block_spec(cfg: ModelConfig, dtype):
+def _attn_fwd(p, cfg: ModelConfig, x, positions):
+    a = cfg.attn
+    if a.mla is not None:
+        return attn_mod.mla_forward(p, a, x, positions)
+    return attn_mod.gqa_forward(p, a, x, positions)
+
+
+def _attn_decode(p, cfg: ModelConfig, x, cache):
+    a = cfg.attn
+    if a.mla is not None:
+        return attn_mod.mla_decode(p, a, x, cache)
+    return attn_mod.gqa_decode(p, a, x, cache)
+
+
+def _attn_cache(cfg: ModelConfig, batch, max_len, dtype, device):
+    a = cfg.attn
+    if a.mla is not None:
+        return attn_mod.mla_init_cache(a, batch, max_len, dtype, device)
+    return attn_mod.gqa_init_cache(a, cfg.d_model, batch, max_len, dtype,
+                                   device)
+
+
+def _attn_prefill(p, cfg: ModelConfig, x, positions, cache):
+    """The attention's output and the cache filled in place: JAX's
+    ``_attn_prefill`` and ``_attn_fwd`` with one projection."""
+    a = cfg.attn
+    if a.mla is not None:
+        return attn_mod.mla_prefill(p, a, x, positions, cache)
+    return attn_mod.gqa_prefill(p, a, x, positions, cache)
+
+
+def _ffn_spec(cfg: ModelConfig, dtype):
     if cfg.moe is not None:
-        raise NotImplementedError(NOT_PORTED.format("the MoE FFN"))
-    _check_attn(cfg)
+        return moe_mod.moe_spec(cfg.moe, cfg.d_model, dtype)
+    return mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype)
+
+
+def _ffn_fwd(p, cfg: ModelConfig, x):
+    """``(y, aux)``: the MoE layer's aux loss, 0.0 for the dense MLP."""
+    if cfg.moe is not None:
+        return moe_mod.moe_forward(p, cfg.moe, x)
+    return mlp(p, x), 0.0
+
+
+# ---- standard transformer block (dense or MoE ffn) -----------------------
+def block_spec(cfg: ModelConfig, dtype):
     return {
         "ln1": rmsnorm_spec(cfg.d_model, dtype),
-        "attn": attn_mod.gqa_spec(cfg.attn, cfg.d_model, dtype),
+        "attn": _attn_spec(cfg, dtype),
         "ln2": rmsnorm_spec(cfg.d_model, dtype),
-        "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype),
+        "ffn": _ffn_spec(cfg, dtype),
     }
 
 
 def block_fwd(p, cfg: ModelConfig, x, positions):
-    x = x + attn_mod.gqa_forward(p["attn"], cfg.attn,
-                                 rmsnorm(p["ln1"], x, cfg.norm_eps), positions)
-    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    """One block on the full sequence: ``(x, aux)``."""
+    x = x + _attn_fwd(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                      positions)
+    h, aux = _ffn_fwd(p["ffn"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h, aux
 
 
 def block_decode(p, cfg: ModelConfig, x, cache):
-    h, cache = attn_mod.gqa_decode(p["attn"], cfg.attn,
-                                   rmsnorm(p["ln1"], x, cfg.norm_eps), cache)
+    h, cache = _attn_decode(p["attn"], cfg,
+                            rmsnorm(p["ln1"], x, cfg.norm_eps), cache)
     x = x + h
-    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps)), cache
+    h, _ = _ffn_fwd(p["ffn"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h, cache
 
 
 def block_prefill(p, cfg: ModelConfig, x, positions, cache):
-    h, cache = attn_mod.gqa_prefill(p["attn"], cfg.attn,
-                                    rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                    positions, cache)
+    h, cache = _attn_prefill(p["attn"], cfg,
+                             rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
+                             cache)
     x = x + h
-    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps)), cache
+    h, _ = _ffn_fwd(p["ffn"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h, cache
 
 
 # ---- mamba block -------------------------------------------------------------
@@ -111,7 +164,7 @@ def mamba_block_spec(cfg: ModelConfig, dtype):
 
 def mamba_block_fwd(p, cfg: ModelConfig, x):
     return x + mamba2.mamba_forward(p["mixer"], cfg.mamba, cfg.d_model,
-                                    rmsnorm(p["ln"], x, cfg.norm_eps))
+                                    rmsnorm(p["ln"], x, cfg.norm_eps)), 0.0
 
 
 def mamba_block_decode(p, cfg: ModelConfig, x, cache):

@@ -289,24 +289,39 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
-def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+def _scaled(draw, scale, dtype):
+    """``(scale * draw).astype(dtype)`` of one float32 chunk: the float32
+    product, then one rounding, element by element, so a chunk written
+    into a ``dtype`` output equals the cast of the whole float32 draw."""
+    if scale is not None:
+        draw = scale * draw
+    return draw.to(dtype)
+
+
+def normal(key: torch.Tensor, shape=(), scale=None,
+           dtype=torch.float32) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)``, with
-    ``u`` uniform on (-1, 1)."""
+    ``u`` uniform on (-1, 1); with ``scale`` and ``dtype``, ``(scale *
+    draw).astype(dtype)`` made a chunk at a time (no float32 copy of the
+    whole draw)."""
     sqrt2 = float(np.float32(np.sqrt(2)))
 
     def chunk(cnt):
         u = _uniform_chunk(key, cnt, _NORMAL_LO, 1.0)
-        return _scalar(sqrt2, key.device) * erfinv(u)
-    return _draw(key, shape, chunk, torch.float32)
+        return _scaled(_scalar(sqrt2, key.device) * erfinv(u), scale, dtype)
+    return _draw(key, shape, chunk, dtype)
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
-                     shape=()) -> torch.Tensor:
+                     shape=(), scale=None,
+                     dtype=torch.float32) -> torch.Tensor:
     """``jax.random.truncated_normal`` in float32: ``sqrt(2)·erfinv(u)``
     with ``u`` uniform on ``[erf(lower/√2), erf(upper/√2))``, clamped to
     the open interval.  The bounds' ``erf`` is taken on the host in
     float64 and rounded to float32 (XLA's float32 ``erf`` may differ by an
-    ulp), so draws agree with JAX's to a few ulp, not bit for bit."""
+    ulp), so draws agree with JAX's to a few ulp, not bit for bit.  With
+    ``scale`` and ``dtype``: ``(scale * draw).astype(dtype)``, a chunk at
+    a time, as `normal`."""
     sqrt2 = float(np.float32(np.sqrt(2)))
     a = float(np.float32(math.erf(float(np.float32(lower)) / sqrt2)))
     b = float(np.float32(math.erf(float(np.float32(upper)) / sqrt2)))
@@ -316,8 +331,8 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     def chunk(cnt):
         u = _uniform_chunk(key, cnt, a, b)
         out = _scalar(sqrt2, key.device) * erfinv(u)
-        return torch.clamp(out, lo, hi)
-    return _draw(key, shape, chunk, torch.float32)
+        return _scaled(torch.clamp(out, lo, hi), scale, dtype)
+    return _draw(key, shape, chunk, dtype)
 
 
 def _gumbel_chunk(key, counts, dtype=torch.float32):

@@ -544,6 +544,27 @@ FA_CASES = {
                               "bf16", "arange"),
     "bf16_d128_ragged333": (1, 333, 333, 4, 2, 128, 128, True, None, "bf16",
                             "arange"),
+    # MLA's latent heads (576, 512) at one KV head (the MLA kernel's rows
+    # are (query, head) pairs: 16 heads, and 4 heads a KV head at Hkv = 2),
+    # and the head size 80 of the MLA smoke config (80, 64) and stablelm-3b
+    "bf16_mla": (2, 200, 200, 16, 1, 576, 512, True, None, "bf16", "arange"),
+    "bf16_mla_ragged333": (1, 333, 333, 16, 1, 576, 512, True, None, "bf16",
+                           "arange"),
+    "bf16_mla_window50": (1, 300, 300, 16, 1, 576, 512, True, 50, "bf16",
+                          "arange"),
+    "bf16_mla_holes": (2, 150, 150, 16, 1, 576, 512, True, None, "bf16",
+                       "holes"),
+    "bf16_mla_late_keys": (1, 100, 100, 16, 1, 576, 512, True, None,
+                           "bf16", "late_keys"),
+    "bf16_mla_noncausal": (1, 70, 230, 16, 1, 576, 512, False, None, "bf16",
+                           "arange"),
+    "bf16_mla_rep4": (1, 130, 130, 8, 2, 576, 512, True, None, "bf16",
+                      "shuffled"),
+    "f32_mla": (1, 100, 130, 4, 1, 576, 512, True, None, "f32", "arange"),
+    "bf16_d80_64": (2, 100, 100, 4, 4, 80, 64, True, None, "bf16", "arange"),
+    "f32_d80_64": (2, 100, 100, 4, 4, 80, 64, True, None, "f32", "arange"),
+    "bf16_d80_80": (2, 150, 150, 8, 8, 80, 80, True, 64, "bf16", "holes"),
+    "f32_d80_80": (1, 90, 120, 4, 2, 80, 80, False, None, "f32", "arange"),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -646,13 +667,15 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
     if kind == "late_keys":             # rows that see no key return 0
         assert not got[:, :5].any()
     want_variant = ("f32_cuda_cores" if dt == "f32" else "wgmma_tma"
-                    if (Dk, Dv) in ((64, 64), (128, 128)) else "mma_sync")
+                    if (Dk, Dv) in ((64, 64), (128, 128)) else "mla_mma_sync"
+                    if (Dk, Dv) == (576, 512) else "mma_sync")
     assert fa.last_variant == want_variant
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16_d128_window100", "bf16_d128_holes",
-                                  "f32", "bf16_window_dv16"])
+                                  "f32", "bf16_window_dv16",
+                                  "bf16_mla_window50", "bf16_d80_80"])
 def test_cuda_flash_attention_is_deterministic(cuda, case):
     """Two calls on the same inputs give bit-equal outputs (no atomics,
     a fixed order of sums)."""
