@@ -312,12 +312,15 @@ ATTN_SHAPES = {
     # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
     "kernels_bench": (1, 512, 512, 8, 4, 64, 64, True, None, "f32",
                       "arange"),
-    # MLA's latent heads (Dk 576 = 512 + 64, Dv 512, one KV head):
-    # "mla_main" is deepseek-v2-lite's prefill (batch 8, 2048 tokens, 16
-    # heads, bf16), timed; then ragged Sq = Sk = 333, a window of 100
-    # cutting through the MLA kernel's 32-key tiles, masked keys, rows that
-    # see no key, non-causal Sq != Sk, float32; then the head size 80 of
-    # the MLA smoke config (80, 64) and of stablelm-3b (80, 80)
+    # MLA's latent heads (Dk 576 = 512 + 64, Dv 512, V the first 512
+    # columns of K, one KV head): "mla_main" is deepseek-v2-lite's prefill
+    # (batch 8, 2048 tokens, 16 heads, bf16), timed; then ragged Sq = Sk =
+    # 333, a window of 100 cutting through the MLA kernel's 64-key tiles,
+    # masked keys, rows that see no key, non-causal Sq != Sk, 4 heads a KV
+    # head at Hkv = 2 (Q and O by TMA in (64, 4, 16) boxes), 3 heads a KV
+    # head (64-row items that are no box of q: Q by cp.async, O by plain
+    # stores), float32; then the head size 80 of the MLA smoke config
+    # (80, 64) and of stablelm-3b (80, 80)
     "mla_main": (8, 2048, 2048, 16, 1, 576, 512, True, None, "bf16",
                  "arange"),
     "mla_ragged333": (1, 333, 333, 16, 1, 576, 512, True, None, "bf16",
@@ -330,6 +333,9 @@ ATTN_SHAPES = {
                       "late_keys"),
     "mla_noncausal": (2, 200, 300, 16, 1, 576, 512, False, None, "bf16",
                       "arange"),
+    "mla_rep4": (2, 300, 300, 8, 2, 576, 512, True, None, "bf16",
+                 "shuffled"),
+    "mla_rep3": (2, 250, 250, 6, 2, 576, 512, True, None, "bf16", "holes"),
     "mla_f32": (1, 200, 200, 16, 1, 576, 512, True, None, "f32", "arange"),
     "bf16_d80_64": (2, 300, 300, 16, 16, 80, 64, True, None, "bf16",
                     "arange"),
@@ -341,9 +347,9 @@ ATTN_SHAPES = {
                    "arange"),
 }
 # the timed cases and the kernel each runs
-ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_kernel"}
+ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_wgmma_kernel"}
 ATTN_TILE = 128     # the wgmma kernel's query block and KV tile
-MLA_TILE = 32       # the MLA kernel's KV tile
+MLA_TILE = 64       # the MLA kernel's KV tile
 MLA_ROWS = 64       # the MLA kernel's (query, head) rows a block
 # ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
@@ -1765,13 +1771,16 @@ def sharded_sweep_phase(device):
 
 def attn_inputs(shape, seed, device):
     """``(q, k, v, q_pos, kv_pos)`` on the card for one attention shape,
-    made from a seed; positions as `ATTN_SHAPES` names them."""
+    made from a seed; positions as `ATTN_SHAPES` names them.  At MLA's
+    (576, 512) ``v`` is ``k[..., :512]``, as the model passes it."""
     import torch
     B, Sq, Sk, H, Hkv, Dk, Dv, _, _, dt, kind = shape
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gd = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(s, generator=gd, device=device).to(dtype)
                for s in ((B, Sq, H, Dk), (B, Sk, Hkv, Dk), (B, Sk, Hkv, Dv)))
+    if (Dk, Dv) == (576, 512):
+        v = k[..., :Dv]
     qp = (torch.arange(Sq, dtype=torch.int32, device=device)
           + (Sk - Sq)).expand(B, Sq).contiguous()
     kp = torch.arange(Sk, dtype=torch.int32, device=device).expand(
@@ -1791,14 +1800,16 @@ def attention_bound(q, k, v, qp, kp, causal, window, rates):
     """Least time (ms) for attention on these inputs: the products of the
     visible (query, key) pairs, 2·(Dk + Dv) FLOP each per head, over the
     tensor-core (bf16) or float32 rate, against q, k, v, the positions and
-    the output read or written once over the memory rate."""
+    the output read or written once over the memory rate (v not again
+    where it is a view of k)."""
     import torch
     from repro_torch.kernels import ref
     bw, f32, bf16 = rates
     H, Dk, Dv = q.shape[2], q.shape[3], v.shape[3]
     pairs = int(ref._block_mask(qp, kp, causal, window).sum().item())
     ops = 2 * (Dk + Dv) * H * pairs
-    nbytes = (q.numel() + q.numel() // Dk * Dv + k.numel() + v.numel()) \
+    v_bytes = 0 if v.data_ptr() == k.data_ptr() else v.numel()
+    nbytes = (q.numel() + q.numel() // Dk * Dv + k.numel() + v_bytes) \
         * q.element_size() + 4 * (qp.numel() + kp.numel())
     t_b = nbytes / bw * 1e3
     t_o = ops / (bf16 if q.dtype == torch.bfloat16 else f32) * 1e3
@@ -1932,7 +1943,7 @@ def check_flash_attention(name, device, rates, timed: bool):
             library_backend=backend, bound_ms=bound, bound_by=by,
             visible_pairs=pairs)
         # the kernel's blocks: 128 queries (wgmma), or 64 (query, head)
-        # rows of one KV head (MLA: 64 / rep queries) over 32-key tiles
+        # rows of one KV head (MLA: 64 / rep queries) over 64-key tiles
         rep = q.shape[2] // k.shape[2]
         bq = max(1, MLA_ROWS // rep) if mla else ATTN_TILE
         cls = ref.attention_tile_classes(qp, kp, causal, window, bq, tile)
@@ -2479,7 +2490,7 @@ def lda_card_vs_cpu(device):
 
 
 SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
-                                     "fa_mla_kernel", "fa_f32_kernel"),
+                                     "fa_mla_wgmma_kernel", "fa_f32_kernel"),
                  "ssd": ("split::split_kernel", "5split12split_kernel",
                          "ssd_kernel")}
 
@@ -3011,7 +3022,7 @@ def main() -> int:
             ("flash_attention", attn_timed["main"], "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:93",
              ("qwen3-0.6b", "qwen3-moe-30b-a3b")),
-            ("flash_attention[mla_mma_sync]", attn_timed["mla_main"],
+            ("flash_attention[mla_wgmma]", attn_timed["mla_main"],
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
              ("deepseek-v2-lite-16b",)),
             ("ssd", ssd_main, "ssd_scan.cu",

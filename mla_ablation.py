@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Time the MLA attention kernel (``fa_mla_kernel``) against copies of
-itself with one part taken out, and against another checkout's, on one
+"""Time the MLA attention kernel (``fa_mla_wgmma_kernel``) against copies
+of itself with one part taken out, and against another checkout's, on one
 NVIDIA GPU.
 
     python3 mla_ablation.py [--parent DIR]
 
 Run from the root of a checkout.  Each ablation is a textual change to
-``src/repro_torch/kernels/csrc/flash_attention.cu``: the K/V tile loads
-taken out (``no_kv_loads``: wrong results, the time without moving K and
-V), the S = Q K^T products taken out (``no_qk``), the O += P V products
-taken out (``no_pv``), and both (``no_products``: the loads, the mask,
-the softmax and the barriers alone).  ``--parent DIR`` adds DIR's
-``flash_attention.cu`` (e.g. a ``git archive`` of the parent commit
-unpacked under ``build/``) as ``parent``.  Every copy is built with the
-port's ``nvcc`` flags into ``build/mla_ablation/`` and timed on the same
-inputs, in turns (all copies, then all in reverse, then all again), at
-deepseek-v2-lite's prefill shape (B 8, S 2048, H 16, Hkv 1, Dk 576,
-Dv 512, bf16), causal and non-causal.  One JSON line per (shape, copy)
-on standard output, also written to ``chiprun_out/mla_ablation.jsonl``;
-the last line is the card's ``nvidia-smi`` name and power limit.
+``src/repro_torch/kernels/csrc/flash_attention.cu``: the producer's TMA
+copies of the K tiles taken out (``no_kv_loads``: the ring still turns,
+Q still loads; wrong results, the time without the K stream), the S =
+Q K^T products taken out (``no_qk``: S = 0), the O += P V products taken
+out (``no_pv``), both (``no_products``: the K stream, the mask, the
+softmax and the barriers alone), and the named barrier a tile at which
+the second consumer waits for the first's P (``no_exchange``: wrong
+results).  ``--parent DIR`` adds DIR's ``flash_attention.cu`` (e.g. a
+``git archive`` of the parent commit unpacked under ``build/``) as
+``parent``; its kernel is called with V as a separate contiguous copy of
+K's first 512 columns, the copies of this one with V as that view of K
+(the same values).  Every copy is built with the port's ``nvcc`` flags
+into ``build/mla_ablation/`` and timed on the same inputs, in turns (all
+copies, then all in reverse, then all again), at deepseek-v2-lite's
+prefill shape (B 8, S 2048, H 16, Hkv 1, Dk 576, Dv 512, bf16), causal
+and non-causal.  Each line also gives the bytes of K tiles and Q the
+kernel copies from L2 or memory (64-key tiles some pair of a 64-row item
+sees, ``ref.attention_tile_classes``) and that stream's rate at the
+copy's time.  One JSON line per (shape, copy) on standard output, also
+written to ``chiprun_out/mla_ablation.jsonl``; the last line is the
+card's ``nvidia-smi`` name and power limit.  While the copies are timed,
+``nvidia-smi`` samples the SM clock and the power draw every 0.2 s; each
+line gives the range seen during that shape's timing (the card may sit
+at its power limit and clock down under this load).
 """
 from __future__ import annotations
 
@@ -28,27 +39,31 @@ import json
 import math
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
 OUT = ROOT / "chiprun_out" / "mla_ablation.jsonl"
 SHAPE = (8, 2048, 16, 1, 576, 512)    # B, S, H, Hkv, Dk, Dv
-QK = """      mma_bf16(s[0], a, bb[0], bb[1]);
-      mma_bf16(s[1], a, bb[2], bb[3]);
-      mma_bf16(s2[0], a2, bb2[0], bb2[1]);
-      mma_bf16(s2[1], a2, bb2[2], bb2[3]);"""
-PV = """        mma_bf16(o[2 * np], pa[kk], bb[0], bb[1]);
-        mma_bf16(o[2 * np + 1], pa[kk], bb[2], bb[3]);"""
-LOAD = "  auto load_kv = [&](int t, int buf) {"
+ROWS, TILE = 64, 64                   # the kernel's item rows and K tile
+LOAD = "const bool load_k = t < n_kb;  // the tile's TMA copies"
+QK = "        mla_qk(s, base, kst);\n"
+PV = "      mla_pv<NB>(o, pbox, kst + B0 * BOX);\n"
+P_READY = "mla_bar_arrive(MLA_BAR_P + st);"
+P_WAIT = "mla_bar_sync(MLA_BAR_P + st);"
+NO_S = "        for (int e = 0; e < 32; ++e) s[e] = 0.f;\n"
 
 ABLATIONS = {
     "as_built": [],
-    "no_kv_loads": [(LOAD, LOAD + "\n    if (t >= 0) return;")],
-    "no_qk": [(QK, "")],
+    "no_kv_loads": [(LOAD, "const bool load_k = false;")],
+    "no_qk": [(QK, NO_S)],
     "no_pv": [(PV, "")],
-    "no_products": [(QK, ""), (PV, "")],
+    "no_products": [(QK, NO_S), (PV, "")],
+    "no_exchange": [(P_READY, ""), (P_WAIT, "")],
 }
+# the kernel's entry function in this source and in the parent's
+ENTRIES = ("fa_mla_wgmma_kernel", "fa_mla_kernel")
 
 
 def build_all(parent: Path | None):
@@ -85,8 +100,10 @@ def build_all(parent: Path | None):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
         lines = log.splitlines()
-        at = [n for n, ln in enumerate(lines) if "fa_mla_kernel" in ln]
-        ptxas[name] = [ln.strip() for ln in lines[at[0]:at[0] + 3]] if at \
+        at = [n for n, ln in enumerate(lines)
+              if "Compiling entry function" in ln
+              and any(e in ln for e in ENTRIES)]
+        ptxas[name] = [ln.strip() for ln in lines[at[0]:at[0] + 4]] if at \
             else []
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
         lib.fa_forward.argtypes = [vp] * 6 + [i] * 8 + [ctypes.c_float, i, i,
@@ -94,6 +111,35 @@ def build_all(parent: Path | None):
         lib.fa_forward.restype = i
         libs[name] = lib
     return libs, ptxas
+
+
+class ClockSampler:
+    """``nvidia-smi``'s SM clock (MHz) and power draw (W), sampled every
+    0.2 s from a thread between ``start()`` and ``stop()``."""
+
+    def __init__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.2):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split(",")
+            self.samples.append((float(out[0]), float(out[1])))
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        mhz = [c for c, _ in self.samples]
+        watts = [w for _, w in self.samples]
+        return {"sm_mhz": [min(mhz), max(mhz)] if mhz else None,
+                "power_w": [min(watts), max(watts)] if watts else None,
+                "samples": len(self.samples)}
 
 
 def time_ms(torch, fn, reps=10, warmup=2) -> float:
@@ -125,37 +171,52 @@ def main() -> int:
     B, S, H, Hkv, Dk, Dv = SHAPE
     scale = 1.0 / math.sqrt(192)          # MLA's 128 + 64 query dims
     gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
-               for s in ((B, S, H, Dk), (B, S, Hkv, Dk), (B, S, Hkv, Dv)))
+    q, k = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+            for s in ((B, S, H, Dk), (B, S, Hkv, Dk)))
+    v = k[..., :Dv]                       # MLA's values: K's latent columns
+    v_sep = v.contiguous()                # the parent's separate V
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     pos = pos.contiguous()
     out = torch.empty((B, S, H, Dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     lines = []
     for causal in (True, False):
-        def call(lib, causal=causal):
-            err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 pos.data_ptr(), pos.data_ptr(),
-                                 out.data_ptr(), B, S, S, H, Hkv, Dk, Dv, 1,
-                                 scale, int(causal), -1, stream)
+        def call(name, causal=causal):
+            vp = v_sep.data_ptr() if name == "parent" else k.data_ptr()
+            err = libs[name].fa_forward(
+                q.data_ptr(), k.data_ptr(), vp, pos.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), B, S, S, H, Hkv, Dk, Dv, 1,
+                scale, int(causal), -1, stream)
             if err:
-                raise RuntimeError(f"fa_forward: cudaError {err}")
+                raise RuntimeError(f"fa_forward ({name}): cudaError {err}")
         want = ref.attention(q, k, v, scale=scale, q_pos=pos, kv_pos=pos,
                              causal=causal)
+        # the K tiles and Q the kernel copies: (batch, item) pairs' visible
+        # 64-key tiles of 576 bf16 columns, and each item's 64 rows of Q
+        cls = ref.attention_tile_classes(pos, pos, causal, None,
+                                         ROWS // (H // Hkv), TILE)
+        stream_bytes = (int((cls != ref.TILE_SKIP).sum()) * Hkv * TILE
+                        + B * S * H) * Dk * 2
         ms = {name: [] for name in libs}
+        clocks = ClockSampler()
+        clocks.start()
         for turn in range(3):
             names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
             for name in names:
-                ms[name].append(time_ms(torch, lambda n=name: call(libs[n])))
-        for name, lib in libs.items():
-            call(lib)
+                ms[name].append(time_ms(torch, lambda n=name: call(n)))
+        card = clocks.stop()
+        for name in libs:
+            call(name)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             lines.append(json.dumps({
                 "shape": dict(zip(("B", "S", "H", "Hkv", "Dk", "Dv"), SHAPE,
                                   strict=True)),
                 "causal": causal, "copy": name, "ms": ms[name],
-                "max_abs_err": err, "ptxas": ptxas[name]}))
+                "max_abs_err": err, "stream_gb": stream_bytes / 1e9,
+                "stream_tb_s": [stream_bytes / (t * 1e-3) / 1e12
+                                for t in ms[name]], "card": card,
+                "ptxas": ptxas[name]}))
             print(lines[-1], flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

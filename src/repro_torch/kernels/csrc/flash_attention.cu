@@ -14,7 +14,8 @@
 // against 201 MB of q/k/v/out, so the tensor cores bound it (0.139 ms on
 // an H100 SXM at 989 TFLOP/s), not memory (0.06 ms); at MLA's prefill
 // (deepseek-v2-lite: B 8, S 2048, H 16, Hkv 1, Dk 576, Dv 512, causal) the
-// 268.6 M visible pairs need 584 GFLOP (0.59 ms) against 606 MB (0.18 ms).
+// 268.6 M visible pairs need 584 GFLOP (0.59 ms) against 589 MB (0.18 ms;
+// V is K's first 512 columns).
 // Four kernels, one picked by a fixed rule from (dtype, Dk, Dv)
 // (`variant_of`):
 //
@@ -47,10 +48,11 @@
 // - bf16 at (32, 16), (32, 32), (80, 64) and (80, 80): `fa_bf16_kernel`, 4
 //   warps x 16 query rows, mma.sync m16n8k16 with K and a transposed V
 //   staged in padded shared memory.
-// - bf16 at (576, 512), MLA's latent heads: `fa_mla_kernel`, 8 warps over
-//   64 (query, head) rows of one KV head, mma.sync with Dv split across
-//   the two warps of each 16-row group, Q resident in shared memory and
-//   cp.async double-buffered K/V tiles of 32 keys (see its section).
+// - bf16 at (576, 512), MLA's latent heads: `fa_mla_wgmma_kernel`, the
+//   same shape of persistent CTA over 64 (query, head) rows of one KV
+//   head, V taken from the K tiles (V must be K's first 512 columns), S
+//   split by keys and O by columns between the two consumers (see its
+//   section).
 // - float32: `fa_f32_kernel`, full float32 products on the CUDA cores (no
 //   TF32), 32 query rows x 32 keys per tile, 4 threads per query row.
 //
@@ -58,12 +60,13 @@
 // head, batch), heaviest query block first (causal: the last block sees
 // the most keys), with the rep = H/Hkv CTAs of one KV head next to each
 // other so their K/V tiles are read from L2; the wgmma kernel's items keep
-// that order within each KV head, and the MLA kernel's blocks hold the rep
+// that order within each KV head, and the MLA kernel's items hold the rep
 // heads themselves.  Those two skip a KV tile with no visible (query, key)
 // pair before loading it (`pl.when(jnp.any(valid))`, :61) and mask ragged
 // Sq and Sk in the kernel: a query row past Sq has position 2^30 and is
 // not stored, a key past Sk has position -1 (the TPU wrapper's padding,
-// :105-112).  None of the four needs the wrapper to copy anything.
+// :105-112).  None of the four needs the wrapper to copy anything: where
+// v == k, V is K's first Dv columns (its rows Dk apart), as MLA passes it.
 //
 // Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t,
 // fa_variant names the kernel it runs.
@@ -110,7 +113,7 @@ __global__ void __launch_bounds__(128) fa_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
     const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int Sq,
-    int Sk, int H, int Hkv, float scale, int causal, int window) {
+    int Sk, int H, int Hkv, float scale, int causal, int window, int ldv) {
   constexpr int BQ = 64, BK = 64;
   constexpr int KS = DK + 8;  // row stride of the K tile (bf16)
   constexpr int VS = BK + 8;  // row stride of the transposed V tile
@@ -193,7 +196,7 @@ __global__ void __launch_bounds__(128) fa_bf16_kernel(
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (j < Sk)
         val = *reinterpret_cast<const uint4*>(
-            v + (((long long)b * Sk + j) * Hkv + hk) * DV + c8);
+            v + (((long long)b * Sk + j) * Hkv + hk) * ldv + c8);
       const __nv_bfloat16* vv = reinterpret_cast<const __nv_bfloat16*>(&val);
 #pragma unroll
       for (int t = 0; t < 8; ++t) vt_s[(c8 + t) * VS + r] = vv[t];
@@ -316,7 +319,7 @@ __global__ void __launch_bounds__(128) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qpos,
     const int* __restrict__ kpos, float* __restrict__ out, int Sq, int Sk,
-    int H, int Hkv, float scale, int causal, int window) {
+    int H, int Hkv, float scale, int causal, int window, int ldv) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                          // [BQ][DK+1]
   float* k_s = q_s + F_BQ * (DK + 1);         // [BK][DK+1]
@@ -376,7 +379,7 @@ __global__ void __launch_bounds__(128) fa_f32_kernel(
     for (int e = tid; e < F_BK * DV; e += 128) {
       const int j = e / DV, d = e % DV;
       v_s[j * DV + d] =
-          k0 + j < Sk ? v[(((long long)b * Sk + k0 + j) * Hkv + hk) * DV + d]
+          k0 + j < Sk ? v[(((long long)b * Sk + k0 + j) * Hkv + hk) * ldv + d]
                       : 0.f;
     }
     __syncthreads();
@@ -1101,43 +1104,67 @@ __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
 // ---------------------------------------------------------------------------
 // bf16, (Dk, Dv) = (576, 512): MLA's latent attention (DeepSeek-V2: keys of
 // 512 latent + 64 rope columns, the 512 latent columns as values, one KV
-// head), mma.sync with the value columns split across warps
+// head): TMA, wgmma, a warp-specialised persistent CTA, K tiles that also
+// serve as V
 // ---------------------------------------------------------------------------
-// A 64-row float32 O of width 512 is 256 registers a thread for one
-// warpgroup, so neither the wgmma kernel nor fa_bf16_kernel (all of Dv in
-// each warp) takes this shape.  A CTA of 8 warps takes 64 rows of one KV
-// head's (query, head) pairs, in q's own order (query-major, its rep = H /
-// Hkv heads within), so that all 64 rows share every K/V tile (at Hkv = 1,
-// 4 queries x 16 heads, contiguous in q and out).  Warps 2g and 2g + 1
-// hold rows 16g..16g+15: each computes S for its half of a 32-key tile (16
-// keys over the whole depth of 576) and owns half of O's columns (256: 32
-// mma n-tiles, 128 float32 registers).  The pair swaps its row maxima and
-// its P fragments (bf16, in mma's A layout) through shared memory, keeps
-// its own share of l, and adds the two shares at the end.  Q [64, 576]
-// stays in shared memory; K and V tiles of 32 keys are double-buffered with
-// cp.async (rows past Sk zero-filled); ldmatrix feeds the tensor cores (V
-// through ldmatrix.trans, so it is never transposed in memory).  Rows are
-// padded by 16 bytes so that ldmatrix's 8 rows fall on 8 distinct bank
-// groups: 73 KB of Q, 2 x (37 + 33) KB of K and V, 216 KB in all.  A KV
-// tile is skipped (not loaded) when its key range cannot meet the block's
-// query range (tile_class, 256 tiles classed at a time, a thread a tile,
-// into a bitmap), and masked element by element otherwise, its key
-// positions loaded beside it; rows past the end have position 2^30 and
-// are not stored.  One CTA fits an SM, so each warp's S runs as four
-// independent mma chains (the depth's even and odd steps apart).
-template <int DK, int DV>
+// In MLA the value is the key's first 512 columns (k = [c_kv ; k_rope],
+// v = c_kv), so the kernel takes V as a view of K (the launcher refuses
+// any other v) and one K tile in shared memory feeds both products.  A 64-
+// row float32 O of width 512 is 256 registers a thread for one warpgroup,
+// so two consumer warpgroups share each item's 64 rows and split O by
+// columns.  Consumer 0 alone computes S for each 64-key tile (wgmma
+// m64n64k16, 36 steps over the depth of 576, Q and K K-major in shared
+// memory, so Q is read once a tile) and its online softmax (a full tile
+// takes no mask: one FFMA and one exp2 a score), writes P in bf16 into
+// the tile's rope box (box 8, which only S reads) and each row's rescale
+// beside it, and arrives on a named barrier (one a stage); consumer 1
+// waits there.  Each then rescales its O (skipped where no row of the
+// warp has a new maximum) and adds P V (wgmma m64n128k16 / m64n256k16, P
+// K-major from its box, V read MN-major from the K tile's first 8 boxes,
+// so it is never transposed).  Consumer 0, whose S and softmax are the
+// critical path, owns O's first 128 columns (64 registers a thread),
+// consumer 1 the other 384 (192 registers): consumer 0 goes on to the
+// next tile's S while consumer 1 finishes this tile's PV.  (Splitting S by
+// keys between the two instead reads Q twice a tile and needs a row-maxima
+// exchange; a 256 / 256 split of O keeps consumer 0 longer on each tile:
+// both measured slower, PERF.md.)
+//
+// A work item is 64 rows of one KV head's (query, head) pairs in q's own
+// order (query-major, its rep = H / Hkv heads within): at Hkv = 1, 4
+// queries x 16 heads, contiguous in q and out, all sharing every K tile.
+// The grid is persistent (one CTA an SM) and walks the items heaviest
+// query block first across the batch rows and KV heads, in item_of's
+// snake.  A producer warpgroup (setmaxnreg 40) has one warp at work: it
+// classes an item's KV tiles 32 at a time (a lane a tile, tile_class) and
+// sends the tiles some pair sees through a two-stage ring of 64-key tiles
+// (one thread issues the TMA copies: 9 boxes of 64 keys x 128 bytes,
+// 128-byte swizzle), each with a slot naming the tile, its class and
+// whether it is the item's last (an item with no visible tile sends one
+// empty slot).  Q is loaded once an item: by TMA when the item's rows are
+// a box of q (rep divides 64: a (64, rep, 64 / rep) box of the (576, H,
+// Sq, B) map), issued after the item's first tile and once consumer 0
+// has finished the previous item's last S product; otherwise the
+// consumers copy it with cp.async into the same layout.  A tile holds its
+// stage through S and PV; while one tile is computed the next one loads
+// into the other stage (Q takes 72 KB, so two 72 KB stages are all that
+// fit; three 48-key stages with part of Q in registers measured no
+// faster).  The last tile's stage stages O's epilogue (O / l in bf16, 128-
+// byte swizzle) for a TMA store, or for 16-byte stores of the rows before
+// the end when Q came by cp.async; rows past the end are never written.
+// A full tile is not masked; a partial one takes the element mask from
+// its key positions; rows past the end have position 2^30.  Shared
+// memory: Q 72 KB, the ring 2 x 72 KB, 217 KB in all.
 struct MlaLayout {
-  static constexpr int BQ = 64, BK = 32, WARPS = 8;
-  static constexpr int QS = DK + 8, VS = DV + 8;  // row strides (bf16)
-  static constexpr int Q_BYTES = BQ * QS * 2;
-  static constexpr int K_BYTES = BK * QS * 2, V_BYTES = BK * VS * 2;
-  static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + 2 * K_BYTES;
-  static constexpr int MX_OFF = V_OFF + 2 * V_BYTES;     // [WARPS][16] f32
-  static constexpr int PF_OFF = MX_OFF + WARPS * 16 * 4;  // [WARPS][32] x 16 B
-  static constexpr int KP_OFF = PF_OFF + WARPS * 32 * 16;  // [2][BK] int
-  static constexpr int VIS_OFF = KP_OFF + 2 * BK * 4;      // [WARPS] u32
-  static constexpr int BYTES = VIS_OFF + WARPS * 4;
+  static constexpr int DK = 576, DV = 512;
+  static constexpr int BQ = 64, BK = 64, STAGES = 2;
+  static constexpr int BOX = 64 * 128;  // 64 rows x 128 bytes
+  static constexpr int TILE_BYTES = DK / 64 * BOX;  // Q, or a K tile
+  static constexpr int K_OFF = TILE_BYTES;
+  static constexpr int CX_OFF = K_OFF + STAGES * TILE_BYTES;  // [ST][64] f32
+  static constexpr int LX_OFF = CX_OFF + STAGES * 64 * 4;     // [2][64] f32
+  static constexpr int BAR_OFF = LX_OFF + 2 * 64 * 4;
+  static constexpr int SLOT_OFF = BAR_OFF + 8 * (2 + 2 * STAGES);
+  static constexpr int BYTES = 1024 + SLOT_OFF + 16 * STAGES;
 };
 
 // 16 bytes from global to shared memory, asynchronously; zeros when !valid
@@ -1148,12 +1175,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -1162,304 +1183,604 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 address the
-// rows of matrix i), as mma fragments; `_t` transposes each.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The two warps of row group g (named barrier 1 + g).
-__device__ __forceinline__ void pair_sync(int g) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + g) : "memory");
+__device__ __forceinline__ void wgmma_ss_m64n256_tb(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(256, 1) fa_mla_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int Sq,
-    int Sk, int H, int Hkv, float scale, int causal, int window) {
-  using L = MlaLayout<DK, DV>;
-  constexpr int BQ = L::BQ, BK = L::BK, QS = L::QS, VS = L::VS;
-  constexpr int DKC = DK / 8, DVC = DV / 8;  // 16-byte chunks of a row
-  constexpr int NT = DV / 16;                // O's n-tiles per warp
-  constexpr int ROUND = L::WARPS * 32;       // tiles classed at a time
-  static_assert(DK % 32 == 0 && DV % 32 == 0 && BK == 32, "head sizes");
-  extern __shared__ __align__(16) uint8_t smem_mla[];
-  const uint32_t q_s = smem_u32(smem_mla);
-  const uint32_t k_s = q_s + L::K_OFF, v_s = q_s + L::V_OFF;
-  float* mx_s = reinterpret_cast<float*>(smem_mla + L::MX_OFF);
-  uint4* pf_s = reinterpret_cast<uint4*>(smem_mla + L::PF_OFF);
-  const int* kp_s = reinterpret_cast<const int*>(smem_mla + L::KP_OFF);
-  uint32_t* vis_s = reinterpret_cast<uint32_t*>(smem_mla + L::VIS_OFF);
+__device__ __forceinline__ void wgmma_ss_m64n128_tb(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S = Q K^T for a 64-key tile: Q (64 rows) and the keys K-major in shared
+// memory, 16 columns of the depth a step, 64-column boxes 8 KB apart.
+__device__ __forceinline__ void mla_qk(float* s, uint32_t qa, uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < MlaLayout::DK / 16; ++kk) {
+    const uint32_t off = (kk / 4) * MlaLayout::BOX + (kk % 4) * 32;
+    wgmma_ss_m64n64(s, sw128_desc(qa + off, 16, 1024),
+                    sw128_desc(kb + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V for one consumer's NB 64-column boxes of a 64-key tile (2:
+// m64n128; 6: m64n256 and m64n128): P K-major in its shared-memory box, V
+// MN-major in the K tile (8-key groups 1024 bytes apart, 64-column boxes
+// 8 KB apart).
+template <int NB>
+__device__ __forceinline__ void mla_pv(float* o, uint32_t pa, uint32_t sv) {
+  static_assert(NB == 2 || NB == 6, "O's boxes");
+#pragma unroll
+  for (int kk = 0; kk < MlaLayout::BK / 16; ++kk) {
+    const uint64_t da = sw128_desc(pa + kk * 32, 16, 1024);
+    const uint32_t v = sv + kk * 16 * 128;
+    if constexpr (NB == 6)
+      wgmma_ss_m64n256_tb(o, da, sw128_desc(v, MlaLayout::BOX, 1024), 1);
+    wgmma_ss_m64n128_tb(o + (NB - 2) * 32, da,
+                        sw128_desc(v + (NB - 2) * MlaLayout::BOX,
+                                   MlaLayout::BOX, 1024),
+                        1);
+  }
+}
+
+// The consumers' split of O: consumer 0 (S, the softmax) owns the first
+// MLA_C0_BOXES 64-column boxes, consumer 1 the rest.
+constexpr int MLA_C0_BOXES = 2;
+template <int W>
+struct MlaConsumer {
+  static constexpr int value = W;
+};
+
+// A partial tile's element mask: bit 4j + x (row qp0) and 4j + 2 + x (row
+// qp1) for key k0 + 8j + 2tq + x, the layout of wgmma's m64n64
+// accumulator.
+__device__ __forceinline__ uint32_t mla_mask(const int* kp_row, int k0,
+                                             int Sk, int tq, int qp0,
+                                             int qp1, int causal,
+                                             int window) {
+  uint32_t vis = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int col = k0 + 8 * j + 2 * tq + x;
+      const int kp = col < Sk ? __ldg(kp_row + col) : -1;
+      vis |= static_cast<uint32_t>(visible(qp0, kp, causal, window))
+             << (4 * j + x);
+      vis |= static_cast<uint32_t>(visible(qp1, kp, causal, window))
+             << (4 * j + 2 + x);
+    }
+  }
+  return vis;
+}
+
+// Named barriers: a tile's P is ready (1 + its stage: consumer 0 arrives,
+// consumer 1 waits), the item's 1 / l (5, both), one consumer alone
+// (3 + w).
+constexpr int MLA_BAR_P = 1, MLA_BAR_ITEM = 5;
+__device__ __forceinline__ void mla_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void mla_bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void mla_wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + w) : "memory");
+}
+
+// Item `item`: its batch row, KV head and block of 64 (query, head) rows,
+// heaviest block first across the batch rows and KV heads.
+struct MlaItem {
+  int b, hk, blk;
+};
+__device__ __forceinline__ MlaItem mla_item(int item, int Hkv, int G,
+                                            int n_blk) {
+  const int g = item % G;
+  return {g / Hkv, g % Hkv, n_blk - 1 - item / G};
+}
+
+__global__ void __launch_bounds__(384, 1) fa_mla_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_o,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ qpos, const int* __restrict__ kpos, int Sq,
+    int Sk, int H, int Hkv, int B, float scale, int causal, int window,
+    int q_tma) {
+  using L = MlaLayout;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES, BOX = L::BOX;
+  extern __shared__ uint8_t smem_mla[];
+  const uint32_t raw = smem_u32(smem_mla);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // Q; K stages follow
+  uint8_t* gbase = smem_mla + (base - raw);
+  const uint32_t bar = base + L::BAR_OFF;
+  float* cx_s = reinterpret_cast<float*>(gbase + L::CX_OFF);
+  float* lx_s = reinterpret_cast<float*>(gbase + L::LX_OFF);
+  int4* slot = reinterpret_cast<int4*>(gbase + L::SLOT_OFF);
+#define FULL_Q (bar)
+#define EMPTY_Q (bar + 8)
+#define FULL_K(s) (bar + 8 * (2 + (s)))
+#define EMPTY_K(s) (bar + 8 * (2 + ST + (s)))
+#define K_STAGE(s) (base + L::K_OFF + (s) * L::TILE_BYTES)
 
   // rows: Sq * rep < 2^31 (the launcher checks)
   const int rep = H / Hkv, rows = Sq * rep;
-  const int n_blk = (rows + BQ - 1) / BQ;
-  const int rr0 = (n_blk - 1 - blockIdx.x) * BQ;  // heaviest block first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int n_blk = (rows + BQ - 1) / BQ, n_kb = (Sk + BK - 1) / BK;
+  const int G = B * Hkv, n_items = n_blk * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int g = warp >> 1, half = warp & 1;
-  const int* kp_row = kpos + (long long)b * Sk;
-  // block row r's pair: its row of q / out ([B, Sq, H] rows), or -1
-  auto pair_row = [&](int r, int* qp) -> long long {
-    const int rr = rr0 + r;
-    if (rr >= rows) {
-      *qp = PAD_QPOS;
-      return -1;
-    }
-    const int i = rr / rep, j = rr - i * rep;
-    *qp = qpos[(long long)b * Sq + i];
-    return ((long long)b * Sq + i) * H + hk * rep + j;
-  };
 
-  for (int e = tid; e < BQ * DKC; e += 256) {
-    const int r = e / DKC, c = e % DKC;
-    int qp;
-    const long long row = pair_row(r, &qp);
-    cp_async16(q_s + (r * QS + c * 8) * 2,
-               row < 0 ? q : q + row * DK + c * 8, row >= 0);
-  }
-  int qp0, qp1;
-  const long long orow0 = pair_row(16 * g + gr, &qp0);
-  const long long orow1 = pair_row(16 * g + gr + 8, &qp1);
-
-  // the block's query range (rows past the end left out), in every warp
-  int qmin = INT_HI, qmax = INT_LO;
-  for (int r = lane; r < BQ; r += 32) {
-    int qp;
-    if (pair_row(r, &qp) >= 0) {
-      qmin = min(qmin, qp);
-      qmax = max(qmax, qp);
+  if (tid == 0) {
+    mbar_init(FULL_Q, 1);
+    mbar_init(EMPTY_Q, 128);  // consumer 0's threads, after its last S
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL_K(s), 1);
+      mbar_init(EMPTY_K(s), 256);  // every consumer thread, after its PV
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
   }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: one warp classes each item's KV tiles and
+    // one thread of it sends the visible ones through the ring, then Q --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0;  // stages sent
+    for (int n = 0;; ++n) {
+      const int item = item_of(n, blockIdx.x, gridDim.x);
+      if (item >= n_items) break;
+      const MlaItem it = mla_item(item, Hkv, G, n_blk);
+      const int* kp_row = kpos + (long long)it.b * Sk;
+      int qmin = INT_HI, qmax = INT_LO;  // the block's rows before the end
+      for (int r = lane; r < BQ; r += 32) {
+        const int rr = it.blk * BQ + r;
+        if (rr < rows) {
+          const int qp = qpos[(long long)it.b * Sq + rr / rep];
+          qmin = min(qmin, qp);
+          qmax = max(qmax, qp);
+        }
+      }
 #pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
-    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
-  }
-  // Which KV tiles some pair may see, ROUND tiles at a time (a thread a
-  // tile, a bit each in vis_s); next_tile(t) is the first from t on.
-  // Every thread calls it with the same t, so the round's barriers are
-  // uniform.
-  const int n_kb = (Sk + BK - 1) / BK;
-  int round0 = -ROUND;
-  auto next_tile = [&](int t) -> int {
-    for (; t < n_kb; ++t) {
-      if (t >= round0 + ROUND) {
-        round0 = t;
-        __syncthreads();  // the last round's bits are read out
-        const int tt = t + tid;
-        bool vis = false;
-        if (tt < n_kb) {
+      for (int off = 16; off; off >>= 1) {
+        qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+        qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+      }
+      // Tiles r0..r0+31 classed at once, a lane a tile: bit t - r0 of vb
+      // (some pair sees the tile) and pb (it takes the element mask).
+      int r0 = 0;
+      uint32_t vb = 0u, pb = 0u;
+      auto classify = [&](int from) {
+        r0 = from;
+        const int t = from + lane;
+        int cl = TILE_SKIP;
+        if (t < n_kb) {
           int lo = INT_HI, hi = INT_LO;
           bool neg = false;
+          if ((Sk & 3) == 0 &&  // 16-byte loads: 4 keys in or past Sk
+              (reinterpret_cast<uintptr_t>(kpos) & 15) == 0) {
+#pragma unroll 4
+            for (int e = 0; e < BK; e += 4) {
+              const int j = t * BK + e;
+              const int4 kp4 =
+                  j < Sk ? __ldg(reinterpret_cast<const int4*>(kp_row + j))
+                         : make_int4(-1, -1, -1, -1);
+              const int kps[4] = {kp4.x, kp4.y, kp4.z, kp4.w};
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                neg |= kps[x] < 0;
+                lo = kps[x] < 0 ? lo : min(lo, kps[x]);
+                hi = kps[x] < 0 ? hi : max(hi, kps[x]);
+              }
+            }
+          } else {
 #pragma unroll 8
-          for (int e = 0; e < BK; ++e) {
-            const int j = tt * BK + e;
-            const int kp = j < Sk ? kp_row[j] : -1;
-            neg |= kp < 0;
-            lo = kp < 0 ? lo : min(lo, kp);
-            hi = kp < 0 ? hi : max(hi, kp);
+            for (int e = 0; e < BK; ++e) {
+              const int j = t * BK + e;
+              const int kp = j < Sk ? __ldg(kp_row + j) : -1;
+              neg |= kp < 0;
+              lo = kp < 0 ? lo : min(lo, kp);
+              hi = kp < 0 ? hi : max(hi, kp);
+            }
           }
-          vis = tile_class(lo, hi, neg, qmin, qmax, causal, window) !=
-                TILE_SKIP;
+          cl = tile_class(lo, hi, neg, qmin, qmax, causal, window);
         }
-        const uint32_t bits = __ballot_sync(0xffffffffu, vis);
-        if (lane == 0) vis_s[warp] = bits;
-        __syncthreads();
-      }
-      const int o = t - round0;
-      if ((vis_s[o >> 5] >> (o & 31)) & 1u) break;
+        vb = __ballot_sync(0xffffffffu, cl != TILE_SKIP);
+        pb = __ballot_sync(0xffffffffu, cl == TILE_PARTIAL);
+      };
+      // the first tile from t on that some pair sees, or n_kb
+      auto find = [&](int t) -> int {
+        while (t < n_kb) {
+          if (t >= r0 + 32) classify(t);
+          const uint32_t m = vb >> (t - r0);
+          if (m) return t + __ffs(m) - 1;
+          t = r0 + 32;
+        }
+        return n_kb;
+      };
+      classify(0);
+      int t = find(0);
+      bool q_sent = !q_tma;
+      do {  // tile t, or (t == n_kb: none is visible) an empty slot
+        int cl = TILE_PARTIAL, tn = n_kb;
+        if (t < n_kb) {
+          cl = (pb >> (t - r0)) & 1u ? TILE_PARTIAL : TILE_FULL;
+          tn = find(t + 1);
+        }
+        if (lane == 0) {
+          const int s = ring % ST;
+          mbar_wait(EMPTY_K(s), ((ring / ST) & 1) ^ 1);
+          slot[s] = make_int4(t < n_kb ? t : -1, cl, tn == n_kb, 0);
+          const bool load_k = t < n_kb;  // the tile's TMA copies
+          if (load_k) {
+            mbar_expect_tx(FULL_K(s), L::TILE_BYTES);
+#pragma unroll
+            for (int c = 0; c < L::DK / 64; ++c)
+              tma_load_4d(K_STAGE(s) + c * BOX, &tm_k, FULL_K(s), c * 64,
+                          it.hk, t * BK, it.b);
+          } else {
+            mbar_arrive(FULL_K(s));
+          }
+          if (!q_sent) {  // Q, once the consumers are done with the last
+            mbar_wait(EMPTY_Q, (n & 1) ^ 1);
+            mbar_expect_tx(FULL_Q, L::TILE_BYTES);
+#pragma unroll
+            for (int c = 0; c < L::DK / 64; ++c)
+              tma_load_4d(base + c * BOX, &tm_q, FULL_Q, c * 64,
+                          it.hk * rep, it.blk * (BQ / rep), it.b);
+          }
+        }
+        __syncwarp();
+        q_sent = true;
+        ++ring;
+        t = tn;
+      } while (t < n_kb);
     }
-    return t;
-  };
-  // tile t's K, V and key positions into buffer buf, asynchronously
-  auto load_kv = [&](int t, int buf) {
-    const uint32_t kd = k_s + buf * L::K_BYTES, vd = v_s + buf * L::V_BYTES;
-    for (int e = tid; e < BK * DKC; e += 256) {
-      const int r = e / DKC, c = e % DKC, j = t * BK + r;
-      cp_async16(kd + (r * QS + c * 8) * 2,
-                 j < Sk ? k + (((long long)b * Sk + j) * Hkv + hk) * DK + c * 8
-                        : k,
-                 j < Sk);
-    }
-    for (int e = tid; e < BK * DVC; e += 256) {
-      const int r = e / DVC, c = e % DVC, j = t * BK + r;
-      cp_async16(vd + (r * VS + c * 8) * 2,
-                 j < Sk ? v + (((long long)b * Sk + j) * Hkv + hk) * DV + c * 8
-                        : v,
-                 j < Sk);
-    }
-    if (tid < BK) {
-      const int j = t * BK + tid;
-      cp_async4(smem_u32(kp_s + buf * BK + tid), j < Sk ? kp_row + j : kp_row,
-                j < Sk);
-    }
-  };
+    return;
+  }
 
+  // ---- two consumer warpgroups over all 64 rows of each item: consumer 0
+  // computes each tile's S and softmax and writes P (bf16) into the
+  // tile's rope box, free once S has read it, and each row's rescale
+  // beside it; each consumer adds P V into its share of O's columns:
+  // consumer 0, on the critical path, MLA_C0_BOXES of the 8 64-column
+  // boxes, consumer 1 the rest --------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3, ctid = tid & 127;
+  const int tq = lane & 3;
+  const int r0 = 16 * wl + (lane >> 2), r1 = r0 + 8;  // the item's rows
   const float sl = scale * 1.4426950408889634f;  // scores in log2 units
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float o[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  // ldmatrix row addresses: A (Q rows of the group), B (K: this half's 16
-  // keys), V (16 keys x this half's columns, transposed)
-  const uint32_t qa = q_s + ((16 * g + (lane & 15)) * QS + (lane >> 4) * 8) * 2;
-  const uint32_t ko =
-      ((16 * half + (lane >> 4) * 8 + (lane & 7)) * QS + ((lane >> 3) & 1) * 8) *
-      2;
-  const uint32_t vo = ((lane & 15) * VS + half * (DV / 2) + (lane >> 4) * 8) * 2;
+  auto consume = [&](auto which) {
+    constexpr int W = decltype(which)::value;
+    constexpr int B0 = W == 0 ? 0 : MLA_C0_BOXES;  // O's first box, and
+    constexpr int NB = W == 0 ? MLA_C0_BOXES : 8 - MLA_C0_BOXES;  // count
+    float o[NB * 32];
+    float s[64 / 2];
 
-  int t = next_tile(0), buf = 0;
-  if (t < n_kb) load_kv(t, 0);
-  cp_async_commit();  // Q and the first tile
-  while (t < n_kb) {
-    const int tn = next_tile(t + 1);
-    if (tn < n_kb) load_kv(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile t (and Q) have landed
-    __syncthreads();
+    int ring = 0;  // stages consumed
+    for (int n = 0;; ++n) {
+      const int item = item_of(n, blockIdx.x, gridDim.x);
+      if (item >= n_items) break;
+      const MlaItem it = mla_item(item, Hkv, G, n_blk);
+      const int rr0 = it.blk * BQ;
+      const int qp0 = rr0 + r0 < rows
+                          ? qpos[(long long)it.b * Sq + (rr0 + r0) / rep]
+                          : PAD_QPOS;
+      const int qp1 = rr0 + r1 < rows
+                          ? qpos[(long long)it.b * Sq + (rr0 + r1) / rep]
+                          : PAD_QPOS;
+      const int* kp_row = kpos + (long long)it.b * Sk;
+      if (q_tma) {
+        if (W == 0) mbar_wait(FULL_Q, n & 1);
+      } else {  // 64 rows x 72 chunks of 16 bytes, zeros past the end
+        for (int e = tid - 128; e < BQ * (L::DK / 8); e += 256) {
+          const int r = e / (L::DK / 8), c = e % (L::DK / 8), rr = rr0 + r;
+          const long long row =
+              rr < rows ? ((long long)it.b * Sq + rr / rep) * H + it.hk * rep +
+                              rr % rep
+                        : 0;
+          cp_async16(
+              base + (c / 8) * BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+              q + row * L::DK + c * 8, rr < rows);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_proxy_async();
+        mla_bar_sync(MLA_BAR_ITEM);
+      }
 
-    // S = Q K^T: the group's 16 rows x this half's 16 keys, the depth's
-    // even and odd 16-column steps in two accumulators (four independent
-    // mma chains a warp)
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float s2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const uint32_t kb = k_s + buf * L::K_BYTES + ko;
-#pragma unroll 2
-    for (int ks = 0; ks < DK / 16; ks += 2) {
-      uint32_t a[4], bb[4], a2[4], bb2[4];
-      ldsm_x4(a, qa + ks * 32);
-      ldsm_x4(bb, kb + ks * 32);
-      ldsm_x4(a2, qa + ks * 32 + 32);
-      ldsm_x4(bb2, kb + ks * 32 + 32);
-      mma_bf16(s[0], a, bb[0], bb[1]);
-      mma_bf16(s[1], a, bb[2], bb[3]);
-      mma_bf16(s2[0], a2, bb2[0], bb2[1]);
-      mma_bf16(s2[1], a2, bb2[2], bb2[3]);
-    }
-    // scale and mask; row maxima over the quad, then over the pair
-    const int* kpt = kp_s + buf * BK;
-    float mx0 = NEG_INF, mx1 = NEG_INF;
+      // m (in log2 units) and this thread's share of l, for rows r0 and r1
+      // (consumer 0's)
+      float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 16 * half + nt * 8 + 2 * tq + e;
-        const int kp = t * BK + c < Sk ? kpt[c] : -1;
-        s[nt][e] = visible(qp0, kp, causal, window)
-                       ? (s[nt][e] + s2[nt][e]) * sl : NEG_INF;
-        s[nt][2 + e] = visible(qp1, kp, causal, window)
-                           ? (s[nt][2 + e] + s2[nt][2 + e]) * sl : NEG_INF;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    if (tq == 0) {
-      mx_s[warp * 16 + gr] = mx0;
-      mx_s[warp * 16 + gr + 8] = mx1;
-    }
-    pair_sync(g);
-    mx0 = fmaxf(mx0, mx_s[(warp ^ 1) * 16 + gr]);
-    mx1 = fmaxf(mx1, mx_s[(warp ^ 1) * 16 + gr + 8]);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
-    const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
-    const float c0 = m0 <= NEG_INF ? 0.f : ex2(m0 - ms0);
-    const float c1 = m1 <= NEG_INF ? 0.f : ex2(m1 - ms1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = s[nt][e] <= NEG_INF ? 0.f : ex2(s[nt][e] - ms0);
-        s[nt][2 + e] = s[nt][2 + e] <= NEG_INF ? 0.f : ex2(s[nt][2 + e] - ms1);
-        sum0 += s[nt][e];
-        sum1 += s[nt][2 + e];
-      }
-    }
-    l0 = l0 * c0 + sum0;  // this thread's share of l
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-    // P in bf16 as mma's A fragment of this half's 16 keys; the pair swaps
-    const uint4 mine = make_uint4(pack_bf16(s[0][0], s[0][1]),
-                                  pack_bf16(s[0][2], s[0][3]),
-                                  pack_bf16(s[1][0], s[1][1]),
-                                  pack_bf16(s[1][2], s[1][3]));
-    pf_s[warp * 32 + lane] = mine;
-    pair_sync(g);
-    const uint4 other = pf_s[(warp ^ 1) * 32 + lane];
-    const uint4 p0 = half ? other : mine, p1 = half ? mine : other;
-    const uint32_t pa[2][4] = {{p0.x, p0.y, p0.z, p0.w},
-                               {p1.x, p1.y, p1.z, p1.w}};
-    // O = O * corr + P V over this half's columns
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      o[nt][0] *= c0;
-      o[nt][1] *= c0;
-      o[nt][2] *= c1;
-      o[nt][3] *= c1;
-    }
-    const uint32_t vb = v_s + buf * L::V_BYTES + vo;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, vb + (kk * 16 * VS + np * 16) * 2);
-        mma_bf16(o[2 * np], pa[kk], bb[0], bb[1]);
-        mma_bf16(o[2 * np + 1], pa[kk], bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // buffer `buf` and the exchange slots are read out
-    buf ^= 1;
-    t = tn;
-  }
-  cp_async_wait<0>();
+      for (int e = 0; e < NB * 32; ++e) o[e] = 0.f;
+      int st;
+      for (;;) {
+        st = ring % ST;
+        mbar_wait(FULL_K(st), (ring / ST) & 1);
+        const int4 tile = slot[st];
+        ++ring;
+        if (tile.x < 0) {  // no visible tile: O = 0
+          if (q_tma && W == 0) mbar_arrive(EMPTY_Q);
+          break;
+        }
+        const uint32_t kst = K_STAGE(st), pbox = kst + 8 * BOX;
+        float* cx = cx_s + st * 64;  // each row's rescale for this tile
+        float c0, c1;
+        if constexpr (W == 0) {
+          wgmma_fence();
+          mla_qk(s, base, kst);
+          wgmma_commit();
+          const uint32_t vis =
+              tile.y == TILE_PARTIAL
+                  ? mla_mask(kp_row, tile.x * BK, Sk, tq, qp0, qp1, causal,
+                             window)
+                  : 0xffffffffu;
+          wgmma_wait<0>();
+          fence_regs<32>(s);
+          if (tile.z && q_tma) mbar_arrive(EMPTY_Q);  // Q is read out
 
-  // l: the quad's shares, then the pair's
+          // scale and mask; row maxima over the quad.  A full tile takes no
+          // mask, and one FFMA and one exp2 a score: max(s * sl) = max(s) *
+          // sl, or max(-s) * -sl if sl < 0
+          const bool part = tile.y == TILE_PARTIAL;
+          float mx0 = NEG_INF, mx1 = NEG_INF;
+          if (part) {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  if (tq == 0) {
-    mx_s[warp * 16 + gr] = l0;
-    mx_s[warp * 16 + gr + 8] = l1;
-  }
-  pair_sync(g);
-  l0 = fmaxf(l0 + mx_s[(warp ^ 1) * 16 + gr], 1e-30f);
-  l1 = fmaxf(l1 + mx_s[(warp ^ 1) * 16 + gr + 8], 1e-30f);
+            for (int e = 0; e < 32; ++e) {
+              s[e] = (vis >> e) & 1u ? s[e] * sl : NEG_INF;
+              if (e & 2)
+                mx1 = fmaxf(mx1, s[e]);
+              else
+                mx0 = fmaxf(mx0, s[e]);
+            }
+          } else {
+            const float sg = sl >= 0.f ? 1.f : -1.f;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = half * (DV / 2) + nt * 8 + 2 * tq;
-    if (orow0 >= 0)
-      *reinterpret_cast<uint32_t*>(out + orow0 * DV + c) =
-          pack_bf16(o[nt][0] / l0, o[nt][1] / l0);
-    if (orow1 >= 0)
-      *reinterpret_cast<uint32_t*>(out + orow1 * DV + c) =
-          pack_bf16(o[nt][2] / l1, o[nt][3] / l1);
-  }
+            for (int e = 0; e < 32; ++e) {
+              if (e & 2)
+                mx1 = fmaxf(mx1, s[e] * sg);
+              else
+                mx0 = fmaxf(mx0, s[e] * sg);
+            }
+            mx0 *= fabsf(sl);
+            mx1 *= fabsf(sl);
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+          }
+          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+          const float ms0 = mn0 <= NEG_INF ? 0.f : mn0;
+          const float ms1 = mn1 <= NEG_INF ? 0.f : mn1;
+          c0 = m0 <= NEG_INF ? 0.f : ex2(m0 - ms0);
+          c1 = m1 <= NEG_INF ? 0.f : ex2(m1 - ms1);
+          float sum0 = 0.f, sum1 = 0.f;
+          if (part) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              s[e] = (vis >> e) & 1u ? ex2(s[e] - ((e & 2) ? ms1 : ms0)) : 0.f;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              s[e] = ex2(fmaf(s[e], sl, -((e & 2) ? ms1 : ms0)));
+          }
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            if (e & 2)
+              sum1 += s[e];
+            else
+              sum0 += s[e];
+          }
+          l0 = l0 * c0 + sum0;
+          l1 = l1 * c1 + sum1;
+          m0 = mn0;
+          m1 = mn1;
+          // P in bf16 into the rope box: wgmma's K-major A operand, 128-byte
+          // swizzle (keys 8j..8j+7 of a row are its 16-byte chunk j)
+          uint8_t* pg = gbase + (pbox - base);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            *reinterpret_cast<uint32_t*>(pg + r0 * 128 + ((j ^ (r0 & 7)) << 4) +
+                                         4 * tq) =
+                pack_bf16(s[4 * j], s[4 * j + 1]);
+            *reinterpret_cast<uint32_t*>(pg + r1 * 128 + ((j ^ (r1 & 7)) << 4) +
+                                         4 * tq) =
+                pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+          }
+          if (tq == 0) {
+            cx[r0] = c0;
+            cx[r1] = c1;
+          }
+          fence_proxy_async();
+          mla_bar_arrive(MLA_BAR_P + st);
+        } else {
+          mla_bar_sync(MLA_BAR_P + st);
+          c0 = cx[r0];
+          c1 = cx[r1];
+        }
+        // O's rescale, unless no row of the warp has a new maximum
+        if (!__all_sync(0xffffffffu, c0 == 1.f && c1 == 1.f)) {
+#pragma unroll
+          for (int e = 0; e < NB * 8; ++e) {
+            o[4 * e] *= c0;
+            o[4 * e + 1] *= c0;
+            o[4 * e + 2] *= c1;
+            o[4 * e + 3] *= c1;
+          }
+        }
+        fence_regs<NB * 32>(o);
+        wgmma_fence();
+        mla_pv<NB>(o, pbox, kst + B0 * BOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NB * 32>(o);
+        if (tile.z) break;  // the last tile's stage stages the epilogue
+        mbar_arrive(EMPTY_K(st));
+      }
+
+      // ---- epilogue: 1 / l from consumer 0 (by item parity: the other may
+      // still read the last item's); O / l in bf16 into the held stage (this
+      // consumer's V boxes, which only its own PV read), then a TMA store or
+      // 16-byte stores; the stage is released ------------------------------
+      float* lx = lx_s + (n & 1) * 64;
+      if constexpr (W == 0) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        }
+        if (tq == 0) {
+          lx[r0] = 1.f / fmaxf(l0, 1e-30f);
+          lx[r1] = 1.f / fmaxf(l1, 1e-30f);
+        }
+      }
+      mla_bar_sync(MLA_BAR_ITEM);
+      const float i0 = lx[r0], i1 = lx[r1];
+      const uint32_t ob = K_STAGE(st) + B0 * BOX;
+      uint8_t* og = gbase + (ob - base);
+#pragma unroll
+      for (int e = 0; e < NB * 8; ++e) {
+        const int box = e / 8, ch = e % 8;
+        uint8_t* p0 = og + box * BOX + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
+        uint8_t* p1 = og + box * BOX + r1 * 128 + ((ch ^ (r1 & 7)) << 4);
+        *reinterpret_cast<uint32_t*>(p0 + 4 * tq) =
+            pack_bf16(o[4 * e] * i0, o[4 * e + 1] * i0);
+        *reinterpret_cast<uint32_t*>(p1 + 4 * tq) =
+            pack_bf16(o[4 * e + 2] * i1, o[4 * e + 3] * i1);
+      }
+      fence_proxy_async();
+      mla_wg_sync(W);
+      if (q_tma) {
+        if (ctid == 0) {
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            tma_store_4d(&tm_o, ob + c * BOX, 64 * (B0 + c), it.hk * rep,
+                         it.blk * (BQ / rep), it.b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+        mla_wg_sync(W);
+      } else {  // each row's bytes of this consumer's columns, coalesced
+        for (int e = ctid; e < BQ * NB * 8; e += 128) {
+          const int r = e / (NB * 8), c = e % (NB * 8), rr = rr0 + r;
+          if (rr < rows) {
+            const uint4 val = *reinterpret_cast<const uint4*>(
+                og + (c / 8) * BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+            const long long row =
+                ((long long)it.b * Sq + rr / rep) * H + it.hk * rep + rr % rep;
+            *reinterpret_cast<uint4*>(out + row * L::DV + 64 * B0 + c * 8) =
+                val;
+          }
+        }
+      }
+      mbar_arrive(EMPTY_K(st));
+    }
+  };
+  if (w == 0)
+    consume(MlaConsumer<0>{});
+  else
+    consume(MlaConsumer<1>{});
+#undef FULL_Q
+#undef EMPTY_Q
+#undef FULL_K
+#undef EMPTY_K
+#undef K_STAGE
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime, so
@@ -1490,10 +1811,10 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous bf16 [B, S, heads, D] tensor as a 4-d map over (D, heads,
-// S, B) with its own strides, boxes of 64 columns x `rows` rows of one
-// head, 128-byte swizzle; rows outside [0, S) read as zeros.
+// S, B) with its own strides, boxes of 64 columns x `rows` rows of
+// `box_heads` heads, 128-byte swizzle; rows outside [0, S) read as zeros.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
-                     int heads, int D, int rows) {
+                     int heads, int D, int rows, int box_heads = 1) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -1501,7 +1822,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1546,36 +1868,57 @@ template <int DK, int DV>
 cudaError_t launch_mma_sync(const void* q, const void* k, const void* v,
                             const int* qpos, const int* kpos, void* out,
                             int B, int Sq, int Sk, int H, int Hkv,
-                            float scale, int causal, int window,
+                            float scale, int causal, int window, int ldv,
                             cudaStream_t stream) {
   const dim3 grid((Sq + 63) / 64, H, B);
   fa_bf16_kernel<DK, DV><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qpos, kpos,
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window);
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window,
+      ldv);
   return cudaGetLastError();
 }
 
-template <int DK, int DV>
+// V must be K's first 512 columns (v == k, K's strides): the kernel reads
+// it from the K tiles.
 cudaError_t launch_mla(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int Sq, int Sk, int H, int Hkv, float scale,
                        int causal, int window, cudaStream_t stream) {
-  using L = MlaLayout<DK, DV>;
-  const long long rows = (long long)Sq * (H / Hkv);
+  using L = MlaLayout;
+  if (v != k) return cudaErrorInvalidValue;
+  const int rep = H / Hkv;
+  const long long rows = (long long)Sq * rep;
   if (rows > 0x7fffffffLL - L::BQ) return cudaErrorInvalidValue;
-  const long long blocks = (rows + L::BQ - 1) / L::BQ;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_mla_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::BYTES);
+  const long long items = (rows + L::BQ - 1) / L::BQ * Hkv * B;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // Q and O by TMA when an item's rows are one (64, rep, 64 / rep) box
+  const int q_tma = L::BQ % rep == 0;
+  CUtensorMap tq, tk, to;
+  cudaError_t err = make_map(&tk, k, B, Sk, Hkv, L::DK, L::BK);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(blocks), Hkv, B);
-  fa_mla_kernel<DK, DV><<<grid, 256, L::BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), qpos, kpos,
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window);
+  tq = to = tk;
+  if (q_tma &&
+      ((err = make_map(&tq, q, B, Sq, H, L::DK, L::BQ / rep, rep)) !=
+           cudaSuccess ||
+       (err = make_map(&to, out, B, Sq, H, L::DV, L::BQ / rep, rep)) !=
+           cudaSuccess))
+    return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(fa_mla_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::BYTES);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
+  fa_mla_wgmma_kernel<<<grid, 384, L::BYTES, stream>>>(
+      tq, tk, to, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), qpos, kpos, Sq, Sk, H, Hkv, B, scale,
+      causal, window, q_tma);
   return cudaGetLastError();
 }
 
@@ -1583,7 +1926,7 @@ template <int DK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int Sq, int Sk, int H, int Hkv, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       int causal, int window, int ldv, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_f32_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1593,7 +1936,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   fa_f32_kernel<DK, DV><<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), Sq,
-      Sk, H, Hkv, scale, causal, window);
+      Sk, H, Hkv, scale, causal, window, ldv);
   return cudaGetLastError();
 }
 
@@ -1628,26 +1971,29 @@ int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, scale, causal, window, st
+  // v == k: V is K's first dv columns, rows dk apart (MLA's latent values)
+  const int ldv = v == k ? dk : dv;
+#define FA_ARGS q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, scale, causal, window
   switch (variant_of(bf16, dk, dv)) {
     case V_WGMMA:
-      return dk == 64 ? launch_wgmma<64>(FA_ARGS) : launch_wgmma<128>(FA_ARGS);
+      return dk == 64 ? launch_wgmma<64>(FA_ARGS, st)
+                      : launch_wgmma<128>(FA_ARGS, st);
     case V_MMA_SYNC:
       if (dk == 80)
-        return dv == 64 ? launch_mma_sync<80, 64>(FA_ARGS)
-                        : launch_mma_sync<80, 80>(FA_ARGS);
-      return dv == 16 ? launch_mma_sync<32, 16>(FA_ARGS)
-                      : launch_mma_sync<32, 32>(FA_ARGS);
+        return dv == 64 ? launch_mma_sync<80, 64>(FA_ARGS, ldv, st)
+                        : launch_mma_sync<80, 80>(FA_ARGS, ldv, st);
+      return dv == 16 ? launch_mma_sync<32, 16>(FA_ARGS, ldv, st)
+                      : launch_mma_sync<32, 32>(FA_ARGS, ldv, st);
     case V_MLA:
-      return launch_mla<576, 512>(FA_ARGS);
+      return launch_mla(FA_ARGS, st);
     case V_F32:
-      if (dk == 32) return dv == 16 ? launch_f32<32, 16>(FA_ARGS)
-                                    : launch_f32<32, 32>(FA_ARGS);
-      if (dk == 80) return dv == 64 ? launch_f32<80, 64>(FA_ARGS)
-                                    : launch_f32<80, 80>(FA_ARGS);
-      if (dk == 576) return launch_f32<576, 512>(FA_ARGS);
-      return dk == 64 ? launch_f32<64, 64>(FA_ARGS)
-                      : launch_f32<128, 128>(FA_ARGS);
+      if (dk == 32) return dv == 16 ? launch_f32<32, 16>(FA_ARGS, ldv, st)
+                                    : launch_f32<32, 32>(FA_ARGS, ldv, st);
+      if (dk == 80) return dv == 64 ? launch_f32<80, 64>(FA_ARGS, ldv, st)
+                                    : launch_f32<80, 80>(FA_ARGS, ldv, st);
+      if (dk == 576) return launch_f32<576, 512>(FA_ARGS, ldv, st);
+      return dk == 64 ? launch_f32<64, 64>(FA_ARGS, ldv, st)
+                      : launch_f32<128, 128>(FA_ARGS, ldv, st);
     default:
       return cudaErrorInvalidValue;
   }

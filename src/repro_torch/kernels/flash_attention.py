@@ -17,11 +17,14 @@ beforehand:
 - ``"mma_sync"``: bf16 at ``(32, 16)``, ``(32, 32)``, ``(80, 64)`` (the
   MLA smoke config's latent heads) and ``(80, 80)`` (stablelm-3b):
   ``mma.sync`` products, float32 accumulate;
-- ``"mla_mma_sync"``: bf16 at ``(576, 512)``, MLA's latent heads
+- ``"mla_wgmma"``: bf16 at ``(576, 512)``, MLA's latent heads
   (deepseek-v2-lite: 512 latent + 64 rope columns of the key, the latent
-  as the value, one KV head): ``mma.sync`` over 64 (query, head) rows of a
-  KV head a CTA, the value columns split across warp pairs, Q resident in
-  shared memory, ``cp.async`` double-buffered K/V tiles;
+  as the value, one KV head): a persistent CTA an SM over items of 64
+  (query, head) rows of a KV head, a producer warpgroup sending 64-key K
+  tiles by TMA through a two-stage ring, one ``wgmma`` consumer
+  warpgroup computing S and the softmax and both adding P V into their
+  share of O's columns (128 and 384); V is read from the K tiles, so
+  ``v`` must be ``k[..., :512]`` (see below);
 - ``"f32_cuda_cores"``: float32 at every head size of :data:`HEAD_DIMS`,
   in full float32 on the CUDA cores.
 
@@ -31,6 +34,13 @@ output, launches on the current stream, raises on a non-zero
 ``cudaError_t`` and counts the launch in ``launch.launches``.  The plain
 version is ``ref.attention``; ``ops.attention`` picks between the two by
 the tensor's device.
+
+V as K's prefix: ``v`` may be the view ``k[..., :Dv]`` of a contiguous
+``k`` (the same ``data_ptr`` and ``k``'s strides), as MLA passes its
+latent values (``models.attention._mla_blocked``); only that view is
+admitted without being contiguous, and the kernels then read V from K's
+rows.  At bf16 ``(576, 512)`` it is the only ``v`` taken: the MLA kernel
+serves both products from one K tile, and a separate ``v`` raises.
 
 Limits: head sizes ``(Dk, Dv)`` in :data:`HEAD_DIMS`, ``H % Hkv == 0``,
 ``B`` and ``H`` up to 65535, any ``Sq, Sk >= 1`` (the kernels mask the
@@ -51,7 +61,7 @@ HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (80, 64), (80, 80), (128, 128),
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
-VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores", "mla_mma_sync")
+VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores", "mla_wgmma")
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
@@ -96,9 +106,13 @@ def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     dev = q.device
+    v_in_k = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    if q.dtype == torch.bfloat16 and (Dk, Dv) == (576, 512) and not v_in_k:
+        raise ValueError("at bf16 (Dk=576, Dv=512) v must be k[..., :512] "
+                         "(MLA's latent values, read from the K tiles)")
     check("q", q, q.dtype, (B, Sq, H, Dk), dev)
     check("k", k, q.dtype, (B, Sk, Hkv, Dk), dev)
-    check("v", v, q.dtype, (B, Sk, Hkv, Dv), dev)
+    check("v", v, q.dtype, (B, Sk, Hkv, Dv), dev, contiguous=not v_in_k)
     check("q_pos", q_pos, torch.int32, (B, Sq), dev)
     check("kv_pos", kv_pos, torch.int32, (B, Sk), dev)
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -7,8 +7,8 @@
   the library's entry point);
 - :func:`load_lib`, the built library of one ``csrc/*.cu`` source with
   its entry points' C signatures declared;
-- :func:`check`, the device, dtype, shape and contiguity check of one
-  argument;
+- :func:`check`, the device, dtype, shape and (unless told otherwise)
+  contiguity check of one argument;
 - :func:`stream`, the caller's current stream as a handle, and
   :func:`raise_on`, which turns a non-zero ``cudaError_t`` into an
   exception.
@@ -47,7 +47,7 @@ def load_lib(name: str, argtypes: dict, error_fn: str) -> ctypes.CDLL:
     return lib
 
 
-def check(name, t, dtype, shape, device):
+def check(name, t, dtype, shape, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -55,7 +55,7 @@ def check(name, t, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -229,11 +229,13 @@ def _mla_attend(p, a: AttnConfig, q_nope, q_rope, ckv, krope, mask):
 def _mla_blocked(p, a: AttnConfig, q_nope, q_rope, ckv, krope, positions):
     """MLA as MQA through the blocked kernel: key ``[c_kv ; k_rope]`` and
     value ``c_kv`` shared by every head, queries ``[W_uk-absorbed q_nope ;
-    q_rope]`` (Dk = R + Dr = 576, Dv = R = 512 at published width)."""
+    q_rope]`` (Dk = R + Dr = 576, Dv = R = 512 at published width).  The
+    value is passed as the key's first R columns (a view of ``k_cat``), so
+    the kernel reads it from its K tiles."""
     cdt = q_nope.dtype
     q_cat = torch.cat([_absorb_uk(q_nope, p["w_uk"]), q_rope], dim=-1)
     k_cat = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
-    ctx = ops.attention(q_cat, k_cat, ckv[:, :, None, :],
+    ctx = ops.attention(q_cat, k_cat, k_cat[..., :ckv.shape[-1]],
                         scale=_mla_scale(a.mla), q_pos=positions,
                         kv_pos=positions, causal=a.causal, window=a.window)
     return _mla_out(ctx, p, cdt)

@@ -544,9 +544,13 @@ FA_CASES = {
                               "bf16", "arange"),
     "bf16_d128_ragged333": (1, 333, 333, 4, 2, 128, 128, True, None, "bf16",
                             "arange"),
-    # MLA's latent heads (576, 512) at one KV head (the MLA kernel's rows
-    # are (query, head) pairs: 16 heads, and 4 heads a KV head at Hkv = 2),
-    # and the head size 80 of the MLA smoke config (80, 64) and stablelm-3b
+    # MLA's latent heads (576, 512) at one KV head, V the first 512
+    # columns of K as MLA passes it (the MLA kernel's rows are (query,
+    # head) pairs: 16 heads, 4 heads a KV head at Hkv = 2, and 3 at H 6,
+    # Hkv 2, whose 64-row items are no box of q, so Q and O go by cp.async
+    # and plain stores; Sk = 100 ends inside a 64-key tile, a window of 80
+    # cuts through them), and the head size 80 of the MLA smoke config
+    # (80, 64) and stablelm-3b
     "bf16_mla": (2, 200, 200, 16, 1, 576, 512, True, None, "bf16", "arange"),
     "bf16_mla_ragged333": (1, 333, 333, 16, 1, 576, 512, True, None, "bf16",
                            "arange"),
@@ -560,6 +564,12 @@ FA_CASES = {
                            "arange"),
     "bf16_mla_rep4": (1, 130, 130, 8, 2, 576, 512, True, None, "bf16",
                       "shuffled"),
+    "bf16_mla_rep3": (2, 150, 150, 6, 2, 576, 512, True, None, "bf16",
+                      "holes"),
+    "bf16_mla_sk100": (2, 70, 100, 16, 1, 576, 512, True, None, "bf16",
+                       "arange"),
+    "bf16_mla_window80": (1, 256, 256, 16, 1, 576, 512, True, 80, "bf16",
+                          "arange"),
     "f32_mla": (1, 100, 130, 4, 1, 576, 512, True, None, "f32", "arange"),
     "bf16_d80_64": (2, 100, 100, 4, 4, 80, 64, True, None, "bf16", "arange"),
     "f32_d80_64": (2, 100, 100, 4, 4, 80, 64, True, None, "f32", "arange"),
@@ -645,13 +655,23 @@ def ssd_variant(n, chunk, dt_):
             else "per_head")
 
 
+def _attn_tensors(case, device):
+    """``(q, k, v, q_pos, kv_pos)`` of an `FA_CASES` case on ``device``;
+    at MLA's (576, 512) ``v`` is ``k[..., :512]``, as MLA passes it."""
+    B, Sq, Sk, H, Hkv, Dk, Dv, _, _, dt, kind = FA_CASES[case]
+    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind),
+                         device=device)
+    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    if (Dk, Dv) == (576, 512):
+        v = k[..., :Dv]
+    return q, k, v, qp, kp
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FA_CASES))
 def test_cuda_flash_attention_matches_plain_version(cuda, case):
     B, Sq, Sk, H, Hkv, Dk, Dv, causal, window, dt, kind = FA_CASES[case]
-    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind),
-                         device=cuda)
-    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    q, k, v, qp, kp = _attn_tensors(case, cuda)
     scale = 1.0 / np.sqrt(Dk)
     launch.reset_launches()
     got = fa.flash_attention(q, k, v, scale=scale, q_pos=qp, kv_pos=kp,
@@ -667,7 +687,7 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
     if kind == "late_keys":             # rows that see no key return 0
         assert not got[:, :5].any()
     want_variant = ("f32_cuda_cores" if dt == "f32" else "wgmma_tma"
-                    if (Dk, Dv) in ((64, 64), (128, 128)) else "mla_mma_sync"
+                    if (Dk, Dv) in ((64, 64), (128, 128)) else "mla_wgmma"
                     if (Dk, Dv) == (576, 512) else "mma_sync")
     assert fa.last_variant == want_variant
 
@@ -675,14 +695,13 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16_d128_window100", "bf16_d128_holes",
                                   "f32", "bf16_window_dv16",
-                                  "bf16_mla_window50", "bf16_d80_80"])
+                                  "bf16_mla_window50", "bf16_mla_rep3",
+                                  "bf16_d80_80"])
 def test_cuda_flash_attention_is_deterministic(cuda, case):
     """Two calls on the same inputs give bit-equal outputs (no atomics,
     a fixed order of sums)."""
     B, Sq, Sk, H, Hkv, Dk, Dv, causal, window, dt, kind = FA_CASES[case]
-    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind),
-                         device=cuda)
-    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    q, k, v, qp, kp = _attn_tensors(case, cuda)
     kw = dict(scale=1.0 / np.sqrt(Dk), q_pos=qp, kv_pos=kp, causal=causal,
               window=window)
     a = fa.flash_attention(q, k, v, **kw)
@@ -710,6 +729,15 @@ def test_cuda_flash_attention_checks_its_inputs(cuda):
         fa.flash_attention(q[:, :, :1].expand(1, 16, 3, 32).contiguous(),
                            k.expand(1, 16, 2, 32).contiguous(),
                            v.expand(1, 16, 2, 32).contiguous(), **kw)
+    # at MLA's bf16 (576, 512), v must be k's first 512 columns
+    qm = torch.zeros((1, 16, 2, 576), dtype=torch.bfloat16, device=cuda)
+    km = torch.zeros((1, 16, 1, 576), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="k\\[..., :512\\]"):
+        fa.flash_attention(qm, km, km[..., :512].contiguous(), **kw)
+    # only the prefix view of k is taken without being contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(qm.float(), km.float(), km.float()[..., 64:],
+                           **kw)
 
 
 @pytest.mark.cuda

@@ -171,3 +171,28 @@ def test_ops_attention_takes_the_new_head_sizes_on_the_cpu(Dk, Dv):
     got = tops.attention(q, k, v, **kw)
     assert not any(launch.launches.values())
     assert torch.equal(got, ref.attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_blocked_passes_v_as_a_view_of_k(dtype, monkeypatch):
+    """``_mla_blocked`` hands ``ops.attention`` the value as the key's
+    first 512 columns (the same storage and strides, which the MLA kernel
+    reads from its K tiles), and ``mla_forward`` still matches JAX's at
+    the published heads."""
+    seen = []
+    attention = tops.attention
+
+    def spy(q, k, v, **kw):
+        seen.append((k, v))
+        return attention(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn.ops, "attention", spy)
+    ja, ta, jp, tp, jx, tx = _setup("published_heads", dtype)
+    pos = _positions(*jx.shape[:2])
+    got = tattn.mla_forward(tp, ta, tx, torch.from_numpy(pos))
+    (k, v), = seen
+    assert (k.shape[-1], v.shape[-1]) == (576, 512)
+    assert v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    assert torch.equal(v, k[..., :512])
+    want = jattn.mla_forward(jp, ja, jx, jnp.asarray(pos))
+    _close(got, want, TOL[dtype], "mla_forward (v a view of k)")
