@@ -15,17 +15,22 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    (over the H100 SXM data-sheet rates).  ``delta_pack`` must be
    bit-equal for f32, bf16 and int8; the comm substrate's threshold
    selection is timed beside the other exact selections;
-   ``flash_attention`` (at the models' prefill shape and at MLA's,
-   ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, each
-   beside one ``scaled_dot_product_attention`` call as the library
-   yardstick, with the backend it ran; also at MLA's and head size 80's
-   edge shapes, bf16 and float32) and
+   ``flash_attention`` (at the models' prefill shape, at MLA's,
+   ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, at
+   whisper-medium's encoder, ``whisper_enc``, and at llama-3.2-vision's
+   prefill cross-attention, ``vlm_cross``, each beside one
+   ``scaled_dot_product_attention`` call as the library yardstick, with
+   the backend it ran; also at every other shape of the two memory
+   models' prefills, at MLA's and head size 80's edge shapes, bf16 and
+   float32) and
    ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
    versions at the main path's shapes and at edge shapes (each record
    naming the kernel that ran, ``variant``; at ``main`` the kernel's ptxas
    lines, which must show no spills for ``ssd`` and the timed attention
    kernels (wgmma, MLA), their tile classes, and planted faults the
-   limits must fail: two for attention at each timed shape, two for ssd's
+   limits must fail: two for attention at each timed shape (at a
+   non-causal one the ragged last key tile dropped in place of a partial
+   tile taken as full), two for ssd's
    y at ``main`` and ``carry``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
@@ -77,16 +82,23 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    ``ship_floats`` are held exactly up to the clock before it;
 5. the serving path at full width and depth (``serve_path``):
    qwen3-0.6b, mamba2-130m, deepseek-v2-lite-16b (MLA, 64 routed + 2
-   shared experts, top-6; bf16 weights) and qwen3-moe-30b-a3b (128
-   experts, top-8), all at their published depth, with random weights
-   from a seed, batch 8, a 2048-token prompt from ``token_batch`` and 32
-   new tokens, through ``repro_torch.launch.serve``, one model freed
-   before the next is built: set-up (the weights' draw) seconds, prefill
-   and decode times and rates, peak memory, the kernels' launches
-   per prefill (``flash_attention`` once per layer, ``ssd`` once per
-   mamba2 layer), no host sync in the decode loop, and the device's idle
-   share and each kernel's device ms per prefill from profiled runs;
-6. every served arch's smoke config (the five above and llama3-8b,
+   shared experts, top-6; bf16 weights), qwen3-moe-30b-a3b (128
+   experts, top-8), whisper-medium (24 + 24 layers, float32 weights,
+   bf16 compute, 1500 stub frames, a 416-token prompt: with 32 new tokens
+   its 448-token text context) and llama-3.2-vision-11b (8 groups of 4
+   self blocks and a gated cross block over 1601 stub image tokens, bf16
+   weights, gates at ``VLM_GATE``), all at their published depth, with
+   random weights from a seed, batch 8, a 2048-token prompt (but
+   whisper's) from ``token_batch`` and 32 new tokens, through
+   ``repro_torch.launch.serve``, one model freed before the next is
+   built: set-up (the weights' and the stub's draw) seconds, prefill and
+   decode times and rates, peak memory, the kernels' launches per
+   prefill (``flash_attention`` once per attention layer: whisper's
+   encoder layers and its decoder's self and cross, 72; llama-vision's
+   32 self and 8 cross, 40; ``ssd`` once per mamba2 layer), no host sync
+   in the decode loop, and the device's idle share and each kernel's
+   device ms per prefill from profiled runs;
+6. every served arch's smoke config (the six above and llama3-8b,
    qwen3-4b, stablelm-3b) on the card against the CPU, in bf16 and
    float32 (``serve_card_vs_cpu``): the prefill and each decode step held
    on the same inputs (the CPU runs the step again from a copy of the
@@ -100,7 +112,10 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    caches' difference makes of the step; for the moe archs each layer's
    routing on both devices, logits held in the sequences whose routing
    agreed at that step, every flip a near tie, at most an eighth of the
-   (step, sequence) pairs let go;
+   (step, sequence) pairs let go; the audio and vlm archs with their
+   stub, the memory's K/V held as every cache tensor, the VLM's gates at
+   ``VLM_GATE`` and both archs' q/k/v projections at ``1/sqrt(d)``
+   (``condition_projections``);
 7. LDA at full width (``FULL_LDA``: K = 100, the NYTimes vocabulary,
    d = 10,266,000) through ``simulate`` under ``ssp(3)`` and ``essp(3)``,
    with the MF main path's checks (one ``ring_view`` and one
@@ -345,9 +360,33 @@ ATTN_SHAPES = {
                     "arange"),
     "f32_d80_80": (2, 300, 300, 32, 32, 80, 80, True, None, "f32",
                    "arange"),
+    # the memory models' attention: whisper-medium's encoder (batch 8,
+    # 1500 frames, 16 heads of 64, one head a KV head, non-causal: Sk is no
+    # multiple of the 128-key tile) and llama-3.2-vision-11b's prefill
+    # cross-attention (2048 queries over 1601 image tokens, 32 heads over 8
+    # KV heads of 128, non-causal), both timed; then rep 1, non-causal,
+    # head size 64 with a short ragged query block over whisper's frames;
+    # then the other launches of those two prefills, untimed:
+    # llama-3.2-vision's causal self-attention (32 heads over 8, rep 4),
+    # whisper's causal decoder self-attention over its 416-token prompt
+    # and its decoder cross-attention, 416 queries over 1500 frames
+    "whisper_enc": (8, 1500, 1500, 16, 16, 64, 64, False, None, "bf16",
+                    "arange"),
+    "vlm_cross": (8, 2048, 1601, 32, 8, 128, 128, False, None, "bf16",
+                  "arange"),
+    "bf16_d64_rep1_noncausal": (2, 333, 1500, 4, 4, 64, 64, False, None,
+                                "bf16", "arange"),
+    "vlm_self": (8, 2048, 2048, 32, 8, 128, 128, True, None, "bf16",
+                 "arange"),
+    "whisper_dec_self": (8, 416, 416, 16, 16, 64, 64, True, None, "bf16",
+                         "arange"),
+    "whisper_dec_cross": (8, 416, 1500, 16, 16, 64, 64, False, None, "bf16",
+                          "arange"),
 }
 # the timed cases and the kernel each runs
-ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_wgmma_kernel"}
+ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_wgmma_kernel",
+              "whisper_enc": "fa_wgmma_kernel",
+              "vlm_cross": "fa_wgmma_kernel"}
 ATTN_TILE = 128     # the wgmma kernel's query block and KV tile
 MLA_TILE = 64       # the MLA kernel's KV tile
 MLA_ROWS = 64       # the MLA kernel's (query, head) rows a block
@@ -398,13 +437,20 @@ MF_CASES = {
 }
 MF_TILE = 128       # the columns planted fault (b) leaves out
 
-# The serving path: the dense, ssm and moe families at full width and
-# depth; phase 6 runs the smoke config of every served arch.
+# The serving path: the dense, ssm, moe, audio and vlm families at full
+# width and depth; phase 6 runs the smoke config of every served arch.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "deepseek-v2-lite-16b",
-               "qwen3-moe-30b-a3b")
+               "qwen3-moe-30b-a3b", "whisper-medium", "llama-3.2-vision-11b")
 SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
-               "stablelm-3b", "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
+               "stablelm-3b", "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b",
+               "whisper-medium", "llama-3.2-vision-11b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+# whisper's text context is 448 tokens (arXiv:2212.04356): a 416-token
+# prompt and 32 new tokens fill it
+SERVE_PROMPTS = {"whisper-medium": 416}
+# The VLM's cross-attention gates start at 0 (tanh(0) = 0 keeps the image
+# path from the logits); phases 5 and 6 run them at this value.
+VLM_GATE = 0.5
 # The profiled run that splits decode from prefill takes this many tokens
 # (the profiler's events of 31 steps at 48 MoE layers took minutes to
 # collect and read).
@@ -1806,7 +1852,10 @@ def attention_bound(q, k, v, qp, kp, causal, window, rates):
     from repro_torch.kernels import ref
     bw, f32, bf16 = rates
     H, Dk, Dv = q.shape[2], q.shape[3], v.shape[3]
-    pairs = int(ref._block_mask(qp, kp, causal, window).sum().item())
+    # the mask broadcasts over the queries where nothing depends on them
+    # (non-causal, no window): count it at its full [B, Sq, Sk] size
+    pairs = int(ref._block_mask(qp, kp, causal, window).expand(
+        qp.shape[0], qp.shape[1], kp.shape[1]).sum().item())
     ops = 2 * (Dk + Dv) * H * pairs
     v_bytes = 0 if v.data_ptr() == k.data_ptr() else v.numel()
     nbytes = (q.numel() + q.numel() // Dk * Dv + k.numel() + v_bytes) \
@@ -1830,9 +1879,11 @@ def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol,
     """Max error of two faults made with the plain version, each of which
     the limit must fail: (a) one key tile dropped (keys 0-63 masked for
     the second half of the queries, rows that see over a thousand keys);
-    (b) a partial tile treated as full (every query's position rounded up
-    to the end of its ``tile``-block, so it sees the whole diagonal
-    tile)."""
+    (b) causal: a partial tile treated as full (every query's position
+    rounded up to the end of its ``tile``-block, so it sees the whole
+    diagonal tile); non-causal (every tile full but the ragged last one):
+    the ragged last key tile dropped (keys from the last multiple of
+    ``tile`` on masked)."""
     from repro_torch.kernels import ref
     h = q.shape[1] // 2
     kp_drop = kp.clone()
@@ -1841,11 +1892,17 @@ def planted_attention_faults(q, k, v, qp, kp, kw, want, atol, rtol,
         "planted_fault_dropped_tile_err": (
             ref.attention(q[:, h:], k, v, **dict(kw, q_pos=qp[:, h:],
                                                  kv_pos=kp_drop)),
-            want[:, h:]),
-        "planted_fault_partial_as_full_err": (
+            want[:, h:])}
+    if kw["causal"]:
+        faults["planted_fault_partial_as_full_err"] = (
             ref.attention(q, k, v, **dict(
-                kw, q_pos=qp // tile * tile + tile - 1)),
-            want)}
+                kw, q_pos=qp // tile * tile + tile - 1)), want)
+    else:
+        Sk = k.shape[1]
+        kp_tail = kp.clone()
+        kp_tail[:, (Sk - 1) // tile * tile:] = -1
+        faults["planted_fault_ragged_tile_dropped_err"] = (
+            ref.attention(q, k, v, **dict(kw, kv_pos=kp_tail)), want)
     errs, missed = {}, []
     for key, (bad, ref_out) in faults.items():
         fdiff = (bad.float() - ref_out.float()).abs()
@@ -2495,7 +2552,7 @@ SERVE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_bf16_kernel",
                          "ssd_kernel")}
 
 
-def profiled_run(model, prompts, new):
+def profiled_run(model, prompts, new, stub):
     """Host ms and device-busy ms of one ``serve.run`` under the profiler,
     with the port's kernels' share (in all and per kernel) and the eight
     ops that take the most device time."""
@@ -2505,7 +2562,7 @@ def profiled_run(model, prompts, new):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.run(model, prompts, new)
+        serve.run(model, prompts, new, stub)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = 0.0
@@ -2526,35 +2583,51 @@ def profiled_run(model, prompts, new):
                            for e in ops}}
 
 
+def prefill_launches(cfg) -> int:
+    """``flash_attention`` launches of one prefill (``ssd`` for the ssm
+    family): one per attention layer; an audio model's encoder layers, and
+    its decoder layers twice (self and cross); a VLM's layers, its cross
+    blocks included."""
+    if cfg.family == "audio":
+        return cfg.encoder.n_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def serve_path(arch, device):
     """The serving path at full width and depth through
     ``repro_torch.launch.serve``: a warm-up run, then one counted run
     (launch counts set to 0 just before and read just after; the whole run
     under the sync watch), then two profiled runs (prefill alone, and
     prefill with the decode loop) for the device's idle share.  The depth
-    is the published one."""
+    is the published one; the audio and vlm families take their modality
+    stub (drawn in the set-up), the VLM's gates are set to ``VLM_GATE``."""
     import torch
+    from repro_torch.data.synthetic import modality_stub
     from repro_torch.kernels import launch
     from repro_torch.launch import serve
+    B, S, new = SERVE_BATCH, SERVE_PROMPTS.get(arch, SERVE_PROMPT), SERVE_NEW
     t0 = time.perf_counter()
     model = serve.make_model(arch, full=True, seed=0, device=device)
-    prompts = serve.make_prompts(model, SERVE_BATCH, SERVE_PROMPT, seed=0)
+    prompts = serve.make_prompts(model, B, S, seed=0)
+    stub = modality_stub(model.cfg, B, device=model.device)
+    cfg = model.cfg
+    if cfg.family == "vlm":
+        model.blocks.cross.gate.fill_(VLM_GATE)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    cfg = model.cfg
-    serve.run(model, prompts, 2)      # cuBLAS, and the allocator at full size
+    serve.run(model, prompts, 2, stub)  # cuBLAS, the allocator at full size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launches()
     with watch_syncs() as found:
-        res = serve.run(model, prompts, SERVE_NEW)
+        res = serve.run(model, prompts, new, stub)
     torch.cuda.synchronize()
     launches = dict(launch.launches)
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
-    want["ssd" if cfg.family == "ssm" else "flash_attention"] = cfg.n_layers
+    want["ssd" if cfg.family == "ssm" else "flash_attention"] = \
+        prefill_launches(cfg)
     decode_syncs = [site for site, names in found if "decode_loop" in names]
-    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
     tok, logits = res["tokens"], res["logits"]
     rec = {"phase": "serve_path", "arch": arch, "n_params": model.n_params,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -2568,6 +2641,8 @@ def serve_path(arch, device):
            "decode_ms_per_step": res["decode_s"] * 1e3 / (new - 1),
            "decode_tokens_per_s": B * (new - 1) / res["decode_s"],
            "max_memory_allocated_bytes": peak,
+           "stub": {k: list(v.shape) for k, v in stub.items()},
+           "vlm_gate": VLM_GATE if cfg.family == "vlm" else None,
            "launches_per_prefill": launches,
            "decode_host_syncs": len(decode_syncs),
            "host_sync_sites": sorted({site for site, _ in found}),
@@ -2580,8 +2655,8 @@ def serve_path(arch, device):
         raise AssertionError(f"serve_path {arch}: launches {launches} "
                              f"(expected {want}), decode-loop syncs "
                              f"{decode_syncs}, tokens/logits ok: {ok}")
-    pre = profiled_run(model, prompts, 1)
-    full = profiled_run(model, prompts, PROFILE_NEW)
+    pre = profiled_run(model, prompts, 1, stub)
+    full = profiled_run(model, prompts, PROFILE_NEW, stub)
     dec_wall = (full["wall_ms"] - pre["wall_ms"]) / (PROFILE_NEW - 1)
     dec_dev = (full["device_ms"] - pre["device_ms"]) / (PROFILE_NEW - 1)
     rec["profiled"] = {
@@ -2604,15 +2679,47 @@ def serve_path(arch, device):
     if unseen:  # SERVE_KERNELS must name every kernel the path launches
         raise AssertionError(f"serve_path {arch}: the profiler saw no device "
                              f"time for {unseen}")
-    del model, prompts, res
+    del model, prompts, stub, res
     torch.cuda.empty_cache()
     return rec
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
+    """A copy of a (nested) tensor tree on ``device``, its floats in
+    ``dtype`` when one is given."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.detach().to(device)
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    t = tree.detach().to(device, copy=True)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def cache_rows(cache, prefix=""):
+    """The leaves of a (nested) cache by path, each with its leading
+    layers axes flattened into one, so the batch is axis 1.  A dict's
+    ``pos`` is ``[*layers, batch]`` and says how many there are (a VLM's
+    ``self`` caches have two: groups, then self blocks); a leaf beside no
+    ``pos`` has one."""
+    lead = cache["pos"].dim() - 1 if "pos" in cache else 1
+    out = {}
+    for k, v in cache.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(cache_rows(v, f"{path}/"))
+        else:
+            out[path] = v.flatten(0, lead - 1)
+    return out
+
+
+def condition_projections(model):
+    """Scale every ``[..., d, heads, head_dim]`` projection (``wq``,
+    ``wk``, ``wv``) by ``sqrt(heads / d)``, in place: at the init's
+    ``1/sqrt(heads)`` (its fan-in is the last-but-one axis) the smoke
+    models' attention logits run to the hundreds and their softmax is near
+    one-hot, so a one-ulp move of a logit moves the output by a whole
+    weight; at ``1/sqrt(d)`` the logits are of order 1."""
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv") and p.dim() >= 4:
+            p.data.mul_(math.sqrt(p.shape[-2] / p.shape[-3]))
 
 
 def serve_card_vs_cpu(arch, compute, device):
@@ -2649,18 +2756,31 @@ def serve_card_vs_cpu(arch, compute, device):
     run one precision up is held, only where that run's routing is the
     CPU's (a different routing is not a rounding).  Last,
     ``generate_scan`` through ``launch.serve.run`` on both (the share of
-    equal tokens is recorded)."""
+    equal tokens is recorded).
+
+    The audio and vlm archs take their modality stub (the same on both
+    devices) and keep the memory's K/V in their caches; the VLM's gates
+    are set to ``VLM_GATE``, and both archs' q/k/v projections are
+    scaled to ``1/sqrt(d)`` (`condition_projections`; their smoke configs
+    stack 4 and 10 attention layers whose near one-hot softmax would make
+    every comparison one of tie-breaking), as the CPU tests do."""
     import torch
     from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import modality_stub
     from repro_torch.launch import serve
     from repro_torch.models import moe
     from repro_torch.models.registry import Model, build_model
     cfg = get_smoke_config(arch).replace(compute_dtype=compute)
     cpu = build_model(cfg, seed=0, device="cpu")
+    if cfg.family in ("audio", "vlm"):
+        condition_projections(cpu)
+    if cfg.family == "vlm":
+        cpu.blocks.cross.gate.data.fill_(VLM_GATE)
     card = Model(cfg, _to(cpu.params, device))
     up = {"bfloat16": "float32", "float32": "float64"}[compute]
     hi = Model(cfg.replace(compute_dtype=up), cpu.params)
     prompts = serve.make_prompts(cpu, SMOKE_BATCH, SMOKE_PROMPT, seed=0)
+    stub = modality_stub(cpu.cfg, SMOKE_BATCH, device=cpu.device)
     tol = SERVE_TOL[compute]
     B, n = SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW
     ones = torch.ones(B, dtype=torch.bool)
@@ -2673,7 +2793,8 @@ def serve_card_vs_cpu(arch, compute, device):
         with moe.recording() as route:
             if cache is None:
                 lg, cache = model.prefill(tokens.to(dev),
-                                          model.init_cache(B, n))
+                                          model.init_cache(B, n),
+                                          **_to(stub, dev))
             else:
                 lg, cache = model.decode_step(tokens.to(dev), cache)
         return lg[:, -1].double().cpu(), cache, route
@@ -2695,12 +2816,14 @@ def serve_card_vs_cpu(arch, compute, device):
             held, fl = moe.routing_agreement(route, want_route, tol)
             flips.extend((i, *f) for f in fl)
             agree = moe.routing_agreement(exact_route, want_route, tol)[0]
-        cache_err = max((peak(card_cache[k][:, held].cpu().double()
+        card_rows = cache_rows(card_cache)
+        same_rows = cache_rows(same_cache)
+        cache_err = max((peak(card_rows[k][:, held].cpu().double()
                               - w[:, held].double()) / peak(w[:, held])
-                         for k, w in same_cache.items()
+                         for k, w in same_rows.items()
                          if w.is_floating_point()), default=0.0)
-        ints_equal = all(torch.equal(card_cache[k].cpu(), w)
-                         for k, w in same_cache.items()
+        ints_equal = all(torch.equal(card_rows[k].cpu(), w)
+                         for k, w in same_rows.items()
                          if not w.is_floating_point())
         scale = peak(same[held])
         d, own = rows(same, exact, scale), rows(got, exact, scale)
@@ -2728,21 +2851,22 @@ def serve_card_vs_cpu(arch, compute, device):
         if i + 1 == SMOKE_NEW:
             break
         tok = free.argmax(-1)[:, None]
-        snap = {k: v.detach().to("cpu", copy=True)
-                for k, v in card_cache.items()}
-        exact, _, exact_route = step(hi, tok, {
-            k: v.to(hi.cfg.cdtype) if v.is_floating_point() else v.clone()
-            for k, v in snap.items()})
+        snap = _to(card_cache, "cpu")
+        exact, _, exact_route = step(hi, tok, _to(snap, "cpu", hi.cfg.cdtype))
         free, cpu_cache, _ = step(cpu, tok, cpu_cache)
         same, same_cache, want_route = step(cpu, tok, snap)
         got, card_cache, route = step(card, tok, card_cache)
-    gen_h = serve.run(cpu, prompts, SMOKE_NEW)["tokens"]
-    gen_c = serve.run(card, prompts.to(device), SMOKE_NEW)["tokens"].cpu()
+    gen_h = serve.run(cpu, prompts, SMOKE_NEW, stub)["tokens"]
+    gen_c = serve.run(card, prompts.to(device), SMOKE_NEW,
+                      _to(stub, device))["tokens"].cpu()
     let_go = sum(B - s["held_sequences"] for s in steps)
     pairs = [(e, b, x) for s in steps
              for e, b, x in zip(s["rel_err"], s["bound"], s["d"])]
     rec = {"phase": "serve_card_vs_cpu", "arch": arch, "compute": compute,
            "batch": B, "prompt": SMOKE_PROMPT, "tol": tol, "up": up,
+           "stub": {k: list(v.shape) for k, v in stub.items()},
+           "vlm_gate": VLM_GATE if cfg.family == "vlm" else None,
+           "projections_conditioned": cfg.family in ("audio", "vlm"),
            "max_rel_err": max(e for e, _, _ in pairs),
            "max_err_over_bound": max(e / b for e, b, _ in pairs),
            "max_d": max(x for *_, x in pairs),
@@ -3025,6 +3149,15 @@ def main() -> int:
             ("flash_attention[mla_wgmma]", attn_timed["mla_main"],
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
              ("deepseek-v2-lite-16b",)),
+            # the wgmma kernel at whisper-medium's encoder (its decoder's
+            # self and cross launches in the same count) and at
+            # llama-3.2-vision's prefill cross-attention
+            ("flash_attention[whisper_enc]", attn_timed["whisper_enc"],
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
+             ("whisper-medium",)),
+            ("flash_attention[vlm_cross]", attn_timed["vlm_cross"],
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
+             ("llama-3.2-vision-11b",)),
             ("ssd", ssd_main, "ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:79", ("mamba2-130m",))):
         counter = name.split("[")[0]

@@ -7,13 +7,16 @@ from __future__ import annotations
 
 import importlib
 
-from .base import AttnConfig, MambaConfig, MLAConfig, ModelConfig, MoEConfig
+from .base import (AttnConfig, EncoderConfig, MambaConfig, MLAConfig,
+                   ModelConfig, MoEConfig, VisionConfig)
 
-ARCHS = ("deepseek-v2-lite-16b", "llama3-8b", "mamba2-130m", "qwen3-0.6b",
-         "qwen3-4b", "qwen3-moe-30b-a3b", "stablelm-3b")
+ARCHS = ("deepseek-v2-lite-16b", "llama-3.2-vision-11b", "llama3-8b",
+         "mamba2-130m", "qwen3-0.6b", "qwen3-4b", "qwen3-moe-30b-a3b",
+         "stablelm-3b", "whisper-medium")
 
-__all__ = ["ARCHS", "AttnConfig", "MLAConfig", "MambaConfig", "ModelConfig",
-           "MoEConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "AttnConfig", "EncoderConfig", "MLAConfig",
+           "MambaConfig", "ModelConfig", "MoEConfig", "VisionConfig",
+           "get_config", "get_smoke_config"]
 
 
 def _module(arch: str):

@@ -1,10 +1,10 @@
 """Model configuration dataclasses of the ported families.
 
 The counterpart of the JAX package's ``configs/base.py``, for the families
-the port serves so far (dense, moe and ssm).  ``pdtype``/``cdtype`` are
-``torch.dtype``s.  The encoder and vision configs wait for the slices
-that port those families (ROADMAP queue 1, item 16); their fields stay on
-``ModelConfig`` as ``None`` so a config reads the same in both packages.
+the port serves (dense, moe, ssm, vlm and audio).  ``pdtype``/``cdtype``
+are ``torch.dtype``s.  The hybrid family's ``attn_every`` stays on
+``ModelConfig`` (ROADMAP queue 1, item 16), so a config reads the same in
+both packages.
 """
 from __future__ import annotations
 
@@ -56,6 +56,23 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Stub-frontend encoder (audio frames or vision patches)."""
+
+    n_layers: int = 24
+    n_ctx: int = 1500                 # frames/patches after the stub frontend
+    d_model: int | None = None        # defaults to decoder d_model
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """Stubbed vision frontend for VLM cross-attention."""
+
+    n_image_tokens: int = 1601        # e.g. 1 tile of 40x40 patches + cls
+    cross_attn_every: int = 5         # a cross-attn block every Nth layer
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: str = "dense"             # dense|moe|ssm|hybrid|vlm|audio
@@ -66,9 +83,9 @@ class ModelConfig:
     attn: AttnConfig | None = field(default_factory=AttnConfig)
     moe: MoEConfig | None = None
     mamba: MambaConfig | None = None
-    attn_every: int | None = None
-    encoder: object | None = None
-    vision: object | None = None
+    attn_every: int | None = None     # hybrid: 1 attn layer per this many
+    encoder: EncoderConfig | None = None
+    vision: VisionConfig | None = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "swiglu"               # swiglu | gelu

@@ -1,5 +1,6 @@
 """Deterministic synthetic token streams, bit-equal to the JAX package's
-``data/synthetic.py::token_batch``.
+``data/synthetic.py::token_batch``, and the audio and vlm families'
+modality stubs (``modality_stub``).
 
 Each sequence draws a hidden affine rule ``next = (a * cur + b) mod V_eff``
 plus noise.  The draws go through ``repro_torch.rng`` (bit-equal to
@@ -49,3 +50,19 @@ def token_batch(cfg: TokenGenConfig, step: int, device=None):
     noise = rng.bernoulli(k_n, cfg.noise, (B, S))
     rand = rng.randint(k_m, (B, S), 0, v)
     return torch.where(noise, rand, toks.to(torch.int32))
+
+
+def modality_stub(cfg_model, batch: int, device=None) -> dict:
+    """Frame or patch embeddings for the audio and vlm families (their
+    frontends are stubbed): ``{"frames": [batch, n_ctx, d_model]}`` or
+    ``{"image_embeds": [batch, n_image_tokens, d_model]}``, float32 ``0.1 *
+    normal(PRNGKey(7))`` as the JAX package draws it by default (within 2
+    ulp, ``rng.normal``); ``{}`` for the other families."""
+    key = rng.PRNGKey(7, device=resolve_device(device))
+    if cfg_model.family == "audio":
+        name, n = "frames", cfg_model.encoder.n_ctx
+    elif cfg_model.family == "vlm":
+        name, n = "image_embeds", cfg_model.vision.n_image_tokens
+    else:
+        return {}
+    return {name: rng.normal(key, (batch, n, cfg_model.d_model), scale=0.1)}

@@ -2,12 +2,15 @@
 
 ``python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 --new 32``
 ``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full``
+``python -m repro_torch.launch.serve --arch whisper-medium --full
+--prompt-len 416``
 
 The JAX package's ``launch/serve.py`` on one card: random weights from
-``--seed`` and prompts from ``data.synthetic.token_batch``.  It runs on
-``cuda`` unless ``--device cpu`` is given; without a GPU the default
-raises.  `run` times the prefill and the decode loop apart (host clock
-around work that ends in a device synchronize).
+``--seed``, prompts from ``data.synthetic.token_batch`` and the audio and
+vlm families' modality stub from ``data.synthetic.modality_stub``.  It
+runs on ``cuda`` unless ``--device cpu`` is given; without a GPU the
+default raises.  `run` times the prefill and the decode loop apart (host
+clock around work that ends in a device synchronize).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import time
 import torch
 
 from ..configs import get_config, get_smoke_config
-from ..data.synthetic import TokenGenConfig, token_batch
+from ..data.synthetic import TokenGenConfig, modality_stub, token_batch
 from ..device import resolve_device
 from ..models.registry import Model, build_model
 from ..serve import decode
@@ -29,6 +32,8 @@ def make_model(arch: str, full: bool, seed: int, device=None) -> Model:
 
 
 def make_prompts(model: Model, batch: int, prompt_len: int, seed: int):
+    """The prompt tokens ``[batch, prompt_len]`` (the audio and vlm
+    families also take ``data.synthetic.modality_stub``)."""
     return token_batch(TokenGenConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=prompt_len, batch=batch,
                                       seed=seed), 0, device=model.device)
@@ -39,14 +44,17 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run(model: Model, prompts, new: int) -> dict:
+def run(model: Model, prompts, new: int, extra_inputs: dict | None = None
+        ) -> dict:
     """`decode.generate_scan` split in its prefill and its decode loop,
     each timed: ``{"tokens" [B, new] int32, "logits" [B, 1, V] of the
-    prefill, "prefill_s", "decode_s"}``."""
+    prefill, "prefill_s", "decode_s"}``.  ``extra_inputs`` is the audio
+    and vlm families' modality stub (``modality_stub``)."""
     dev = prompts.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = decode.prefill(model, prompts, prompts.shape[1] + new)
+    logits, cache = decode.prefill(model, prompts, prompts.shape[1] + new,
+                                   extra_inputs)
     tok = decode.greedy_sample(logits)
     _sync(dev)
     t1 = time.perf_counter()
@@ -77,7 +85,10 @@ def main(argv=None):
           f"{dev}, batch={args.batch} prompt={args.prompt_len} "
           f"new={args.new}")
     prompts = make_prompts(model, args.batch, args.prompt_len, args.seed)
-    res = run(model, prompts, args.new)
+    extra = modality_stub(model.cfg, args.batch, device=model.device)
+    for name, t in extra.items():
+        print(f"{name} stub {tuple(t.shape)} {t.dtype}")
+    res = run(model, prompts, args.new, extra)
     B = args.batch
     # one cold run: the prefill includes building the kernels (on the
     # card) and PyTorch's warm-up, as the JAX launcher's time includes

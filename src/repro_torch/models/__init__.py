@@ -1,1 +1,1 @@
-"""The model zoo's dense and ssm families, ported to PyTorch."""
+"""The model zoo's dense, moe, ssm, vlm and audio families, in PyTorch."""

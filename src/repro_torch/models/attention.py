@@ -1,16 +1,15 @@
-"""GQA attention (+qk-norm, sliding window) and MLA: specs, a
-full-sequence forward through the blocked attention kernel, and a
-one-token decode against a ring-buffer cache.
+"""GQA attention (+qk-norm, sliding window), MLA and cross-attention:
+specs, a full-sequence forward through the blocked attention kernel, and
+a one-token decode against a ring-buffer cache (cross-attention: against
+the memory's K/V, projected once).
 
-The JAX package's ``models/attention.py``, GQA and MLA parts;
-cross-attention waits for the families that use it (ROADMAP queue 1,
-item 16), and so does ``causal_mask``, which only it uses.  Cache
-layouts: GQA ``{"k": [B, C, Hkv, Dh], "v": [B, C, Hkv, Dh], "pos": [B]
-int32}``, MLA ``{"ckv": [B, C, R], "krope": [B, C, Dr], "pos": [B]}``
-(the compressed latent is cached and decompressed per read), with
-``C = min(max_len, window or max_len)``.  Unlike JAX, a cache is updated
-in place (``index_put_``), so a decode step or a prefill does not copy
-the whole cache.
+The JAX package's ``models/attention.py``, without ``causal_mask``,
+which nothing there calls.  Cache layouts: GQA ``{"k": [B, C, Hkv, Dh],
+"v": [B, C, Hkv, Dh], "pos": [B] int32}``, MLA ``{"ckv": [B, C, R],
+"krope": [B, C, Dr], "pos": [B]}`` (the compressed latent is cached and
+decompressed per read), with ``C = min(max_len, window or max_len)``.
+Unlike JAX, a cache is updated in place (``index_put_``), so a decode
+step or a prefill does not copy the whole cache.
 """
 from __future__ import annotations
 
@@ -298,3 +297,56 @@ def mla_prefill(p, a: AttnConfig, x, positions, cache):
     q_nope, q_rope, ckv, krope = _mla_project(p, a, x, positions)
     cache = _fill_cache(cache, {"ckv": ckv, "krope": krope}, positions)
     return _mla_blocked(p, a, q_nope, q_rope, ckv, krope, positions), cache
+
+
+# ==========================================================================
+# cross-attention (VLM image layers, enc-dec)
+# ==========================================================================
+def cross_attn_spec(a: AttnConfig, d_model: int, dtype=torch.float32):
+    dh = head_dim(a, d_model)
+    return {
+        "wq": spec((d_model, a.n_heads, dh), ("embed", "heads", "head_dim"),
+                   dtype=dtype),
+        "wk": spec((d_model, a.n_kv_heads, dh),
+                   ("embed", "kv_heads", "head_dim"), dtype=dtype),
+        "wv": spec((d_model, a.n_kv_heads, dh),
+                   ("embed", "kv_heads", "head_dim"), dtype=dtype),
+        "wo": spec((a.n_heads, dh, d_model), ("heads", "head_dim", "embed"),
+                   dtype=dtype),
+    }
+
+
+def cross_attn_kv(p, mem):
+    """K/V ``([B,M,Hkv,Dh], [B,M,Hkv,Dh])`` of the encoder or vision
+    memory ``mem [B,M,d]``, in its dtype: projected once per layer, then
+    cached for the decode steps."""
+    return _proj(mem, p["wk"]), _proj(mem, p["wv"])
+
+
+def cross_attn(p, _a: AttnConfig, x, mem_kv):
+    """x ``[B,S,d]`` attends to the precomputed memory K/V, every key
+    visible and no positional encoding.
+
+    With more than one query (a prefill) it goes through the blocked
+    kernel (``causal=False``, no window: every pair visible); the JAX
+    package computes the same function with its plain ``_sdpa``, whose
+    logits at llama-3.2-vision's prefill would stand at 3.4 GB in float32
+    per tensor.  This follows JAX's function, not its rounding points: in
+    bfloat16 ``_sdpa`` rounds the logits to bfloat16 before the softmax,
+    the kernel keeps them in float32.  A one-token step (decode) takes
+    ``_sdpa``, as ``gqa_decode`` does."""
+    k, v = mem_kv
+    q = _proj(x, p["wq"])
+    B, S = q.shape[:2]
+    M = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if S == 1:
+        mask = torch.ones((B, S, M), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, scale)
+    else:
+        def pos(n):
+            return torch.arange(n, dtype=torch.int32,
+                                device=x.device).expand(B, n).contiguous()
+        out = ops.attention(q, k, v, scale=scale, q_pos=pos(S),
+                            kv_pos=pos(M), causal=False, window=None)
+    return _out_proj(out, p["wo"], x.dtype)

@@ -54,22 +54,27 @@ def rope(x, positions, theta=10000.0):
 
 
 def mlp_spec(d, ff, act="swiglu", dtype=torch.float32):
-    """The swiglu MLP of the ported archs; the gelu MLP waits for the
-    families that use it (ROADMAP queue 1, item 16)."""
-    if act != "swiglu":
-        raise NotImplementedError(f"the {act!r} MLP is not ported yet "
-                                  f"(ROADMAP queue 1, item 16)")
+    if act == "swiglu":
+        return {
+            "wi_gate": spec((d, ff), ("embed", "mlp"), dtype=dtype),
+            "wi_up": spec((d, ff), ("embed", "mlp"), dtype=dtype),
+            "wo": spec((ff, d), ("mlp", "embed"), dtype=dtype),
+        }
     return {
-        "wi_gate": spec((d, ff), ("embed", "mlp"), dtype=dtype),
-        "wi_up": spec((d, ff), ("embed", "mlp"), dtype=dtype),
+        "wi": spec((d, ff), ("embed", "mlp"), dtype=dtype),
         "wo": spec((ff, d), ("mlp", "embed"), dtype=dtype),
     }
 
 
-def mlp(p, x):
-    """swiglu: ``(silu(x W_gate) * (x W_up)) W_o`` in x's dtype."""
+def mlp(p, x, act="swiglu"):
+    """swiglu: ``(silu(x W_gate) * (x W_up)) W_o``; gelu: ``gelu(x W_i)
+    W_o`` with the tanh approximation (``jax.nn.gelu``'s default); in x's
+    dtype."""
     cdt = x.dtype
-    h = F.silu(x @ p["wi_gate"].to(cdt)) * (x @ p["wi_up"].to(cdt))
+    if act == "swiglu":
+        h = F.silu(x @ p["wi_gate"].to(cdt)) * (x @ p["wi_up"].to(cdt))
+    else:
+        h = F.gelu(x @ p["wi"].to(cdt), approximate="tanh")
     return h @ p["wo"].to(cdt)
 
 

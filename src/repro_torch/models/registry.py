@@ -1,5 +1,5 @@
 """Top-level model API: specs, forward, prefill and decode for the dense,
-moe and ssm families.
+moe, ssm, vlm and audio families.
 
 `build_model(cfg, seed, device)` returns a `Model`, an ``nn.Module`` whose
 parameters keep the JAX parameter tree's paths with ``.`` for ``/`` and
@@ -7,8 +7,12 @@ the stacked leading ``layers`` axis (``blocks.attn.wq`` is
 ``[L, d, H, Dh]``), so carrying JAX weights across is a copy name for
 name (``convert.model_params_from_jax``).  Its methods take token tensors
 (``[B, S]`` for ``forward``/``prefill``, ``[B, 1]`` for ``decode_step``)
-instead of the JAX package's batch dicts; caches are dicts of tensors with
-a leading layers axis, updated in place.
+instead of the JAX package's batch dicts, and the modality stubs as
+keywords: ``frames`` ``[B, n_ctx, d]`` for the audio family,
+``image_embeds`` ``[B, n_image_tokens, d]`` for the vlm family (cast to
+the compute dtype, as JAX does).  Caches are (nested) dicts of tensors
+with a leading layers axis (groups, for the vlm family), updated in
+place; a decode step reads the memory's K/V from them.
 """
 from __future__ import annotations
 
@@ -18,12 +22,22 @@ from torch import nn
 from .. import rng
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import mamba2
+from . import encdec, mamba2
 from . import transformer as tf
 from .layers import embed, embed_spec, rmsnorm, rmsnorm_spec, unembed
 from .params import init_params, param_count, spec
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "vlm", "audio")
+# the modality stub each family takes, by its keyword
+MEMORY = {"audio": "frames", "vlm": "image_embeds"}
+
+
+def _n_outer(cfg: ModelConfig) -> int:
+    """The length of the stacked ``blocks`` axis: groups for vlm."""
+    if cfg.family == "vlm":
+        assert cfg.n_layers % cfg.vision.cross_attn_every == 0
+        return cfg.n_layers // cfg.vision.cross_attn_every
+    return cfg.n_layers
 
 
 def model_specs(cfg: ModelConfig):
@@ -32,13 +46,20 @@ def model_specs(cfg: ModelConfig):
         raise NotImplementedError(tf.NOT_PORTED.format(
             f"the {cfg.family!r} family"))
     dtype = cfg.pdtype
-    if cfg.family == "ssm":
-        block = tf.mamba_block_spec(cfg, dtype)
+    n_outer = _n_outer(cfg)
+    if cfg.family == "audio":
+        body = encdec.encdec_specs(cfg, dtype)
+    elif cfg.family == "vlm":
+        body = {"blocks": tf.stack_specs(n_outer,
+                                         tf.vlm_group_spec(cfg, dtype))}
+    elif cfg.family == "ssm":
+        body = {"blocks": tf.stack_specs(n_outer,
+                                         tf.mamba_block_spec(cfg, dtype))}
     else:
-        block = tf.block_spec(cfg, dtype)
+        body = {"blocks": tf.stack_specs(n_outer, tf.block_spec(cfg, dtype))}
     specs = {
         "embed": embed_spec(cfg.vocab_size, cfg.d_model, dtype),
-        "blocks": tf.stack_specs(cfg.n_layers, block),
+        **body,
         "final_norm": rmsnorm_spec(cfg.d_model, dtype),
     }
     if not cfg.tie_embeddings:
@@ -64,8 +85,7 @@ def _tree(m: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A served model of the dense, moe or ssm family (see module
-    docstring)."""
+    """A served model of a ported family (see module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -101,19 +121,40 @@ class Model(nn.Module):
             return unembed(p["embed"], x)
         return x @ p["lm_head"].to(x.dtype)
 
+    def _memory(self, frames, image_embeds):
+        """The family's modality stub in the compute dtype (``None`` for
+        the text-only families); raises when it is missing."""
+        cfg = self.cfg
+        name = MEMORY.get(cfg.family)
+        if name is None:
+            return None
+        t = {"frames": frames, "image_embeds": image_embeds}[name]
+        if t is None:
+            raise ValueError(f"the {cfg.family} family needs {name!r} "
+                             f"(data.synthetic.modality_stub)")
+        return t.to(cfg.cdtype)
+
     @torch.no_grad()
-    def forward(self, tokens):
+    def forward(self, tokens, *, frames=None, image_embeds=None):
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
         auxiliary loss: the MoE layers' load-balance losses summed (a
-        float32 scalar), 0.0 for the dense and ssm families."""
+        float32 scalar), 0.0 for the other families."""
         cfg, p = self.cfg, self.params
+        mem = self._memory(frames, image_embeds)
         B, S = tokens.shape
         x = embed(p["embed"], tokens, cfg.cdtype)
-        if cfg.family == "ssm":
+        pos = self._positions(B, S)
+        if cfg.family == "audio":
+            memory = encdec.encode(p, cfg, mem)
+            x, aux = encdec.decoder_forward(p, cfg, x, pos, memory), 0.0
+        elif cfg.family == "vlm":
+            x, aux = tf._scan_blocks(
+                lambda pl, x: tf.vlm_group_fwd(pl, cfg, x, pos, mem),
+                p["blocks"], x)
+        elif cfg.family == "ssm":
             x, aux = tf._scan_blocks(
                 lambda pl, x: tf.mamba_block_fwd(pl, cfg, x), p["blocks"], x)
         else:
-            pos = self._positions(B, S)
             x, aux = tf._scan_blocks(
                 lambda pl, x: tf.block_fwd(pl, cfg, x, pos), p["blocks"], x)
         return self._logits(p, x), aux
@@ -123,24 +164,34 @@ class Model(nn.Module):
         compute dtype by default)."""
         cfg = self.cfg
         dt = dtype or cfg.cdtype
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            return encdec.decoder_cache(cfg, batch, max_len, dt, self.device)
+        if cfg.family == "vlm":
+            one = tf.vlm_group_cache(cfg, batch, max_len, dt, "meta")
+        elif cfg.family == "ssm":
             one = mamba2.mamba_init_cache(cfg.mamba, cfg.d_model, batch, dt,
                                           "meta")
         else:
             one = tf._attn_cache(cfg, batch, max_len, dt, "meta")
-        return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                               dtype=v.dtype, device=self.device)
-                for k, v in one.items()}
+        return tf.stacked_zeros(one, _n_outer(cfg), self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache):
+    def prefill(self, tokens, cache, *, frames=None, image_embeds=None):
         """Run the prompt ``[B, S]``, filling ``cache`` in place; returns
         the last position's logits ``[B, 1, V]`` and the cache."""
         cfg, p = self.cfg, self.params
+        mem = self._memory(frames, image_embeds)
         B, S = tokens.shape
         pos = self._positions(B, S)
         x = embed(p["embed"], tokens, cfg.cdtype)
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            memory = encdec.encode(p, cfg, mem)
+            x, cache = encdec.decoder_prefill(p, cfg, x, pos, cache, memory)
+            return self._logits(p, x[:, -1:]), cache
+        if cfg.family == "vlm":
+            fn = lambda pl, x, c: tf.vlm_group_prefill(pl, cfg, x, pos, c,
+                                                       mem)
+        elif cfg.family == "ssm":
             fn = lambda pl, x, c: tf.mamba_block_prefill(pl, cfg, x, pos, c)
         else:
             fn = lambda pl, x, c: tf.block_prefill(pl, cfg, x, pos, c)
@@ -150,10 +201,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, cache):
         """One token ``[B, 1]`` per sequence; returns logits ``[B, 1, V]``
-        and the cache, updated in place."""
+        and the cache, updated in place (the memory's K/V come from it)."""
         cfg, p = self.cfg, self.params
         x = embed(p["embed"], tokens, cfg.cdtype)
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            x, cache = encdec.decoder_decode_step(p, cfg, x, cache)
+            return self._logits(p, x), cache
+        if cfg.family == "vlm":
+            fn = lambda pl, x, c: tf.vlm_group_decode(pl, cfg, x, c)
+        elif cfg.family == "ssm":
             fn = lambda pl, x, c: tf.mamba_block_decode(pl, cfg, x, c)
         else:
             fn = lambda pl, x, c: tf.block_decode(pl, cfg, x, c)

@@ -1,26 +1,30 @@
-"""Decoder stacks of the ported families (dense, moe and ssm), built
-from stacked ParamSpec trees and run layer after layer.
+"""Decoder stacks of the ported families (dense, moe, ssm and vlm),
+built from stacked ParamSpec trees and run layer after layer.
 
 The JAX package's ``models/transformer.py``: its ``lax.scan`` over the
 stacked ``layers`` axis is a plain loop here (`_scan_blocks`,
 `_scan_blocks_cache`), and ``remat`` has no counterpart in serving.  A
 block's attention is GQA or MLA and its FFN the dense MLP or the MoE
-layer (``_attn_*``, ``_ffn_*``).  The hybrid (Jamba) groups and the VLM
-groups raise ``NotImplementedError`` (ROADMAP queue 1, item 16).
+layer (``_attn_*``, ``_ffn_*``).  A VLM group is ``cross_attn_every - 1``
+self-attention blocks and one gated cross-attention block over the image
+embeddings.  The hybrid (Jamba) groups raise ``NotImplementedError``
+(ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import mamba2
 from . import moe as moe_mod
 from .layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
-from .params import map_specs
+from .params import map_specs, spec
 
 NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 16: the "
-              "hybrid, VLM and audio families)")
+              "hybrid family)")
 
 
 def stack_specs(n: int, tree):
@@ -42,6 +46,15 @@ def n_layers(tree) -> int:
     return tree.shape[0]
 
 
+def stacked_zeros(tree, n: int, device):
+    """Zeros of every tensor of ``tree`` (a cache, made on ``"meta"``) with
+    a leading axis of ``n``, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: stacked_zeros(v, n, device) for k, v in tree.items()}
+    return torch.zeros((n,) + tuple(tree.shape), dtype=tree.dtype,
+                       device=device)
+
+
 def _scan_blocks(block_fn, stacked_params, x):
     """Run x through stacked blocks; block_fn(p_layer, x) -> (x, aux).
     Returns x and the blocks' aux losses summed."""
@@ -52,18 +65,35 @@ def _scan_blocks(block_fn, stacked_params, x):
     return x, aux
 
 
+def _dicts(tree):
+    """A copy of the tree's dicts over the same tensors."""
+    if isinstance(tree, dict):
+        return {k: _dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def _copy_back(views, new):
+    """Copy every tensor of ``new`` that is not the view at its path in
+    ``views`` into that view."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _copy_back(views[k], v)
+        elif v is not views[k]:
+            views[k].copy_(v)
+
+
 def _scan_blocks_cache(block_fn, stacked_params, caches, x):
     """Decode/prefill through stacked blocks threading per-layer caches.
 
     block_fn(p_layer, x, cache_layer) -> (x, new_cache_layer).  A layer's
-    cache is a view into the stacked ``caches``; an entry the block
-    replaces (rather than updating in place) is copied back into it."""
+    cache is a tree of views into the stacked ``caches`` (nested dicts
+    allowed: a VLM group's ``"self"`` caches have a second layers axis);
+    an entry the block replaces (rather than updating in place) is copied
+    back into it."""
     for i in range(n_layers(stacked_params)):
-        views = {k: v[i] for k, v in caches.items()}
-        x, c_new = block_fn(layer(stacked_params, i), x, dict(views))
-        for k, v in c_new.items():
-            if v is not views[k]:
-                views[k].copy_(v)
+        views = layer(caches, i)
+        x, c_new = block_fn(layer(stacked_params, i), x, _dicts(views))
+        _copy_back(views, c_new)
     return x, caches
 
 
@@ -116,7 +146,7 @@ def _ffn_fwd(p, cfg: ModelConfig, x):
     """``(y, aux)``: the MoE layer's aux loss, 0.0 for the dense MLP."""
     if cfg.moe is not None:
         return moe_mod.moe_forward(p, cfg.moe, x)
-    return mlp(p, x), 0.0
+    return mlp(p, x, cfg.act), 0.0
 
 
 # ---- standard transformer block (dense or MoE ffn) -----------------------
@@ -188,3 +218,70 @@ def mamba_block_prefill(p, cfg: ModelConfig, x, positions, cache):
         p["mixer"], cfg, rmsnorm(p["ln"], x, cfg.norm_eps))
     cache = dict(cache, conv=conv, ssm=state, pos=positions[:, -1] + 1)
     return x + h, cache
+
+
+# ---- VLM group (Llama-3.2-Vision style) -----------------------------------
+def vlm_group_spec(cfg: ModelConfig, dtype):
+    n_self = cfg.vision.cross_attn_every - 1
+    return {
+        "self": stack_specs(n_self, block_spec(cfg, dtype)),
+        "cross": {
+            "ln1": rmsnorm_spec(cfg.d_model, dtype),
+            "xattn": attn_mod.cross_attn_spec(cfg.attn, cfg.d_model, dtype),
+            "gate": spec((1,), (None,), init="zeros", dtype=dtype),
+            "ln2": rmsnorm_spec(cfg.d_model, dtype),
+            "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype),
+        },
+    }
+
+
+def _vlm_cross(pc, cfg: ModelConfig, x, mem_kv):
+    """The gated cross-attention block: ``x + tanh(gate) * xattn(x)``,
+    then the MLP."""
+    h = attn_mod.cross_attn(pc["xattn"], cfg.attn,
+                            rmsnorm(pc["ln1"], x, cfg.norm_eps), mem_kv)
+    x = x + torch.tanh(pc["gate"].to(x.dtype)) * h
+    return x + mlp(pc["ffn"], rmsnorm(pc["ln2"], x, cfg.norm_eps), cfg.act)
+
+
+def vlm_group_fwd(p, cfg: ModelConfig, x, positions, image_embeds):
+    """One group on the full sequence: ``(x, aux)``."""
+    x, aux = _scan_blocks(lambda pl, x: block_fwd(pl, cfg, x, positions),
+                          p["self"], x)
+    pc = p["cross"]
+    mem_kv = attn_mod.cross_attn_kv(pc["xattn"], image_embeds)
+    return _vlm_cross(pc, cfg, x, mem_kv), aux
+
+
+def vlm_group_cache(cfg: ModelConfig, batch, max_len, dtype, device):
+    """One group's zeroed caches: the self blocks' stacked on a leading
+    axis, and the image memory's K/V."""
+    a = _attn_cache(cfg, batch, max_len, dtype, "meta")
+    memkv = (batch, cfg.vision.n_image_tokens, cfg.attn.n_kv_heads,
+             cfg.head_dim)
+    return {"self": stacked_zeros(a, cfg.vision.cross_attn_every - 1,
+                                  device),
+            "cross_k": torch.zeros(memkv, dtype=dtype, device=device),
+            "cross_v": torch.zeros(memkv, dtype=dtype, device=device)}
+
+
+def vlm_group_decode(p, cfg: ModelConfig, x, cache):
+    x, new_self = _scan_blocks_cache(
+        lambda pl, x, c: block_decode(pl, cfg, x, c), p["self"],
+        cache["self"], x)
+    x = _vlm_cross(p["cross"], cfg, x, (cache["cross_k"], cache["cross_v"]))
+    return x, dict(cache, self=new_self)
+
+
+def vlm_group_prefill(p, cfg: ModelConfig, x, positions, cache,
+                      image_embeds):
+    """The group on the prompt, filling its caches: the self blocks'
+    (one q/k/v projection each, where JAX makes two) and the image
+    memory's K/V."""
+    x, new_self = _scan_blocks_cache(
+        lambda pl, x, c: block_prefill(pl, cfg, x, positions, c), p["self"],
+        cache["self"], x)
+    pc = p["cross"]
+    mem_k, mem_v = attn_mod.cross_attn_kv(pc["xattn"], image_embeds)
+    x = _vlm_cross(pc, cfg, x, (mem_k, mem_v))
+    return x, dict(cache, self=new_self, cross_k=mem_k, cross_v=mem_v)

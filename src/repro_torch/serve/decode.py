@@ -4,6 +4,9 @@ The JAX package's ``serve/decode.py``.  The decode loop keeps every token
 on the device and makes no host sync: each step's token feeds the next
 step as a tensor.  Sampling at a temperature draws JAX's key stream
 through ``rng.categorical``, with its noise in the logits' dtype.
+``extra_inputs`` carries the audio and vlm families' modality stubs
+(``{"frames": ...}`` or ``{"image_embeds": ...}``) to the prefill; the
+decode steps read the memory's K/V from the caches.
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ def greedy_sample(logits, rng=None, temperature: float = 0.0):
     return torch.argmax(last, dim=-1)
 
 
-def prefill(model: Model, prompt_tokens, max_len: int):
-    """Fresh caches for ``max_len`` positions, filled from the prompt;
-    returns the last prompt position's logits ``[B, 1, V]`` and the
-    caches."""
+def prefill(model: Model, prompt_tokens, max_len: int,
+            extra_inputs: dict | None = None):
+    """Fresh caches for ``max_len`` positions, filled from the prompt (and
+    the modality stub in ``extra_inputs``); returns the last prompt
+    position's logits ``[B, 1, V]`` and the caches."""
     cache = model.init_cache(prompt_tokens.shape[0], max_len)
-    return model.prefill(prompt_tokens, cache)
+    return model.prefill(prompt_tokens, cache, **(extra_inputs or {}))
 
 
 def decode_loop(model: Model, tok, cache, n_steps: int, keys=None,
@@ -49,14 +53,16 @@ def decode_loop(model: Model, tok, cache, n_steps: int, keys=None,
 
 def generate(model: Model, prompt_tokens, max_new: int,
              max_len: int | None = None, temperature: float = 0.0,
-             rng=None):
+             rng=None, extra_inputs: dict | None = None):
     """Prefill on the prompt, then decode ``max_new`` tokens: greedy at
     temperature 0, else drawn with JAX's key stream (``rng`` defaults to
     ``PRNGKey(0)``; the first token takes ``split(rng)[1]``, step ``t``
-    ``split(split(rng)[0], max_new)[t]``).  Returns ``[B, max_new]``
+    ``split(split(rng)[0], max_new)[t]``).  ``extra_inputs`` carries the
+    modality stub of the audio and vlm families.  Returns ``[B, max_new]``
     int32 token ids."""
     S = prompt_tokens.shape[1]
-    logits, cache = prefill(model, prompt_tokens, max_len or (S + max_new))
+    logits, cache = prefill(model, prompt_tokens, max_len or (S + max_new),
+                            extra_inputs)
     k0 = keys = None
     if temperature:
         if rng is None:
@@ -69,6 +75,8 @@ def generate(model: Model, prompt_tokens, max_new: int,
 
 
 def generate_scan(model: Model, prompt_tokens, max_new: int,
-                  max_len: int | None = None):
+                  max_len: int | None = None,
+                  extra_inputs: dict | None = None):
     """Greedy generation: ``generate`` at temperature 0."""
-    return generate(model, prompt_tokens, max_new, max_len)
+    return generate(model, prompt_tokens, max_new, max_len,
+                    extra_inputs=extra_inputs)

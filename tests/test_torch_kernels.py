@@ -544,6 +544,10 @@ FA_CASES = {
                               "bf16", "arange"),
     "bf16_d128_ragged333": (1, 333, 333, 4, 2, 128, 128, True, None, "bf16",
                             "arange"),
+    # whisper's encoder and cross-attention heads: (64, 64), one head a KV
+    # head, non-causal, a ragged query block over 1500 frames
+    "bf16_d64_rep1_noncausal": (2, 333, 1500, 4, 4, 64, 64, False, None,
+                                "bf16", "arange"),
     # MLA's latent heads (576, 512) at one KV head, V the first 512
     # columns of K as MLA passes it (the MLA kernel's rows are (query,
     # head) pairs: 16 heads, 4 heads a KV head at Hkv = 2, and 3 at H 6,
