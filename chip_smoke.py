@@ -17,13 +17,16 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    selection is timed beside the other exact selections;
    ``flash_attention`` (at the models' prefill shape, at MLA's,
    ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, at
-   whisper-medium's encoder, ``whisper_enc``, and at llama-3.2-vision's
-   prefill cross-attention, ``vlm_cross``, each beside one
+   whisper-medium's encoder, ``whisper_enc``, at llama-3.2-vision's
+   prefill cross-attention, ``vlm_cross``, and at jamba-1.5-large's
+   prefill, ``jamba_attn``: 8 query heads a KV head, each beside one
    ``scaled_dot_product_attention`` call as the library yardstick, with
    the backend it ran; also at every other shape of the two memory
    models' prefills, at MLA's and head size 80's edge shapes, bf16 and
    float32) and
-   ``ssd`` (at mamba2-130m's prefill shape) are held to their plain
+   ``ssd`` (at mamba2-130m's prefill shape and at jamba-1.5-large's, 256
+   heads in 32 groups, both timed and both required to run the
+   ``p_split`` kernel) are held to their plain
    versions at the main path's shapes and at edge shapes (each record
    naming the kernel that ran, ``variant``; at ``main`` the kernel's ptxas
    lines, which must show no spills for ``ssd`` and the timed attention
@@ -31,7 +34,7 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    limits must fail: two for attention at each timed shape (at a
    non-causal one the ragged last key tile dropped in place of a partial
    tile taken as full), two for ssd's
-   y at ``main`` and ``carry``, two for its
+   y at ``main``, ``carry`` and ``jamba``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
    path's rings (W = 22, P = 8, d = 5,053,800), ``path: "fault"``, with
@@ -87,7 +90,10 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    bf16 compute, 1500 stub frames, a 416-token prompt: with 32 new tokens
    its 448-token text context) and llama-3.2-vision-11b (8 groups of 4
    self blocks and a gated cross block over 1601 stub image tokens, bf16
-   weights, gates at ``VLM_GATE``), all at their published depth, with
+   weights, gates at ``VLM_GATE``), all at their published depth, and
+   jamba-1.5-large-398b at its published widths cut to fit one card
+   (``SERVE_CUTS``: 2 of its 9 groups, each expert's hidden size 4096 in
+   place of 24576; the record lists the cut under ``"reduced"``), with
    random weights from a seed, batch 8, a 2048-token prompt (but
    whisper's) from ``token_batch`` and 32 new tokens, through
    ``repro_torch.launch.serve``, one model freed before the next is
@@ -95,10 +101,11 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    decode times and rates, peak memory, the kernels' launches per
    prefill (``flash_attention`` once per attention layer: whisper's
    encoder layers and its decoder's self and cross, 72; llama-vision's
-   32 self and 8 cross, 40; ``ssd`` once per mamba2 layer), no host sync
+   32 self and 8 cross, 40; ``ssd`` once per mamba2 layer; jamba's 14
+   ``ssd`` and 2 ``flash_attention``), no host sync
    in the decode loop, and the device's idle share and each kernel's
    device ms per prefill from profiled runs;
-6. every served arch's smoke config (the six above and llama3-8b,
+6. every served arch's smoke config (the seven above and llama3-8b,
    qwen3-4b, stablelm-3b) on the card against the CPU, in bf16 and
    float32 (``serve_card_vs_cpu``): the prefill and each decode step held
    on the same inputs (the CPU runs the step again from a copy of the
@@ -109,13 +116,16 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    tokens equal wherever the CPU's top-2 margin exceeds that; the card no
    farther from the run one precision up than the CPU plus the
    tolerance; the free-running distance within the bound plus what the
-   caches' difference makes of the step; for the moe archs each layer's
-   routing on both devices, logits held in the sequences whose routing
-   agreed at that step, every flip a near tie, at most an eighth of the
-   (step, sequence) pairs let go; the audio and vlm archs with their
+   caches' difference makes of the step; for the moe archs (and the
+   hybrid arch, whose MoE sublayers are every other one) each layer's
+   routing on both devices, the CPU's same-input runs on the card's
+   routing (``moe.forcing``) so every sequence is held, every flip a near
+   tie, at most an eighth of the routing decisions flipped; the audio
+   and vlm archs with their
    stub, the memory's K/V held as every cache tensor, the VLM's gates at
-   ``VLM_GATE`` and both archs' q/k/v projections at ``1/sqrt(d)``
-   (``condition_projections``);
+   ``VLM_GATE``; the audio, vlm and hybrid archs' q/k/v projections at
+   ``1/sqrt(d)`` (``condition_projections``); the hybrid arch's mamba
+   conv windows and SSM states held as every cache tensor;
 7. LDA at full width (``FULL_LDA``: K = 100, the NYTimes vocabulary,
    d = 10,266,000) through ``simulate`` under ``ssp(3)`` and ``essp(3)``,
    with the MF main path's checks (one ``ring_view`` and one
@@ -382,21 +392,29 @@ ATTN_SHAPES = {
                          "arange"),
     "whisper_dec_cross": (8, 416, 1500, 16, 16, 64, 64, False, None, "bf16",
                           "arange"),
+    # jamba-1.5-large-398b's prefill attention (batch 8, 2048 tokens, 64
+    # heads over 8 KV heads of 128: 8 heads a KV head), timed
+    "jamba_attn": (8, 2048, 2048, 64, 8, 128, 128, True, None, "bf16",
+                   "arange"),
 }
 # the timed cases and the kernel each runs
 ATTN_TIMED = {"main": "fa_wgmma_kernel", "mla_main": "fa_mla_wgmma_kernel",
               "whisper_enc": "fa_wgmma_kernel",
-              "vlm_cross": "fa_wgmma_kernel"}
+              "vlm_cross": "fa_wgmma_kernel",
+              "jamba_attn": "fa_wgmma_kernel"}
 ATTN_TILE = 128     # the wgmma kernel's query block and KV tile
 MLA_TILE = 64       # the MLA kernel's KV tile
 MLA_ROWS = 64       # the MLA kernel's (query, head) rows a block
 # ssd's phase shapes: (b, s, h, p, g, n, chunk, dtype, dt).  "main" is
 # mamba2-130m's prefill (batch 8, 2048 tokens, h 24, headdim 64, 3 groups,
-# d_state 128, chunk 128, bf16); then a ragged s, float32, and dt in
-# mamba2's init range ("mamba"), where the state carries across chunks (at
-# dt = softplus(N(0, 1)) a 128-long chunk decays it by about e^-100).
+# d_state 128, chunk 128, bf16), "jamba" jamba-1.5-large-398b's (d_inner
+# 16384 in 256 heads of 64, 32 groups: b·s·h·p = 2^28); then a ragged s,
+# float32, and dt in mamba2's init range ("mamba"), where the state
+# carries across chunks (at dt = softplus(N(0, 1)) a 128-long chunk decays
+# it by about e^-100).
 SSD_SHAPES = {
     "main": (8, 2048, 24, 64, 3, 128, 128, "bf16", "softplus"),
+    "jamba": (8, 2048, 256, 64, 32, 128, 128, "bf16", "softplus"),
     "carry": (2, 2048, 24, 64, 3, 128, 128, "bf16", "mamba"),
     "ragged": (2, 2000, 24, 64, 3, 128, 128, "bf16", "softplus"),
     "f32_ragged": (2, 300, 24, 64, 3, 128, 128, "f32", "softplus"),
@@ -404,8 +422,10 @@ SSD_SHAPES = {
     # the shape of the JAX package's kernels suite (benchmarks/kernels_bench)
     "kernels_bench": (1, 1024, 8, 64, 1, 64, 128, "f32", "softplus"),
 }
+# the timed cases (each must run the "p_split" kernel)
+SSD_TIMED = ("main", "jamba")
 # the cases at which ssd's y limit must fail its two planted faults
-SSD_Y_FAULT_CASES = ("main", "carry")
+SSD_Y_FAULT_CASES = ("main", "carry", "jamba")
 # mf_sgd_block's phase cases: (N, M, K, density, gamma, lam, pattern),
 # inputs N(0, 1) from a seed with NaN at every unobserved rating.  "main"
 # is the dense block of the full-width MF data (FULL_MF, built by
@@ -438,12 +458,27 @@ MF_CASES = {
 MF_TILE = 128       # the columns planted fault (b) leaves out
 
 # The serving path: the dense, ssm, moe, audio and vlm families at full
-# width and depth; phase 6 runs the smoke config of every served arch.
+# width and depth, the hybrid family at full width cut to fit one card
+# (SERVE_CUTS); phase 6 runs the smoke config of every served arch.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "deepseek-v2-lite-16b",
-               "qwen3-moe-30b-a3b", "whisper-medium", "llama-3.2-vision-11b")
+               "qwen3-moe-30b-a3b", "whisper-medium", "llama-3.2-vision-11b",
+               "jamba-1.5-large-398b")
 SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
                "stablelm-3b", "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b",
-               "whisper-medium", "llama-3.2-vision-11b")
+               "whisper-medium", "llama-3.2-vision-11b",
+               "jamba-1.5-large-398b")
+# jamba-1.5-large-398b has 401.8 B parameters; one group of its 8
+# sublayers holds ~44.6 B, ~89 GB in bf16, more than the card's 80 GB, so
+# no cut of depth alone fits one card.  Phase 5 serves 2 of its 9 groups
+# (16 layers) with each expert's hidden size cut from 24576 to 4096: 25.7 B
+# parameters, 51.4 GB in bf16.  Every width the kernels see (d_model, the
+# heads, the mamba sublayers), the dense MLP, the router, the 16 experts
+# and top-2 stay published.  A key "a.b" is field b of the config's
+# sub-config a.
+SERVE_CUTS = {"jamba-1.5-large-398b": {"n_layers": 16,
+                                       "moe.d_ff_expert": 4096}}
+SERVE_CUT_WHY = ("one group of 8 sublayers is ~89 GB in bf16 against one "
+                 "80 GB card; no expert-parallel layer on one card")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 # whisper's text context is 448 tokens (arXiv:2212.04356): a 416-token
 # prompt and 32 new tokens fill it
@@ -451,6 +486,9 @@ SERVE_PROMPTS = {"whisper-medium": 416}
 # The VLM's cross-attention gates start at 0 (tanh(0) = 0 keeps the image
 # path from the logits); phases 5 and 6 run them at this value.
 VLM_GATE = 0.5
+# The families whose smoke configs phase 6 runs with their q/k/v
+# projections at 1/sqrt(d) (`condition_projections`), as the CPU tests do.
+CONDITIONED = ("audio", "vlm", "hybrid")
 # The profiled run that splits decode from prefill takes this many tokens
 # (the profiler's events of 31 steps at 48 MoE layers took minutes to
 # collect and read).
@@ -465,11 +503,14 @@ SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 4, 100, 8
 # A router near tie is a rounding decision: phase 6 compares each MoE
 # layer's routing on the card and the CPU at every step on the same
-# inputs, holds logits only in the sequences whose routing agreed at that
-# step, and fails if a flip's CPU margin is wider than SERVE_TOL of the
-# token's |x| @ |W_router| or if more than this share of the (step,
-# sequence) pairs was let go (4 of 32; the card's runs so far flipped at
-# most one token of one sequence).
+# inputs, runs the CPU's step on the card's routing (`moe.forcing`) so
+# that every sequence is held, and fails if a flip's CPU margin is wider
+# than SERVE_TOL of the token's |x| @ |W_router| or if more than this
+# share of the routing decisions (token and layer) flipped.  The moe
+# archs' smoke configs flipped at most one token of one sequence; jamba's
+# (4 MoE sublayers behind 7 bf16 mamba sublayers) 33–42 of its prefill's
+# 1,600 decisions on an H100, in all 4 sequences: holding only the
+# sequences whose routing agreed would hold none of its prefills.
 FLIP_SHARE = 1 / 8
 
 _lines: list[str] = []
@@ -2072,7 +2113,8 @@ def check_ssd(name, device, rates, timed: bool):
     alone, the state one chunk late), the final state within
     ``ref.ssd_state_tolerance``, which must fail two (the state rounded
     to bf16; with dt in mamba2's range, the state carried into the last
-    chunk dropped); timed at the main path's shape."""
+    chunk dropped); timed at the models' prefill shapes (`SSD_TIMED`),
+    where the kernel that ran must be the models' ``"p_split"``."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
     shape = SSD_SHAPES[name]
@@ -2118,6 +2160,10 @@ def check_ssd(name, device, rates, timed: bool):
         emit(rec)
         raise AssertionError(f"ssd's state limit passes a planted fault "
                              f"({name}): {rec}")
+    if timed and rec["variant"] != "p_split":
+        emit(rec)
+        raise AssertionError(f"ssd ran {rec['variant']!r}, not the models' "
+                             f"p_split kernel ({name})")
     if timed:
         bound, by = ssd_bound(shape, rates)
         rec.update(
@@ -2583,14 +2629,42 @@ def profiled_run(model, prompts, new, stub):
                            for e in ops}}
 
 
-def prefill_launches(cfg) -> int:
-    """``flash_attention`` launches of one prefill (``ssd`` for the ssm
-    family): one per attention layer; an audio model's encoder layers, and
-    its decoder layers twice (self and cross); a VLM's layers, its cross
-    blocks included."""
+def prefill_launches(cfg) -> dict:
+    """The kernels' launches of one prefill: ``flash_attention`` once per
+    attention layer (an audio model's encoder layers, and its decoder
+    layers twice, self and cross; a VLM's layers, its cross blocks
+    included; a hybrid model's one a group), ``ssd`` once per mamba layer
+    (the ssm family's layers, a hybrid group's ``attn_every - 1``)."""
+    if cfg.family == "ssm":
+        return {"ssd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        return {"ssd": groups * (cfg.attn_every - 1),
+                "flash_attention": groups}
     if cfg.family == "audio":
-        return cfg.encoder.n_layers + 2 * cfg.n_layers
-    return cfg.n_layers
+        return {"flash_attention": cfg.encoder.n_layers + 2 * cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+def serve_config(arch):
+    """``(config, reduced)``: the published config of ``arch`` with its
+    `SERVE_CUTS` applied, and the record of each key cut (its published
+    and served values, and why), ``None`` for an arch served whole."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cuts = SERVE_CUTS.get(arch)
+    if not cuts:
+        return cfg, None
+    reduced = {}
+    for key, value in cuts.items():
+        sub, _, field = key.rpartition(".")
+        part = getattr(cfg, sub) if sub else cfg
+        reduced[key] = {"published": getattr(part, field), "served": value}
+        part = dataclasses.replace(part, **{field: value})
+        cfg = cfg.replace(**{sub: part}) if sub else part
+    reduced["why"] = SERVE_CUT_WHY
+    return cfg, reduced
 
 
 def serve_path(arch, device):
@@ -2599,18 +2673,21 @@ def serve_path(arch, device):
     (launch counts set to 0 just before and read just after; the whole run
     under the sync watch), then two profiled runs (prefill alone, and
     prefill with the decode loop) for the device's idle share.  The depth
-    is the published one; the audio and vlm families take their modality
-    stub (drawn in the set-up), the VLM's gates are set to ``VLM_GATE``."""
+    is the published one, but for the archs of `SERVE_CUTS` (the record
+    lists each cut under ``"reduced"``); the audio and vlm families take
+    their modality stub (drawn in the set-up), the VLM's gates are set to
+    ``VLM_GATE``."""
     import torch
     from repro_torch.data.synthetic import modality_stub
     from repro_torch.kernels import launch
     from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
     B, S, new = SERVE_BATCH, SERVE_PROMPTS.get(arch, SERVE_PROMPT), SERVE_NEW
     t0 = time.perf_counter()
-    model = serve.make_model(arch, full=True, seed=0, device=device)
+    cfg, reduced = serve_config(arch)
+    model = build_model(cfg, seed=0, device=device)
     prompts = serve.make_prompts(model, B, S, seed=0)
-    stub = modality_stub(model.cfg, B, device=model.device)
-    cfg = model.cfg
+    stub = modality_stub(cfg, B, device=model.device)
     if cfg.family == "vlm":
         model.blocks.cross.gate.fill_(VLM_GATE)
     torch.cuda.synchronize()
@@ -2625,12 +2702,12 @@ def serve_path(arch, device):
     launches = dict(launch.launches)
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
-    want["ssd" if cfg.family == "ssm" else "flash_attention"] = \
-        prefill_launches(cfg)
+    want.update(prefill_launches(cfg))
     decode_syncs = [site for site, names in found if "decode_loop" in names]
     tok, logits = res["tokens"], res["logits"]
     rec = {"phase": "serve_path", "arch": arch, "n_params": model.n_params,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "reduced": reduced,
            "param_dtype": cfg.param_dtype,
            "total_memory_bytes": torch.cuda.get_device_properties(
                device).total_memory,
@@ -2746,24 +2823,27 @@ def serve_card_vs_cpu(arch, compute, device):
 
     The free-running distance (each device on its own cache) is held
     within ``bound`` plus the distance between the CPU's two runs, what
-    the caches' difference makes of the step.  For a moe arch each MoE
-    layer's routing is recorded (``moe.recording``) and compared first: a
-    sequence whose routing flipped at a step (the card against the CPU on
-    the same inputs) is not held at that step, every flip must be a near
-    tie (the CPU's margin within ``SERVE_TOL`` of the token's ``|x| @
-    |W_router|``), and at most ``FLIP_SHARE`` of the (step, sequence)
-    pairs may be let go; ``d`` counts, and the card's distance from the
-    run one precision up is held, only where that run's routing is the
-    CPU's (a different routing is not a rounding).  Last,
-    ``generate_scan`` through ``launch.serve.run`` on both (the share of
-    equal tokens is recorded).
+    the caches' difference makes of the step.  For an arch with MoE
+    layers each layer's routing is recorded (``moe.recording``): the
+    CPU's same-input run and the run one precision up take the card's
+    routing (``moe.forcing``; a router near tie is a rounding decision,
+    and a flipped one would move a sequence by a whole expert), so every
+    sequence is held at every step, while each layer's own choice is
+    recorded and compared with the card's: every flip must be a near tie
+    (the CPU's margin within ``SERVE_TOL`` of the token's ``|x| @
+    |W_router|``), and at most ``FLIP_SHARE`` of the routing decisions
+    (token and layer) may flip.  Last, ``generate_scan`` through
+    ``launch.serve.run`` on both (the share of equal tokens is
+    recorded).
 
     The audio and vlm archs take their modality stub (the same on both
     devices) and keep the memory's K/V in their caches; the VLM's gates
-    are set to ``VLM_GATE``, and both archs' q/k/v projections are
-    scaled to ``1/sqrt(d)`` (`condition_projections`; their smoke configs
-    stack 4 and 10 attention layers whose near one-hot softmax would make
-    every comparison one of tie-breaking), as the CPU tests do."""
+    are set to ``VLM_GATE``.  The families of `CONDITIONED` have their
+    q/k/v projections scaled to ``1/sqrt(d)`` (`condition_projections`;
+    the audio and vlm smoke configs stack 4 and 10 attention layers whose
+    near one-hot softmax would make every comparison one of tie-breaking),
+    as the CPU tests do.  The hybrid arch's caches hold its mamba
+    sublayers' conv windows and SSM states beside the attention's K/V."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.synthetic import modality_stub
@@ -2772,7 +2852,7 @@ def serve_card_vs_cpu(arch, compute, device):
     from repro_torch.models.registry import Model, build_model
     cfg = get_smoke_config(arch).replace(compute_dtype=compute)
     cpu = build_model(cfg, seed=0, device="cpu")
-    if cfg.family in ("audio", "vlm"):
+    if cfg.family in CONDITIONED:
         condition_projections(cpu)
     if cfg.family == "vlm":
         cpu.blocks.cross.gate.data.fill_(VLM_GATE)
@@ -2783,14 +2863,14 @@ def serve_card_vs_cpu(arch, compute, device):
     stub = modality_stub(cpu.cfg, SMOKE_BATCH, device=cpu.device)
     tol = SERVE_TOL[compute]
     B, n = SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW
-    ones = torch.ones(B, dtype=torch.bool)
-    flips, steps = [], []
+    flips, steps, flipped, decisions = [], [], 0, 0
 
-    def step(model, tokens, cache):
-        """``model``'s prefill (a ``None`` cache) or decode step: last
-        logits on the CPU (float64), the cache, the routing."""
+    def step(model, tokens, cache, force=None):
+        """``model``'s prefill (a ``None`` cache) or decode step, on the
+        routing ``force`` where one is given: last logits on the CPU
+        (float64), the cache, the routing it chose."""
         dev = "cpu" if model is not card else device
-        with moe.recording() as route:
+        with moe.recording() as route, moe.forcing(force):
             if cache is None:
                 lg, cache = model.prefill(tokens.to(dev),
                                           model.init_cache(B, n),
@@ -2809,42 +2889,41 @@ def serve_card_vs_cpu(arch, compute, device):
     got, card_cache, route = step(card, prompts, None)
     free, cpu_cache, want_route = step(cpu, prompts, None)
     same, same_cache = free, cpu_cache
-    exact, _, exact_route = step(hi, prompts, None)
+    if route:
+        same, same_cache, want_route = step(cpu, prompts, None, route)
+    exact, _, _ = step(hi, prompts, None, route or None)
     for i in range(SMOKE_NEW):
-        held, agree = ones.clone(), ones
-        if want_route:
-            held, fl = moe.routing_agreement(route, want_route, tol)
+        if route:
+            seqs, fl = moe.routing_agreement(route, want_route, tol)
             flips.extend((i, *f) for f in fl)
-            agree = moe.routing_agreement(exact_route, want_route, tol)[0]
+            flipped += int((~seqs).sum())
+            decisions += sum(r["eidx"][..., 0].numel() for r in route)
         card_rows = cache_rows(card_cache)
         same_rows = cache_rows(same_cache)
-        cache_err = max((peak(card_rows[k][:, held].cpu().double()
-                              - w[:, held].double()) / peak(w[:, held])
-                         for k, w in same_rows.items()
+        cache_err = max((peak(card_rows[k].cpu().double() - w.double())
+                         / peak(w) for k, w in same_rows.items()
                          if w.is_floating_point()), default=0.0)
         ints_equal = all(torch.equal(card_rows[k].cpu(), w)
                          for k, w in same_rows.items()
                          if not w.is_floating_point())
-        scale = peak(same[held])
+        scale = peak(same)
         d, own = rows(same, exact, scale), rows(got, exact, scale)
-        bound = tol + torch.where(agree, 2 * d, 0.0)
+        bound = tol + 2 * d
         err = rows(got, same, scale)
         moved = rows(free, same, scale)
         free_err = rows(got, free, scale)
         top2 = torch.topk(same, 2, dim=-1).values
-        clear = held & ((top2[:, 0] - top2[:, 1]) > bound * scale)
+        clear = (top2[:, 0] - top2[:, 1]) > bound * scale
         steps.append({
-            "held_sequences": int(held.sum()),
             "rel_err": [float(e) for e in err],
             "bound": [float(b) for b in bound],
             "d": [float(x) for x in d], "own": [float(x) for x in own],
             "free_rel_err": [float(e) for e in free_err],
             "moved": [float(e) for e in moved],
             "cache_rel_err": cache_err, "cache_ints_equal": ints_equal,
-            "over_bound": int((held & (err > bound)).sum()),
-            "free_over_bound": int((held & (free_err > bound + moved))
-                                   .sum()),
-            "far_from_exact": int((held & agree & (own > d + tol)).sum()),
+            "over_bound": int((err > bound).sum()),
+            "free_over_bound": int((free_err > bound + moved).sum()),
+            "far_from_exact": int((own > d + tol).sum()),
             "clear_margins": int(clear.sum()),
             "tokens_differ_where_clear": int(
                 (clear & (same.argmax(-1) != got.argmax(-1))).sum())})
@@ -2852,21 +2931,21 @@ def serve_card_vs_cpu(arch, compute, device):
             break
         tok = free.argmax(-1)[:, None]
         snap = _to(card_cache, "cpu")
-        exact, _, exact_route = step(hi, tok, _to(snap, "cpu", hi.cfg.cdtype))
-        free, cpu_cache, _ = step(cpu, tok, cpu_cache)
-        same, same_cache, want_route = step(cpu, tok, snap)
         got, card_cache, route = step(card, tok, card_cache)
+        force = route or None
+        exact, _, _ = step(hi, tok, _to(snap, "cpu", hi.cfg.cdtype), force)
+        free, cpu_cache, _ = step(cpu, tok, cpu_cache)
+        same, same_cache, want_route = step(cpu, tok, snap, force)
     gen_h = serve.run(cpu, prompts, SMOKE_NEW, stub)["tokens"]
     gen_c = serve.run(card, prompts.to(device), SMOKE_NEW,
                       _to(stub, device))["tokens"].cpu()
-    let_go = sum(B - s["held_sequences"] for s in steps)
     pairs = [(e, b, x) for s in steps
              for e, b, x in zip(s["rel_err"], s["bound"], s["d"])]
     rec = {"phase": "serve_card_vs_cpu", "arch": arch, "compute": compute,
            "batch": B, "prompt": SMOKE_PROMPT, "tol": tol, "up": up,
            "stub": {k: list(v.shape) for k, v in stub.items()},
            "vlm_gate": VLM_GATE if cfg.family == "vlm" else None,
-           "projections_conditioned": cfg.family in ("audio", "vlm"),
+           "projections_conditioned": cfg.family in CONDITIONED,
            "max_rel_err": max(e for e, _, _ in pairs),
            "max_err_over_bound": max(e / b for e, b, _ in pairs),
            "max_d": max(x for *_, x in pairs),
@@ -2881,11 +2960,12 @@ def serve_card_vs_cpu(arch, compute, device):
            "tokens_differ_where_clear": sum(s["tokens_differ_where_clear"]
                                             for s in steps),
            "clear_margins": sum(s["clear_margins"] for s in steps),
-           "let_go_pairs": let_go, "pairs": B * SMOKE_NEW, "steps": steps,
+           "pairs": B * SMOKE_NEW, "steps": steps,
            "generate_tokens_equal": float((gen_h == gen_c).float().mean())}
-    if cfg.family == "moe":
+    if cfg.moe is not None:
         rec["routing_flips"] = {
-            "tokens": len(flips),
+            "tokens": len(flips), "decisions": decisions,
+            "pairs_with_a_flip": flipped,
             "max_margin_over_budget": max(
                 (m / b for *_, m, b in flips), default=0.0),
             "first": [dict(zip(("step", "layer", "seq", "pos", "margin",
@@ -2895,7 +2975,7 @@ def serve_card_vs_cpu(arch, compute, device):
     wide = [f for f in flips if f[4] > f[5]]
     if (rec["over_bound"] or rec["cache_over_bound"] or rec["far_from_exact"]
             or rec["tokens_differ_where_clear"] or wide
-            or let_go > FLIP_SHARE * B * SMOKE_NEW):
+            or len(flips) > FLIP_SHARE * decisions):
         raise AssertionError(f"serve card vs CPU ({arch}, {compute}): {rec}; "
                              f"flips wider than their budget: {wide}")
     return rec
@@ -3007,9 +3087,10 @@ def main() -> int:
     for name in ATTN_SHAPES:
         if name not in ATTN_TIMED:
             check_flash_attention(name, dev, rates, timed=False)
-    ssd_main = check_ssd("main", dev, rates, timed=True)
+    ssd_timed = {name: check_ssd(name, dev, rates, timed=True)
+                 for name in SSD_TIMED}
     for name in SSD_SHAPES:
-        if name != "main":
+        if name not in SSD_TIMED:
             check_ssd(name, dev, rates, timed=False)
     mf_main = check_mf_sgd("main", dev, rates, timed=True)
     for name in MF_CASES:
@@ -3158,8 +3239,15 @@ def main() -> int:
             ("flash_attention[vlm_cross]", attn_timed["vlm_cross"],
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
              ("llama-3.2-vision-11b",)),
-            ("ssd", ssd_main, "ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:79", ("mamba2-130m",))):
+            # the wgmma kernel at 8 heads a KV head, and ssd at 256 heads:
+            # jamba-1.5-large-398b's prefill (its reduced cell)
+            ("flash_attention[jamba_attn]", attn_timed["jamba_attn"],
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:93",
+             ("jamba-1.5-large-398b",)),
+            ("ssd", ssd_timed["main"], "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:79", ("mamba2-130m",)),
+            ("ssd[jamba]", ssd_timed["jamba"], "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:79", ("jamba-1.5-large-398b",))):
         counter = name.split("[")[0]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3171,10 +3259,10 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if "variant" in rec:
             kernels[-1]["variant"] = rec["variant"]
+        kernels[-1]["launches_per_prefill_by_arch"] = {
+            a: served[a]["launches_per_prefill"][counter] for a in archs}
         if counter == "flash_attention":
             kernels[-1]["library_backend"] = rec["library_backend"]
-            kernels[-1]["launches_per_prefill_by_arch"] = {
-                a: served[a]["launches_per_prefill"][counter] for a in archs}
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only the archs whose families the port serves are here; any other arch
-id of the JAX package raises ``KeyError`` (ROADMAP queue 1, item 16).
+The JAX package's ten archs, every family of it (dense, moe, ssm,
+hybrid, vlm, audio); any other id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -10,9 +10,9 @@ import importlib
 from .base import (AttnConfig, EncoderConfig, MambaConfig, MLAConfig,
                    ModelConfig, MoEConfig, VisionConfig)
 
-ARCHS = ("deepseek-v2-lite-16b", "llama-3.2-vision-11b", "llama3-8b",
-         "mamba2-130m", "qwen3-0.6b", "qwen3-4b", "qwen3-moe-30b-a3b",
-         "stablelm-3b", "whisper-medium")
+ARCHS = ("deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+         "llama-3.2-vision-11b", "llama3-8b", "mamba2-130m", "qwen3-0.6b",
+         "qwen3-4b", "qwen3-moe-30b-a3b", "stablelm-3b", "whisper-medium")
 
 __all__ = ["ARCHS", "AttnConfig", "EncoderConfig", "MLAConfig",
            "MambaConfig", "ModelConfig", "MoEConfig", "VisionConfig",
@@ -21,8 +21,7 @@ __all__ = ["ARCHS", "AttnConfig", "EncoderConfig", "MLAConfig",
 
 def _module(arch: str):
     if arch not in ARCHS:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP queue 1, "
-                       f"item 16); the port serves {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f".{name}", __package__)
 

@@ -1,10 +1,10 @@
 """Model configuration dataclasses of the ported families.
 
-The counterpart of the JAX package's ``configs/base.py``, for the families
-the port serves (dense, moe, ssm, vlm and audio).  ``pdtype``/``cdtype``
-are ``torch.dtype``s.  The hybrid family's ``attn_every`` stays on
-``ModelConfig`` (ROADMAP queue 1, item 16), so a config reads the same in
-both packages.
+The counterpart of the JAX package's ``configs/base.py`` (without its
+input-shape table, which only the dry-run reads): one `ModelConfig`
+describes a dense or MoE decoder, an SSM (Mamba-2), a hybrid (Mamba and
+attention interleaved), a VLM or an audio encoder-decoder.
+``pdtype``/``cdtype`` are ``torch.dtype``s.
 """
 from __future__ import annotations
 

@@ -15,9 +15,9 @@ decode step on the card runs without one.  At ``S = 1`` (decode) ``C`` is
 The router is float32, as in JAX.  ``lax.top_k`` picks the lower expert
 first among equal probabilities; a stable descending sort does the same
 (``torch.topk`` does not promise it).  `recording` collects each layer's
-routing, and `routing_agreement` compares two runs' routings, for the
-parity checks: a router near tie is a rounding decision that may flip
-between two correct runs.
+routing, `routing_agreement` compares two runs' routings and `forcing`
+makes a run take another's, for the parity checks: a router near tie is
+a rounding decision that may flip between two correct runs.
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ from .params import spec
 
 # The list `recording` fills with each moe_forward's routing, or None.
 _TAP: list | None = None
+# The routings `forcing` makes moe_forward take, in call order, or None.
+_FORCE: list | None = None
 
 
 def moe_spec(cfg: MoEConfig, d_model: int, dtype=torch.float32):
@@ -97,9 +99,12 @@ def moe_forward(p, cfg: MoEConfig, x):
     logits = x.to(rt) @ p["router"].to(rt)                    # [B,S,E]
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = top_k(probs, K)                              # [B,S,K]
-    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     if _TAP is not None:
         _TAP.append(_record(p, x, logits, eidx))
+    if _FORCE is not None:
+        eidx = _FORCE.pop(0)["eidx"].to(x.device)
+        gate = torch.gather(probs, -1, eidx)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
 
     # ---- load-balance auxiliary loss (Switch-style) ----------------------
     me = probs.mean(dim=(0, 1))                              # mean router prob
@@ -158,6 +163,26 @@ def recording():
         yield _TAP
     finally:
         _TAP = outer
+
+
+@contextlib.contextmanager
+def forcing(routes):
+    """Make the `moe_forward` calls in the block take the experts of
+    ``routes`` (another run's `recording` entries, one per call, in call
+    order) in place of their own top-k, each gate its own probability of
+    the expert taken, renormalised; `recording` still records the call's
+    own choice.  ``None`` forces nothing.  For the parity checks: a
+    router near tie is a rounding decision, and one run forced to
+    another's routing computes the same function as it, so every
+    sequence can be held."""
+    global _FORCE
+    outer, _FORCE = _FORCE, None if routes is None else list(routes)
+    try:
+        yield
+        if _FORCE:
+            raise ValueError(f"{len(_FORCE)} forced routings were not taken")
+    finally:
+        _FORCE = outer
 
 
 def routing_agreement(got, want, rel_budget: float):

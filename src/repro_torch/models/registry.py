@@ -1,5 +1,5 @@
-"""Top-level model API: specs, forward, prefill and decode for the dense,
-moe, ssm, vlm and audio families.
+"""Top-level model API: specs, forward, prefill and decode for every
+family of the JAX package (dense, moe, ssm, hybrid, vlm and audio).
 
 `build_model(cfg, seed, device)` returns a `Model`, an ``nn.Module`` whose
 parameters keep the JAX parameter tree's paths with ``.`` for ``/`` and
@@ -11,8 +11,9 @@ instead of the JAX package's batch dicts, and the modality stubs as
 keywords: ``frames`` ``[B, n_ctx, d]`` for the audio family,
 ``image_embeds`` ``[B, n_image_tokens, d]`` for the vlm family (cast to
 the compute dtype, as JAX does).  Caches are (nested) dicts of tensors
-with a leading layers axis (groups, for the vlm family), updated in
-place; a decode step reads the memory's K/V from them.
+with a leading layers axis (groups, for the hybrid and vlm families;
+a group's mamba sublayers, or a VLM group's self blocks, add a second),
+updated in place; a decode step reads the memory's K/V from them.
 """
 from __future__ import annotations
 
@@ -27,13 +28,17 @@ from . import transformer as tf
 from .layers import embed, embed_spec, rmsnorm, rmsnorm_spec, unembed
 from .params import init_params, param_count, spec
 
-FAMILIES = ("dense", "moe", "ssm", "vlm", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the modality stub each family takes, by its keyword
 MEMORY = {"audio": "frames", "vlm": "image_embeds"}
 
 
 def _n_outer(cfg: ModelConfig) -> int:
-    """The length of the stacked ``blocks`` axis: groups for vlm."""
+    """The length of the stacked ``blocks`` axis: groups for hybrid and
+    vlm."""
+    if cfg.family == "hybrid":
+        assert cfg.n_layers % cfg.attn_every == 0
+        return cfg.n_layers // cfg.attn_every
     if cfg.family == "vlm":
         assert cfg.n_layers % cfg.vision.cross_attn_every == 0
         return cfg.n_layers // cfg.vision.cross_attn_every
@@ -49,6 +54,9 @@ def model_specs(cfg: ModelConfig):
     n_outer = _n_outer(cfg)
     if cfg.family == "audio":
         body = encdec.encdec_specs(cfg, dtype)
+    elif cfg.family == "hybrid":
+        body = {"blocks": tf.stack_specs(n_outer,
+                                         tf.hybrid_group_spec(cfg, dtype))}
     elif cfg.family == "vlm":
         body = {"blocks": tf.stack_specs(n_outer,
                                          tf.vlm_group_spec(cfg, dtype))}
@@ -147,6 +155,10 @@ class Model(nn.Module):
         if cfg.family == "audio":
             memory = encdec.encode(p, cfg, mem)
             x, aux = encdec.decoder_forward(p, cfg, x, pos, memory), 0.0
+        elif cfg.family == "hybrid":
+            x, aux = tf._scan_blocks(
+                lambda pl, x: tf.hybrid_group_fwd(pl, cfg, x, pos),
+                p["blocks"], x)
         elif cfg.family == "vlm":
             x, aux = tf._scan_blocks(
                 lambda pl, x: tf.vlm_group_fwd(pl, cfg, x, pos, mem),
@@ -166,7 +178,9 @@ class Model(nn.Module):
         dt = dtype or cfg.cdtype
         if cfg.family == "audio":
             return encdec.decoder_cache(cfg, batch, max_len, dt, self.device)
-        if cfg.family == "vlm":
+        if cfg.family == "hybrid":
+            one = tf.hybrid_group_cache(cfg, batch, max_len, dt, "meta")
+        elif cfg.family == "vlm":
             one = tf.vlm_group_cache(cfg, batch, max_len, dt, "meta")
         elif cfg.family == "ssm":
             one = mamba2.mamba_init_cache(cfg.mamba, cfg.d_model, batch, dt,
@@ -188,7 +202,9 @@ class Model(nn.Module):
             memory = encdec.encode(p, cfg, mem)
             x, cache = encdec.decoder_prefill(p, cfg, x, pos, cache, memory)
             return self._logits(p, x[:, -1:]), cache
-        if cfg.family == "vlm":
+        if cfg.family == "hybrid":
+            fn = lambda pl, x, c: tf.hybrid_group_prefill(pl, cfg, x, pos, c)
+        elif cfg.family == "vlm":
             fn = lambda pl, x, c: tf.vlm_group_prefill(pl, cfg, x, pos, c,
                                                        mem)
         elif cfg.family == "ssm":
@@ -207,7 +223,9 @@ class Model(nn.Module):
         if cfg.family == "audio":
             x, cache = encdec.decoder_decode_step(p, cfg, x, cache)
             return self._logits(p, x), cache
-        if cfg.family == "vlm":
+        if cfg.family == "hybrid":
+            fn = lambda pl, x, c: tf.hybrid_group_decode(pl, cfg, x, c)
+        elif cfg.family == "vlm":
             fn = lambda pl, x, c: tf.vlm_group_decode(pl, cfg, x, c)
         elif cfg.family == "ssm":
             fn = lambda pl, x, c: tf.mamba_block_decode(pl, cfg, x, c)

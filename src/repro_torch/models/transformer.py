@@ -1,14 +1,16 @@
-"""Decoder stacks of the ported families (dense, moe, ssm and vlm),
-built from stacked ParamSpec trees and run layer after layer.
+"""Decoder stacks of every family of the JAX package (dense, moe, ssm,
+hybrid and vlm; the audio decoder is ``encdec.py``), built from stacked
+ParamSpec trees and run layer after layer.
 
 The JAX package's ``models/transformer.py``: its ``lax.scan`` over the
 stacked ``layers`` axis is a plain loop here (`_scan_blocks`,
-`_scan_blocks_cache`), and ``remat`` has no counterpart in serving.  A
-block's attention is GQA or MLA and its FFN the dense MLP or the MoE
-layer (``_attn_*``, ``_ffn_*``).  A VLM group is ``cross_attn_every - 1``
-self-attention blocks and one gated cross-attention block over the image
-embeddings.  The hybrid (Jamba) groups raise ``NotImplementedError``
-(ROADMAP queue 1, item 16).
+`_scan_blocks_cache`), and ``remat`` and the sharding hints have no
+counterpart in serving.  A block's attention is GQA or MLA and its FFN
+the dense MLP or the MoE layer (``_attn_*``, ``_ffn_*``).  A hybrid
+(Jamba) group is ``attn_every - 1`` mamba sublayers and one attention
+sublayer, each followed by an FFN sublayer, dense and MoE in turn.  A VLM
+group is ``cross_attn_every - 1`` self-attention blocks and one gated
+cross-attention block over the image embeddings.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from . import moe as moe_mod
 from .layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from .params import map_specs, spec
 
-NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 16: the "
-              "hybrid family)")
+# Raised for a family the JAX package does not have either.
+NOT_PORTED = "{} is not a family of the JAX package's model zoo"
 
 
 def stack_specs(n: int, tree):
@@ -136,15 +138,18 @@ def _attn_prefill(p, cfg: ModelConfig, x, positions, cache):
     return attn_mod.gqa_prefill(p, a, x, positions, cache)
 
 
-def _ffn_spec(cfg: ModelConfig, dtype):
-    if cfg.moe is not None:
+def _ffn_spec(cfg: ModelConfig, dtype, use_moe: bool | None = None):
+    """The MoE layer's specs where ``use_moe`` (by default: where the
+    config has one), else the dense MLP's."""
+    if cfg.moe is not None if use_moe is None else use_moe:
         return moe_mod.moe_spec(cfg.moe, cfg.d_model, dtype)
     return mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype)
 
 
-def _ffn_fwd(p, cfg: ModelConfig, x):
-    """``(y, aux)``: the MoE layer's aux loss, 0.0 for the dense MLP."""
-    if cfg.moe is not None:
+def _ffn_fwd(p, cfg: ModelConfig, x, use_moe: bool | None = None):
+    """``(y, aux)``: the MoE layer's aux loss, 0.0 for the dense MLP;
+    ``use_moe`` as in `_ffn_spec`."""
+    if cfg.moe is not None if use_moe is None else use_moe:
         return moe_mod.moe_forward(p, cfg.moe, x)
     return mlp(p, x, cfg.act), 0.0
 
@@ -218,6 +223,136 @@ def mamba_block_prefill(p, cfg: ModelConfig, x, positions, cache):
         p["mixer"], cfg, rmsnorm(p["ln"], x, cfg.norm_eps))
     cache = dict(cache, conv=conv, ssm=state, pos=positions[:, -1] + 1)
     return x + h, cache
+
+
+# ---- hybrid (Jamba) group -------------------------------------------------
+# One group = `attn_every` sublayers: (attn_every - 1) mamba and the
+# attention last, each followed by an FFN sublayer, the dense MLP on the
+# even sublayer indices and the MoE on the odd ones (Jamba's
+# every-other-layer MoE).
+def hybrid_group_spec(cfg: ModelConfig, dtype):
+    period = cfg.attn_every
+    n_moe = period // 2
+    return {
+        "mamba": stack_specs(period - 1, mamba_block_spec(cfg, dtype)),
+        "attn": {
+            "ln1": rmsnorm_spec(cfg.d_model, dtype),
+            "attn": _attn_spec(cfg, dtype),
+        },
+        "mlp": stack_specs(period - n_moe, {
+            "ln": rmsnorm_spec(cfg.d_model, dtype),
+            "ffn": _ffn_spec(cfg, dtype, use_moe=False)}),
+        "moe": stack_specs(n_moe, {
+            "ln": rmsnorm_spec(cfg.d_model, dtype),
+            "ffn": _ffn_spec(cfg, dtype, use_moe=True)}),
+    }
+
+
+def _hybrid_sublayers(cfg: ModelConfig):
+    """The group's sublayers in order, as ``((mixer, i), (ffn, j))``:
+    the mixer ``"mamba"`` (its ``i``-th) or ``"attn"``, the FFN ``"mlp"``
+    or ``"moe"`` (its ``j``-th).  The order of prefill and decode."""
+    period = cfg.attn_every
+    plan = []
+    i_mamba = i_mlp = i_moe = 0
+    for i in range(period):
+        if i == period - 1:
+            mixer = ("attn", 0)
+        else:
+            mixer = ("mamba", i_mamba)
+            i_mamba += 1
+        if i % 2 == 1:
+            ffn = ("moe", i_moe)
+            i_moe += 1
+        else:
+            ffn = ("mlp", i_mlp)
+            i_mlp += 1
+        plan.append((mixer, ffn))
+    return plan
+
+
+def _hybrid_forward_order(cfg: ModelConfig):
+    """The JAX package's forward order: ``attn_every // 2 - 1`` pairs
+    (mamba + mlp, mamba + moe), then mamba + mlp and attn + moe.  It is
+    `_hybrid_sublayers` at an even ``attn_every``; at an odd one it skips
+    mamba sublayer ``attn_every - 2`` and the last MLP, and puts the MoE
+    after the attention, as the JAX forward does."""
+    n_pairs = cfg.attn_every // 2 - 1
+    plan = []
+    for i in range(n_pairs):
+        plan += [(("mamba", 2 * i), ("mlp", i)),
+                 (("mamba", 2 * i + 1), ("moe", i))]
+    return plan + [(("mamba", 2 * n_pairs), ("mlp", n_pairs)),
+                   (("attn", 0), ("moe", n_pairs))]
+
+
+def _hybrid_ffn(p, cfg: ModelConfig, x, ffn):
+    """``x`` plus the FFN sublayer ``ffn`` (``(kind, j)``), and its aux."""
+    kind, j = ffn
+    pf = layer(p[kind], j)
+    h, aux = _ffn_fwd(pf["ffn"], cfg, rmsnorm(pf["ln"], x, cfg.norm_eps),
+                      use_moe=kind == "moe")
+    return x + h, aux
+
+
+def hybrid_group_fwd(p, cfg: ModelConfig, x, positions):
+    """One group on the full sequence, in `_hybrid_forward_order`:
+    ``(x, aux)``."""
+    aux = 0.0
+    for (mixer, i), ffn in _hybrid_forward_order(cfg):
+        if mixer == "mamba":
+            x, _ = mamba_block_fwd(layer(p["mamba"], i), cfg, x)
+        else:
+            pa = p["attn"]
+            x = x + _attn_fwd(pa["attn"], cfg,
+                              rmsnorm(pa["ln1"], x, cfg.norm_eps), positions)
+        x, a = _hybrid_ffn(p, cfg, x, ffn)
+        aux = aux + a
+    return x, aux
+
+
+def hybrid_group_cache(cfg: ModelConfig, batch, max_len, dtype, device):
+    """One group's zeroed caches: the mamba sublayers' stacked on a
+    leading axis, and the attention's."""
+    m = mamba2.mamba_init_cache(cfg.mamba, cfg.d_model, batch, dtype, "meta")
+    return {"mamba": stacked_zeros(m, cfg.attn_every - 1, device),
+            "attn": _attn_cache(cfg, batch, max_len, dtype, device)}
+
+
+def _hybrid_cached(p, cfg: ModelConfig, x, cache, mamba_fn, attn_fn):
+    """The group's sublayers in `_hybrid_sublayers` order over its cache:
+    ``mamba_fn(p_i, x, cache_i) -> (x, cache_i)`` (the new cache copied
+    into the stacked one), ``attn_fn(p_attn, xn, cache) -> (h, cache)``."""
+    for (mixer, i), ffn in _hybrid_sublayers(cfg):
+        if mixer == "mamba":
+            views = layer(cache["mamba"], i)
+            x, c = mamba_fn(layer(p["mamba"], i), x, _dicts(views))
+            _copy_back(views, c)
+        else:
+            pa = p["attn"]
+            h, ca = attn_fn(pa["attn"], rmsnorm(pa["ln1"], x, cfg.norm_eps),
+                            cache["attn"])
+            cache = dict(cache, attn=ca)
+            x = x + h
+        x, _ = _hybrid_ffn(p, cfg, x, ffn)
+    return x, cache
+
+
+def hybrid_group_decode(p, cfg: ModelConfig, x, cache):
+    return _hybrid_cached(
+        p, cfg, x, cache,
+        lambda pm, x, c: mamba_block_decode(pm, cfg, x, c),
+        lambda pa, xn, c: _attn_decode(pa, cfg, xn, c))
+
+
+def hybrid_group_prefill(p, cfg: ModelConfig, x, positions, cache):
+    """The group on the prompt, filling the attention's KV cache and the
+    mamba sublayers' conv windows and SSM states: one projection each,
+    where JAX makes two."""
+    return _hybrid_cached(
+        p, cfg, x, cache,
+        lambda pm, x, c: mamba_block_prefill(pm, cfg, x, positions, c),
+        lambda pa, xn, c: _attn_prefill(pa, cfg, xn, positions, c))
 
 
 # ---- VLM group (Llama-3.2-Vision style) -----------------------------------

@@ -25,6 +25,7 @@ from repro.models import attention as jattn
 from repro.models import encdec as jencdec
 from repro.models import layers as jlayers
 from repro.models.registry import build_model as jax_build_model
+from repro_torch import rng
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import model_params_from_jax
 from repro_torch.models import attention as tattn
@@ -35,7 +36,7 @@ from torch_memory_models import (B, check_forward,
                                  check_generate_scan,
                                  check_prefill_and_decode, check_stub,
                                  conditioned, hold)
-from torch_memory_models import jax_init
+from torch_memory_models import CPU_DRAW_CHUNK, jax_init
 from torch_memory_models import pair as make_pair
 
 ARCH = "whisper-medium"
@@ -203,9 +204,10 @@ def test_model_params_from_jax_covers_every_path():
     assert tm.n_params == sum(v.size for v in names.values())
 
 
-def test_init_draws_match_jax():
+def test_init_draws_match_jax(monkeypatch):
     """The port's own init draws JAX's weights to a few ulp (``enc_pos``
     a normal at 0.02, the rest truncated normals)."""
+    monkeypatch.setattr(rng, "_CHUNK", CPU_DRAW_CHUNK)
     jp = jax_init(ARCH, 7)
     tm = build_model(get_smoke_config(ARCH), seed=7, device="cpu")
     state = tm.state_dict()

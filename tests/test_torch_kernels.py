@@ -579,6 +579,10 @@ FA_CASES = {
     "f32_d80_64": (2, 100, 100, 4, 4, 80, 64, True, None, "f32", "arange"),
     "bf16_d80_80": (2, 150, 150, 8, 8, 80, 80, True, 64, "bf16", "holes"),
     "f32_d80_80": (1, 90, 120, 4, 2, 80, 80, False, None, "f32", "arange"),
+    # jamba-1.5-large's attention: 64 query heads over 8 KV heads of 128
+    # (8 heads a KV head)
+    "bf16_jamba_rep8": (1, 512, 512, 64, 8, 128, 128, True, None, "bf16",
+                        "arange"),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -627,7 +631,8 @@ def ssd_case(b, s, h, p, g, n, seed=0, mamba_dt=False):
 # h/g of 1 and 8, s shorter than a chunk and ragged inside the last,
 # grids of 60 and 240 CTAs (not multiples of 132 SMs), chunk and n of 16
 # and 48, n 112 at chunk 80; and bf16 past its limits (n 256, chunk 256),
-# which the per-head kernel takes.
+# which the per-head kernel takes; last jamba-1.5-large's 256 heads in 32
+# groups.
 SSD_CASES = {
     "f32": (2, 128, 4, 32, 2, 32, 32, "f32"),
     "f32_p64": (1, 256, 8, 64, 1, 64, 64, "f32"),
@@ -650,6 +655,10 @@ SSD_CASES = {
     "bf16_chunk80_n112": (1, 300, 2, 64, 1, 112, 80, "bf16"),
     "bf16_n256_per_head": (1, 200, 2, 64, 1, 256, 64, "bf16"),
     "bf16_chunk256_per_head": (1, 300, 2, 64, 1, 64, 256, "bf16"),
+    # jamba-1.5-large's mamba sublayers: d_inner 16384 in 256 heads of 64,
+    # 32 groups of n 128
+    "bf16_jamba_h256": (1, 512, 256, 64, 32, 128, 128, "bf16"),
+    "bf16_jamba_h256_carry": (1, 512, 256, 64, 32, 128, 128, "bf16"),
 }
 
 
@@ -700,7 +709,7 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
 @pytest.mark.parametrize("case", ["bf16_d128_window100", "bf16_d128_holes",
                                   "f32", "bf16_window_dv16",
                                   "bf16_mla_window50", "bf16_mla_rep3",
-                                  "bf16_d80_80"])
+                                  "bf16_d80_80", "bf16_jamba_rep8"])
 def test_cuda_flash_attention_is_deterministic(cuda, case):
     """Two calls on the same inputs give bit-equal outputs (no atomics,
     a fixed order of sums)."""

@@ -197,3 +197,35 @@ def test_moe_decode_shape_runs_every_expert():
     keep = _hold(run_both(cfg, 32, "float32", B=3, S=1, seed=9), cfg,
                  "float32", S=1)
     assert keep.all()
+
+
+def test_forcing_takes_the_given_routing():
+    """``moe.forcing`` on a run's own routing gives its output bit for
+    bit; on that routing with each token's two experts swapped, the same
+    function up to the order of the two-term sum (the gates follow the
+    experts); on another input's routing the recording still shows the
+    layer's own choice.  A forced routing left untaken raises."""
+    cfg = MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)
+    p = {k: torch.from_numpy(np.array(v))
+         for k, v in _params(cfg, 32, 3).items()}
+    x = torch.from_numpy(_x(2, 24, 32, 4))
+    with moe.recording() as own:
+        y, aux = moe.moe_forward(p, cfg, x)
+    with moe.forcing(own):
+        y_same, aux_same = moe.moe_forward(p, cfg, x)
+    assert torch.equal(y_same, y) and torch.equal(aux_same, aux)
+    swapped = [dict(own[0], eidx=own[0]["eidx"].flip(-1))]
+    with moe.recording() as rec, moe.forcing(swapped):
+        y_swap, _ = moe.moe_forward(p, cfg, x)
+    torch.testing.assert_close(y_swap, y, rtol=1e-6, atol=1e-6)
+    assert torch.equal(rec[0]["eidx"], own[0]["eidx"])
+    with moe.recording() as other:
+        moe.moe_forward(p, cfg, torch.from_numpy(_x(2, 24, 32, 5)))
+    with moe.recording() as rec, moe.forcing(other):
+        y_other, _ = moe.moe_forward(p, cfg, x)
+    assert torch.equal(rec[0]["eidx"], own[0]["eidx"])
+    assert not torch.equal(other[0]["eidx"], own[0]["eidx"])
+    assert not torch.allclose(y_other, y)
+    with pytest.raises(ValueError, match="not taken"):
+        with moe.forcing(own + own):
+            moe.moe_forward(p, cfg, x)

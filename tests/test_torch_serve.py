@@ -49,7 +49,6 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
-from repro.models import moe as jmoe
 from repro.models.params import init_params as jax_init_params
 from repro.data.synthetic import TokenGenConfig as JTokenGenConfig
 from repro.data.synthetic import token_batch as jax_token_batch
@@ -64,9 +63,11 @@ from repro_torch.data.synthetic import TokenGenConfig, token_batch
 from repro_torch.kernels import launch
 from repro_torch.launch import serve
 from repro_torch.models import layers, moe
-from repro_torch.models.params import init_params
-from repro_torch.models.registry import build_model, model_specs
+from repro_torch.models.params import init_params, param_count
+from repro_torch.models.registry import FAMILIES, build_model, model_specs
 from repro_torch.serve.decode import generate, generate_scan
+from torch_memory_models import CPU_DRAW_CHUNK
+from torch_routing import RoutingTap, jax_routing_tap  # noqa: F401
 
 MOE = ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
 SERVED = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
@@ -74,65 +75,6 @@ SERVED = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLIP_SHARE = 0.2
 B, S, NEW = 2, 40, 6
-
-# JAX's routing of every moe_forward run since the last RoutingTap
-_JAX_ROUTES: list = []
-
-
-def _record_jax_route(eidx, logits, bound):
-    _JAX_ROUTES.append({"eidx": torch.from_numpy(np.asarray(eidx)).long(),
-                        "logits": torch.from_numpy(np.asarray(logits)),
-                        "bound": torch.from_numpy(np.asarray(bound))})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def jax_routing_tap():
-    """JAX's ``moe_forward`` with its routing sent to `_JAX_ROUTES` (the
-    same router products, an ordered callback), for this module only."""
-    orig = jmoe.moe_forward
-
-    def tapped(p, cfg, x):
-        xf = x.astype(jnp.float32)
-        logits = xf @ p["router"]
-        _, eidx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.top_k)
-        bound = (jnp.abs(xf) @ jnp.abs(p["router"])).max(-1)
-        jax.debug.callback(_record_jax_route, eidx, logits, bound,
-                           ordered=True)
-        return orig(p, cfg, x)
-
-    jmoe.moe_forward = tapped
-    yield
-    jmoe.moe_forward = orig
-
-
-class RoutingTap:
-    """Both packages' MoE routing of the calls made inside one ``with``
-    (``port`` and ``jax``, a list entry per layer call, in order)."""
-
-    def __enter__(self):
-        jax.effects_barrier()       # no earlier call's routing leaks in
-        del _JAX_ROUTES[:]
-        self._rec = moe.recording()
-        self.port = self._rec.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self._rec.__exit__(*exc)
-        jax.effects_barrier()
-        self.jax = list(_JAX_ROUTES)
-
-    def agreement(self, tol, calls=None):
-        """``[B]`` bool, the sequences whose routing agreed in the calls
-        ``calls`` (a slice; all by default); every flip a near tie."""
-        calls = calls or slice(None)
-        got, want = self.port[calls], self.jax[calls]
-        assert len(got) == len(want)
-        if not want:
-            return np.ones(B, bool)
-        same, flips = moe.routing_agreement(got, want, tol)
-        assert all(margin <= budget for *_, margin, budget in flips), flips
-        return same.numpy()
-
 
 @pytest.fixture(scope="module", params=[(a, c) for a in SERVED
                                         for c in ("float32", "bfloat16")],
@@ -394,9 +336,10 @@ def test_model_params_from_jax_covers_every_path(arch):
 
 
 @pytest.mark.parametrize("arch", SERVED)
-def test_init_draws_match_jax(arch):
+def test_init_draws_match_jax(arch, monkeypatch):
     """The port's own init draws JAX's weights to a few ulp (truncated
     normals through the port's threefry and erfinv)."""
+    monkeypatch.setattr(rng, "_CHUNK", CPU_DRAW_CHUNK)
     jp = jax_build_model(jax_smoke_config(arch)).init(jax.random.PRNGKey(7))
     tm = build_model(get_smoke_config(arch), seed=7, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
@@ -462,7 +405,8 @@ def test_layers_match_jax(dtype):
                       jnp.asarray(h, jdt)), carried)
 
 
-def test_serve_cli_runs_on_the_cpu(capsys):
+def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr(rng, "_CHUNK", CPU_DRAW_CHUNK)
     for arch in SERVED:
         launch.reset_launches()
         out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len",
@@ -481,23 +425,30 @@ def test_serve_defaults_to_the_card():
 
 
 def test_only_ported_archs_are_served():
-    """The text archs of this file, the vlm and audio archs (their own
-    files: tests/test_torch_vlm.py, tests/test_torch_encdec.py); Jamba
-    and the hybrid family are still to be ported."""
-    memory = {"llama-3.2-vision-11b": "vlm", "whisper-medium": "audio"}
-    assert set(ARCHS) == set(SERVED) | set(memory)
+    """The port serves every arch of the JAX package: the text archs of
+    this file, the vlm, audio and hybrid archs (their own files:
+    tests/test_torch_vlm.py, tests/test_torch_encdec.py,
+    tests/test_torch_hybrid.py, each of which builds its model).
+    ``model_specs`` takes every family of the JAX package and counts its
+    parameters as JAX does; an unknown arch or family raises."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    others = {"llama-3.2-vision-11b": "vlm", "whisper-medium": "audio",
+              "jamba-1.5-large-398b": "hybrid"}
+    assert set(ARCHS) == set(JAX_ARCHS) == set(SERVED) | set(others)
+    assert {jax_smoke_config(a).family for a in JAX_ARCHS} == set(FAMILIES)
     for arch in ARCHS:
         assert get_config(arch).n_layers > get_smoke_config(arch).n_layers
-    with pytest.raises(KeyError, match="ROADMAP queue 1, item 16"):
-        get_config("jamba-1.5-large-398b")
+        cfg = get_smoke_config(arch)
+        assert cfg.family == jax_smoke_config(arch).family
+        assert param_count(model_specs(cfg)) == jax_build_model(
+            jax_smoke_config(arch)).n_params
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
     cfg = get_smoke_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        model_specs(cfg.replace(family="hybrid"))
-    for arch, family in memory.items():
-        mcfg = get_smoke_config(arch)
-        assert mcfg.family == family
-        m = build_model(mcfg, seed=0, device="cpu")
-        assert m.n_params > 0 and m.cfg.family == family
+    with pytest.raises(NotImplementedError, match="not a family"):
+        model_specs(cfg.replace(family="rnn"))
+    for arch, family in others.items():
+        assert get_smoke_config(arch).family == family
 
 
 @pytest.mark.parametrize("arch", MOE)

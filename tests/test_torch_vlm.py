@@ -20,6 +20,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as jattn
 from repro.models.registry import build_model as jax_build_model
+from repro_torch import rng
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import model_params_from_jax
 from repro_torch.models import attention as tattn
@@ -29,7 +30,7 @@ from torch_memory_models import (B, check_forward,
                                  check_generate_scan,
                                  check_prefill_and_decode, check_stub,
                                  conditioned, hold, with_gate)
-from torch_memory_models import jax_init
+from torch_memory_models import CPU_DRAW_CHUNK, jax_init
 from torch_memory_models import pair as make_pair
 
 ARCH = "llama-3.2-vision-11b"
@@ -163,9 +164,10 @@ def test_model_params_from_jax_covers_every_path():
     assert tm.n_params == sum(v.size for v in names.values())
 
 
-def test_init_draws_match_jax():
+def test_init_draws_match_jax(monkeypatch):
     """The port's own init draws JAX's weights to a few ulp, the zero
     gates included."""
+    monkeypatch.setattr(rng, "_CHUNK", CPU_DRAW_CHUNK)
     jp = jax_init(ARCH, 7)
     tm = build_model(get_smoke_config(ARCH), seed=7, device="cpu")
     state = tm.state_dict()

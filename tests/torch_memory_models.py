@@ -1,7 +1,8 @@
 """Shared holding of the port's memory-reading models (the vlm family's
-llama-3.2-vision-11b and the audio family's whisper-medium) against the
-JAX package, on the CPU, at their smoke configs.  Used by
-``tests/test_torch_vlm.py`` and ``tests/test_torch_encdec.py``.
+llama-3.2-vision-11b and the audio family's whisper-medium) and of the
+hybrid family's jamba-1.5-large-398b against the JAX package, on the CPU,
+at their smoke configs.  Used by ``tests/test_torch_vlm.py``,
+``tests/test_torch_encdec.py`` and ``tests/test_torch_hybrid.py``.
 
 JAX's ``build_model(cfg).init(PRNGKey(1))`` weights are carried across
 (``convert.model_params_from_jax``); the VLM's cross-attention gates are
@@ -44,6 +45,14 @@ from repro_torch.data.synthetic import (TokenGenConfig, modality_stub,
 from repro_torch.models.registry import MEMORY
 
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# A chunk of the port's CPU weight draw (`rng._CHUNK`) under torch's
+# parallel grain of 32,768 elements, for the tests that draw a model:
+# each op of the threefry then runs on one thread.  Under the suite's
+# ``-n 6`` the default chunk's multithreaded ops oversubscribe the cores
+# (a smoke model's draw 50-190 s where it takes 2 s alone); the draws
+# are bit-equal at any chunk
+# (``test_torch_serve.py::test_chunked_init_is_bit_equal_to_the_whole_leaf_cast``).
+CPU_DRAW_CHUNK = 1 << 14
 GATE = 0.5
 B, S, NEW = 2, 24, 5
 
@@ -103,7 +112,8 @@ def pair(arch, compute):
 class Pair:
     """The JAX model and the port's on the same weights (`conditioned`,
     gates at `GATE`), for one arch and one compute dtype, with the prompts
-    and the modality stub."""
+    and the modality stub (none for a family without memory: ``name`` and
+    ``stub`` are ``None``)."""
 
     def __init__(self, arch, compute, seed=1):
         self.arch, self.compute = arch, compute
@@ -116,9 +126,9 @@ class Pair:
         self.toks = token_batch(TokenGenConfig(
             vocab_size=self.tcfg.vocab_size, seq_len=S, batch=B, seed=3),
             0, device="cpu").numpy()
-        self.name = MEMORY[self.tcfg.family]
-        self.stub = modality_stub(self.tcfg, B, device="cpu")[
-            self.name].numpy()
+        self.name = MEMORY.get(self.tcfg.family)    # None: no memory
+        self.stub = None if self.name is None else modality_stub(
+            self.tcfg, B, device="cpu")[self.name].numpy()
         self._jit = {}
         self._run = None
 
@@ -130,11 +140,13 @@ class Pair:
 
     def jbatch(self, tokens, stub=True):
         batch = {"tokens": jnp.asarray(tokens)}
-        if stub:
+        if stub and self.name is not None:
             batch[self.name] = jnp.asarray(self.stub)
         return batch
 
     def tstub(self, stub=None):
+        if self.name is None:
+            return {}
         return {self.name: torch.from_numpy(
             np.array(self.stub if stub is None else stub, copy=True))}
 
