@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; never
-JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
+JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
 
 1. device and build: the card's name and power limit, then ``nvcc``
    builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -15,6 +15,14 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    (over the H100 SXM data-sheet rates).  ``delta_pack`` must be
    bit-equal for f32, bf16 and int8; the comm substrate's threshold
    selection is timed beside the other exact selections;
+   ``flash_attention_bwd`` (``check_flash_attention_bwd``, `BWD_SHAPES`:
+   qwen3-0.6b's training step ``train_main``, timed beside its bound, its
+   plain version and the backward of one ``scaled_dot_product_attention``
+   call, with its kernels' ptxas lines, no spills; head size 64, float32,
+   rep 1, 4 and 8, a window, masked keys, ragged Sq and Sk, rows that see
+   no key) within ``ref.attention_bwd_tolerance`` of its plain version,
+   where D taken as 0 and a dropped key tile must fail, and the forward
+   with ``lse`` bit-equal to the forward without;
    ``flash_attention`` (at the models' prefill shape, at MLA's,
    ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, at
    whisper-medium's encoder, ``whisper_enc``, at llama-3.2-vision's
@@ -184,7 +192,27 @@ JAX or the JAX package).  Fourteen phases, one JSON line each (or more):
    memory, the gathered bytes; ``tune.frontier(..., devices=[the card])``
    at ``MFConfig()`` equal to the unsharded frontier; ``python -m
    repro_torch.analysis src/repro_torch --strict`` as a subprocess (exit
-   0, 0 findings, its seconds).
+   0, 0 findings, its seconds);
+15. training at full width (``train_path``): qwen3-0.6b through
+   ``python -m repro_torch.launch.train --arch qwen3-0.6b --full --batch 8
+   --seq 2048 --steps 6`` (its ``main``; AdamW with the cosine schedule,
+   BSP, remat on): ``flash_attention`` 56 and ``flash_attention_bwd`` 28
+   launches a step and no other kernel; then the same steps from the
+   launcher's pieces, each timed (ms a step, tokens/s, the warm-up step
+   apart), peak memory, one profiled step (device ms, idle share, the
+   kernels' and the top ops' device ms); every loss and ``grad_norm``
+   finite and the last step's loss below step 1's and below the initial
+   weights' loss on the same batch (each step draws a new batch, whose
+   losses at the initial weights differ by ~10 %); SSP with a FIFO of
+   2 for 4 steps: ``apply_scale`` 0, 0, 1, 1;
+16. training on the card against the CPU (``train_card_vs_cpu``):
+   qwen3-0.6b's smoke config in bf16 and float32, 3 SGD steps from the
+   same parameters and batches: the loss, ``grad_norm``, every gradient
+   leaf and every moved parameter within ``SERVE_TOL`` plus twice the
+   step's own rounding (the CPU's run one precision up); AdamW's updates
+   on identical gradients; a gradient through ``ssd`` (mamba2-130m's
+   smoke config) and through MLA (deepseek-v2-lite-16b's) raises
+   ``NotImplementedError`` on the card.
 
 Then the ``kernels`` summary line (the ``ps_view`` and ``delta_pack``
 rows carry the runtime's launches too, the ``ps_view`` rows phase 14's), the card's ``nvidia-smi`` line,
@@ -874,13 +902,13 @@ def expected_launches(cfg, n_clocks):
     from repro_torch.comm import substrate
     if not cfg.comm_active:
         return {"ring_view": n_clocks, "vap_suffix_norms": n_clocks,
-                "delta_pack": 0, "flash_attention": 0, "ssd": 0,
-                "mf_sgd_block": 0}
+                "delta_pack": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0, "ssd": 0, "mf_sgd_block": 0}
     ships = sum(substrate.ship_now(c, cfg.agg_clocks)
                 for c in range(n_clocks))
     return {"ring_view": 2 * n_clocks, "vap_suffix_norms": n_clocks,
-            "delta_pack": ships, "flash_attention": 0, "ssd": 0,
-            "mf_sgd_block": 0}
+            "delta_pack": ships, "flash_attention": 0,
+            "flash_attention_bwd": 0, "ssd": 0, "mf_sgd_block": 0}
 
 
 def device_split(app, cfg, n_clocks, **sim_kw):
@@ -2981,6 +3009,552 @@ def serve_card_vs_cpu(arch, compute, device):
     return rec
 
 
+# flash_attention_bwd's phase shapes (ATTN_SHAPES's layout).  "train_main"
+# is qwen3-0.6b's training step (batch 8 x 2048 tokens, 16 heads over 8 KV
+# heads of 128, causal, bf16), timed; then head size 64, float32, rep 1,
+# 4 and 8, a window, masked keys (kv_pos < 0), ragged Sq and Sk (not
+# multiples of the kernels' tiles), rows that see no key.
+BWD_SHAPES = {
+    "train_main": (8, 2048, 2048, 16, 8, 128, 128, True, None, "bf16",
+                   "arange"),
+    "bf16_d64": (2, 512, 512, 16, 8, 64, 64, True, None, "bf16", "arange"),
+    "f32_d128": (1, 300, 300, 8, 4, 128, 128, True, None, "f32", "arange"),
+    "f32_d64_holes": (2, 200, 200, 4, 2, 64, 64, True, None, "f32",
+                      "holes"),
+    "bf16_rep1_noncausal": (2, 300, 450, 8, 8, 128, 128, False, None,
+                            "bf16", "arange"),
+    "bf16_rep4": (2, 384, 384, 16, 4, 128, 128, True, None, "bf16",
+                  "arange"),
+    "bf16_rep8_window": (1, 512, 512, 16, 2, 128, 128, True, 100, "bf16",
+                         "arange"),
+    "bf16_holes": (2, 256, 256, 8, 4, 128, 128, True, None, "bf16",
+                   "holes"),
+    "bf16_ragged333": (1, 333, 333, 8, 4, 128, 128, True, None, "bf16",
+                       "arange"),
+    "bf16_d64_sq77_sk300": (1, 77, 300, 4, 2, 64, 64, True, None, "bf16",
+                            "arange"),
+    "bf16_late_keys": (2, 200, 200, 4, 2, 128, 128, True, None, "bf16",
+                       "late_keys"),
+}
+# the backward's kernels (csrc/flash_attention_bwd.cu), for the ptxas lines
+# and the profiler
+BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+# Training at full width (phase 15): qwen3-0.6b through
+# repro_torch.launch.train at the serving cells' batch, 8 x 2048 tokens,
+# with the launcher's AdamW and cosine schedule, BSP; step 1 is the
+# warm-up.  Then SSP with a FIFO of 2 for SSP_STEPS steps.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 2048, 6, 3e-3
+SSP_STEPS = 4
+# the kernels of a training step, by profiler name
+TRAIN_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
+                 "flash_attention_bwd": BWD_KERNELS}
+# Phase 16 (training, card against CPU): the smoke config, batch 4 x 64,
+# 3 SGD steps at this rate.
+TRAIN_SMALL = dict(batch=4, seq=64, steps=3, lr=0.05)
+
+
+def bwd_within(got, want, dtype) -> bool:
+    """``got`` within ``ref.attention_bwd_tolerance`` of ``want``."""
+    from repro_torch.kernels import ref
+    atol, rtol = ref.attention_bwd_tolerance(dtype)
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol * w.abs().max() + rtol * w.abs()
+                 ).all())
+
+
+def attention_bwd_bound(q, k, v, qp, kp, causal, window, rates):
+    """Least time (ms) for attention's backward on these inputs: 2 (3 Dk +
+    2 Dv) FLOP for each visible (query, key, head) triple (S, dP, dV, dQ,
+    dK) over the tensor-core (bf16) or float32 rate, against q, k, v,
+    out, dout, lse and the positions read and dq, dk, dv written once
+    over the memory rate."""
+    import torch
+    from repro_torch.kernels import ref
+    bw, f32, bf16 = rates
+    H, Dk, Dv = q.shape[2], q.shape[3], v.shape[3]
+    pairs = int(ref._block_mask(qp, kp, causal, window).expand(
+        qp.shape[0], qp.shape[1], kp.shape[1]).sum().item())
+    ops = 2 * (3 * Dk + 2 * Dv) * H * pairs
+    rows = q.numel() // Dk                      # (batch, query, head) rows
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+              + 2 * rows * Dv) * q.element_size() + 4 * rows \
+        + 4 * (qp.numel() + kp.numel())
+    t_b = nbytes / bw * 1e3
+    t_o = ops / (bf16 if q.dtype == torch.bfloat16 else f32) * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", H * pairs
+
+
+def sdpa_bwd_call(q, k, v, dout, causal, scale):
+    """The backward of one ``scaled_dot_product_attention`` call (K and V
+    at their heads, ``enable_gqa``) on the port's inputs, the library
+    yardstick: a closure that takes the gradient of a kept forward, and
+    the backend PyTorch's dispatch picks (``(None, "none")`` if none takes
+    the inputs)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous()
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             scale=scale, enable_gqa=True)
+    except RuntimeError:
+        return None, "none"
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+    call()
+    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal,
+                                     scale=scale, enable_gqa=True)
+    return call, SDPBackend(choice).name.lower()
+
+
+def check_flash_attention_bwd(name, device, rates, timed: bool):
+    """``flash_attention_bwd`` against ``ref.attention_bwd`` on one shape
+    of `BWD_SHAPES`, within ``ref.attention_bwd_tolerance`` (each of dq,
+    dk and dv), where both planted faults (D taken as 0, a key tile
+    dropped for the later half of the queries) must fail; the forward
+    with ``lse`` bit-equal to ``flash_attention``'s output and its ``lse``
+    against ``ref.attention_lse``'s.  Timed at ``train_main`` beside the
+    plain version, the backward of one ``scaled_dot_product_attention``
+    call (and its backend) and the bound, with the kernels' ptxas lines
+    (no spills)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    shape = BWD_SHAPES[name]
+    causal, window, dt, kind = shape[7:]
+    q, k, v, qp, kp = attn_inputs(shape, seed=sum(shape[:7]) + 1,
+                                  device=device)
+    gd = torch.Generator(device=device).manual_seed(sum(shape[:7]) + 2)
+    dout = torch.randn(q.shape, generator=gd, device=device).to(q.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(scale=scale, q_pos=qp, kv_pos=kp, causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    served = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    _, want_lse = ref.attention_lse(q, k, v, **kw)
+    seen = torch.isfinite(want_lse)
+    lse_err = (lse[seen] - want_lse[seen]).abs()
+    want = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+    atol, rtol = ref.attention_bwd_tolerance(q.dtype)
+    rec = {"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
+           "shape": dict(zip(("B", "Sq", "Sk", "H", "Hkv", "Dk", "Dv"),
+                             shape[:7], strict=True)),
+           "causal": causal, "window": window, "dtype": dt,
+           "forward_bit_equal_with_lse": torch.equal(out.view(bits),
+                                                     served.view(bits)),
+           "lse_unseeing_rows_equal": torch.equal(seen, torch.isfinite(lse)),
+           "lse_max_abs_err": lse_err.max().item(),
+           "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want, strict=True)),
+           "max_abs_err_by_output": {
+               n: (g.float() - w.float()).abs().max().item()
+               for n, g, w in zip(("dq", "dk", "dv"), got, want,
+                                  strict=True)},
+           "scale_by_output": {n: w.float().abs().max().item() for n, w in
+                               zip(("dq", "dk", "dv"), want, strict=True)},
+           "atol_of_scale": atol, "rtol": rtol}
+    bad = not (rec["forward_bit_equal_with_lse"]
+               and rec["lse_unseeing_rows_equal"]
+               and bool((lse_err <= 1e-4 + 1e-5 * want_lse[seen].abs()
+                         ).all())
+               and all(bwd_within(g, w, q.dtype)
+                       for g, w in zip(got, want, strict=True)))
+    if kind == "late_keys":
+        rec["unseeing_rows_zero_grad"] = not bool(got[0][:, :5].any())
+        bad = bad or not rec["unseeing_rows_zero_grad"]
+    del served, lse_err
+    if not bad:
+        missed = []
+        for fault in ("d_zero", "dropped_tile"):
+            wrong = ref.attention_bwd_fault(q, k, v, out, lse, dout,
+                                            fault=fault, **kw)
+            rec[f"planted_fault_{fault}_err"] = max(
+                (b.float() - w.float()).abs().max().item()
+                for b, w in zip(wrong, want, strict=True))
+            if all(bwd_within(b, w, q.dtype)
+                   for b, w in zip(wrong, want, strict=True)):
+                missed.append(fault)
+            del wrong
+        if missed:
+            emit(rec)
+            raise AssertionError(f"flash_attention_bwd's limit passes "
+                                 f"planted faults {missed} ({name}): {rec}")
+    del want, got
+    if bad:
+        emit(rec)
+        raise AssertionError(f"flash_attention_bwd disagrees with its "
+                             f"plain version ({name}): {rec}")
+    if timed:
+        bound, by, triples = attention_bwd_bound(q, k, v, qp, kp, causal,
+                                                 window, rates)
+        library, backend = sdpa_bwd_call(q, k, v, dout, causal, scale)
+        rec.update(
+            ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                      dout, **kw), 20),
+            forward_lse_ms=time_ms(lambda: fa.flash_attention_fwd_lse(
+                q, k, v, **kw), 20),
+            forward_ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                               20),
+            plain_ms=time_ms(lambda: ref.attention_bwd(
+                q, k, v, out, lse, dout, **kw), 2, warmup=1),
+            library_ms=None if library is None else time_ms(library, 20),
+            library_backend=backend, bound_ms=bound, bound_by=by,
+            visible_triples=triples)
+        del library
+        rec["ptxas"] = [ln for entry in BWD_KERNELS
+                        for ln in kernel_ptxas("flash_attention_bwd", entry)]
+        if len(rec["ptxas"]) < 6 or any(
+                ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                for ln in rec["ptxas"]):
+            emit(rec)
+            raise AssertionError(f"flash_attention_bwd's kernels spill or "
+                                 f"have no ptxas lines: {rec['ptxas']}")
+    emit(rec)
+    return rec
+
+
+def profiled_train_step(step_fn, state, batch):
+    """One train step under the profiler: ``(state, record)`` with the host
+    ms (ending in a synchronize; the profiler's own host cost inside), the
+    device-busy ms, the idle share, the training kernels' device ms by
+    name and the eight ops that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    per_kernel = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total
+            for name, fns in TRAIN_KERNELS.items():
+                if any(fn in e.name for fn in fns):
+                    per_kernel[name] += e.self_device_time_total
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    rec = {"wall_ms": wall_ms, "device_ms": busy / 1e3,
+           "device_idle_share": None if busy == 0.0
+           else 1.0 - busy / 1e3 / wall_ms,
+           "kernel_ms_by_name": {k: v / 1e3 for k, v in per_kernel.items()},
+           "top_ops_ms": {e.key: e.self_device_time_total / 1e3
+                          for e in ops}, "loss": float(m["loss"])}
+    if busy and any(v == 0.0 for v in per_kernel.values()):
+        raise AssertionError(f"the profiler saw no device time for a "
+                             f"training kernel: {rec['kernel_ms_by_name']}")
+    return state, rec
+
+
+def train_path(device):
+    """Phase 15: qwen3-0.6b trained at its published widths on the card.
+
+    (a) ``repro_torch.launch.train.main`` (the user's entry point) for
+    `TRAIN_STEPS` steps of batch 8 x 2048 with the launcher's AdamW and
+    cosine schedule under BSP, the launch counts set to 0 just before and
+    read just after: ``flash_attention`` 56 and ``flash_attention_bwd`` 28
+    a step (28 layers, remat: each block's forward runs again in the
+    backward), and no other kernel; (b) the same model, optimizer and
+    batches built from the launcher's pieces, each step timed (host clock
+    ending in a synchronize; step 1, the warm-up, apart), tokens/s, peak
+    memory, one more step profiled; (c) SSP with a FIFO of 2 for
+    `SSP_STEPS` steps: ``apply_scale`` 0, 0, 1, 1 and the parameters
+    untouched by the first two.  Every loss and ``grad_norm`` finite; the
+    last step's loss below step 1's (in both runs) and below the initial
+    weights' loss on the last step's batch; the loss on step 1's batch
+    after training is recorded."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (TokenGenConfig, token_batch,
+                                            token_batches)
+    from repro_torch.kernels import launch
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.psdist.grad_sync import GradSync
+    from repro_torch.train.state import (init_state, make_loss_fn,
+                                         make_train_step)
+    argv = ["--arch", TRAIN_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--lr", str(TRAIN_LR), "--log-every", "1"]
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    hist = launcher.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(launch.launches)
+    cfg = get_config(TRAIN_ARCH)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    rec = {"phase": "train_path", "arch": TRAIN_ARCH, "argv": argv,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "consistency": "bsp",
+           "launcher_s": main_s, "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items() if v},
+           "launcher_loss": [h["loss"] for h in hist],
+           "launcher_grad_norm": [h["grad_norm"] for h in hist]}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device=device)
+    opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+    state = init_state(model, opt, GradSync())
+    step_fn = make_train_step(model, opt, GradSync())
+    dcfg = TokenGenConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, seed=0)
+    batches = list(token_batches(dcfg, TRAIN_STEPS, device=device))
+    with torch.no_grad():
+        rec["loss_last_batch_before"] = float(make_loss_fn(model)(
+            model.params, batches[-1]))
+    torch.cuda.synchronize()
+    rec.update(n_params=model.n_params, setup_s=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, gnorms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    steady = step_ms[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec.update(step_ms=step_ms, warmup_step_ms=step_ms[0],
+               ms_per_step=sum(steady) / len(steady),
+               tokens_per_step=tokens,
+               tokens_per_s=tokens * len(steady) / (sum(steady) / 1e3),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               loss=losses, grad_norm=gnorms)
+    state, rec["profiled_step"] = profiled_train_step(
+        step_fn, state, {"tokens": token_batch(dcfg, TRAIN_STEPS,
+                                               device=device)})
+    with torch.no_grad():
+        rec["loss_batch1_after"] = float(make_loss_fn(model)(
+            model.params, batches[0]))
+    finite = all(math.isfinite(x) for x in losses + gnorms
+                 + rec["launcher_loss"] + rec["launcher_grad_norm"]
+                 + [rec["loss_batch1_after"], rec["loss_last_batch_before"]])
+    rec["finite"] = finite
+    # each step draws a new batch, whose loss at the initial weights varies
+    # by ~10 % (a CPU run of the published widths at 2 layers: 129-157 over
+    # the first six batches), so the last step's loss is also held to the
+    # initial weights' loss on the same batch
+    rec["loss_falls"] = (losses[-1] < losses[0]
+                         and rec["launcher_loss"][-1]
+                         < rec["launcher_loss"][0]
+                         and losses[-1] < rec["loss_last_batch_before"])
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # SSP: a FIFO of 2 gradients, nothing applied for two steps
+    sync = GradSync("ssp", 2)
+    state = init_state(model, opt, sync)
+    step_fn = make_train_step(model, opt, sync)
+    probe = model.final_norm.scale
+    scales, ssp_loss, ssp_ms, untouched = [], [], [], []
+    for i in range(SSP_STEPS):
+        before = probe.detach().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        ssp_ms.append((time.perf_counter() - t0) * 1e3)
+        scales.append(float(m["apply_scale"]))
+        ssp_loss.append(float(m["loss"]))
+        untouched.append(bool(torch.equal(before, probe)))
+    rec["ssp"] = {"staleness": 2, "apply_scale": scales, "loss": ssp_loss,
+                  "step_ms": ssp_ms, "params_untouched": untouched,
+                  "max_memory_allocated_bytes":
+                      torch.cuda.max_memory_allocated()}
+    del state, step_fn, model, batches
+    torch.cuda.empty_cache()
+    emit(rec)
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if not finite:
+        bad.append("a loss or grad_norm is not finite")
+    if not rec["loss_falls"]:
+        bad.append("the loss did not fall from step 1 to the last, or "
+                   "not below the initial weights' on the last batch")
+    if scales != [0.0, 0.0, 1.0, 1.0] or untouched != [True, True, False,
+                                                       False]:
+        bad.append(f"SSP applied {scales}, untouched {untouched}")
+    if not all(math.isfinite(x) for x in ssp_loss):
+        bad.append("an SSP loss is not finite")
+    if bad:
+        raise AssertionError(f"train_path: {bad}")
+    return rec
+
+
+def _flat_grads(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_grads(v, f"{prefix}/{k}"))
+        return out
+    # a copy: the train step updates the parameters in place
+    return {prefix: tree.detach().float().cpu().clone()}
+
+
+def _share(a, b) -> float:
+    """``max|a - b|`` over ``max|b|``."""
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def train_card_vs_cpu(device):
+    """Phase 16: qwen3-0.6b's smoke config trained on the card and on the
+    CPU from the same parameters and batches, in bf16 and float32 compute
+    (`TRAIN_SMALL`: 3 SGD steps).  Each step holds the loss, ``grad_norm``
+    and every gradient leaf of the card within ``SERVE_TOL`` (of each
+    leaf's largest magnitude) plus twice the step's own rounding ``d``:
+    the CPU's distance from its run of the step one precision up (bf16 in
+    float32, float32 in float64; the same parameters), as phase 6 holds
+    the logits; then the train step on both and the moved parameters
+    likewise.  AdamW is held on identical gradients (its normalised
+    update turns a rounding difference of a near-zero gradient into a
+    step of up to lr).  Last, a gradient through ``ssd`` (mamba2-130m)
+    and through MLA attention (deepseek-v2-lite-16b) raises
+    ``NotImplementedError`` on the card."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import TokenGenConfig, token_batch
+    from repro_torch.models.registry import Model, build_model
+    from repro_torch.optim.optimizers import (adamw, cosine_schedule, sgd,
+                                              tree_map)
+    from repro_torch.train.state import (grad_norm, init_state,
+                                         make_loss_fn, make_train_step,
+                                         value_and_grad)
+    recs = []
+    up = {"bfloat16": "float32", "float32": "float64"}
+    for compute in ("bfloat16", "float32"):
+        cfg = get_smoke_config(TRAIN_ARCH).replace(compute_dtype=compute)
+        card = build_model(cfg, seed=1, device=device)
+        cpu = Model(cfg, tree_map(lambda p: p.detach().cpu().clone(),
+                                  card.params))
+        twin = Model(cfg.replace(compute_dtype=up[compute]), cpu.params)
+        init = _flat_grads(cpu.params)
+        fns = {n: make_loss_fn(m) for n, m in (("card", card), ("cpu", cpu),
+                                               ("twin", twin))}
+        steps = {n: make_train_step(m, sgd(TRAIN_SMALL["lr"]))
+                 for n, m in (("card", card), ("cpu", cpu))}
+        states = {n: init_state(m, sgd(TRAIN_SMALL["lr"]))
+                  for n, m in (("card", card), ("cpu", cpu))}
+        tol = SERVE_TOL[compute]
+        worst, rows = {}, []
+        for i in range(TRAIN_SMALL["steps"]):
+            toks = token_batch(TokenGenConfig(
+                vocab_size=cfg.vocab_size, seq_len=TRAIN_SMALL["seq"],
+                batch=TRAIN_SMALL["batch"], seed=3), i, device="cpu")
+            bat = {"card": {"tokens": toks.to(device)},
+                   "cpu": {"tokens": toks}, "twin": {"tokens": toks}}
+            out = {n: value_and_grad(fns[n], (card if n == "card" else
+                                              cpu).params, bat[n])
+                   for n in ("card", "cpu", "twin")}
+            g = {n: _flat_grads(o[1]) for n, o in out.items()}
+            norms = {n: float(grad_norm(o[1])) for n, o in out.items()}
+            loss = {n: float(o[0]) for n, o in out.items()}
+            row = {"step": i + 1, "loss": loss, "grad_norm": norms,
+                   "leaves": {}}
+            for path in g["cpu"]:
+                d = _share(g["cpu"][path], g["twin"][path])
+                err = _share(g["card"][path], g["cpu"][path])
+                row["leaves"][path] = (err, d)
+                if err > tol + 2 * d:
+                    worst[f"step{i+1}{path}"] = (err, tol + 2 * d)
+            for name, vals in (("loss", loss), ("grad_norm", norms)):
+                d = abs(vals["cpu"] - vals["twin"]) / abs(vals["twin"])
+                err = abs(vals["card"] - vals["cpu"]) / abs(vals["cpu"])
+                if err > tol + 2 * d:
+                    worst[f"step{i+1}/{name}"] = (err, tol + 2 * d)
+            for n in ("card", "cpu"):
+                states[n], _ = steps[n](states[n], bat[n])
+            moved = {n: {k: v - init[k] for k, v in _flat_grads(
+                states[n].params).items()} for n in ("card", "cpu")}
+            for path, want in moved["cpu"].items():
+                d = row["leaves"][path][1]
+                floor = (i + 1) * 2 ** -23 * float(init[path].abs().max())
+                err = float((moved["card"][path] - want).abs().max())
+                if err > (tol + 2 * d) * float(want.abs().max()) + floor:
+                    worst[f"step{i+1}{path}/moved"] = (err, floor)
+            rows.append(row)
+        rec = {"phase": "train_card_vs_cpu", "arch": TRAIN_ARCH,
+               "compute": compute, "config": TRAIN_SMALL, "tol": tol,
+               "steps": [{"step": r["step"], "loss": r["loss"],
+                          "grad_norm": r["grad_norm"],
+                          "max_leaf_err": max(e for e, _ in
+                                              r["leaves"].values()),
+                          "max_leaf_d": max(d for _, d in
+                                            r["leaves"].values())}
+                         for r in rows],
+               "failures": worst}
+        emit(rec)
+        recs.append(rec)
+        if worst:
+            raise AssertionError(f"training on the card disagrees with the "
+                                 f"CPU ({compute}): {worst}")
+    # AdamW on identical gradients: three updates of the same params
+    cfg = get_smoke_config(TRAIN_ARCH).replace(compute_dtype="float32")
+    cpu = build_model(cfg, seed=2, device="cpu")
+    params = {"cpu": cpu.params,
+              "card": tree_map(lambda p: p.detach().to(device), cpu.params)}
+    opts = {n: adamw(cosine_schedule(3e-3, 1, 3)) for n in params}
+    st = {n: opts[n].init(params[n]) for n in params}
+    gen = torch.Generator().manual_seed(5)
+    adam_err = 0.0
+    for _ in range(3):
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=gen),
+                         params["cpu"])
+        ups = {}
+        for n in params:
+            g = grads if n == "cpu" else tree_map(lambda x: x.to(device),
+                                                  grads)
+            ups[n], st[n] = opts[n].update(g, st[n], params[n])
+        a, b = _flat_grads(ups["card"]), _flat_grads(ups["cpu"])
+        adam_err = max(adam_err, max(_share(a[k], b[k]) for k in b))
+    adam = {"phase": "train_adamw_card_vs_cpu", "max_update_err": adam_err,
+            "tol": SERVE_TOL["float32"]}
+    emit(adam)
+    if adam_err > SERVE_TOL["float32"]:
+        raise AssertionError(f"AdamW on the card disagrees: {adam}")
+    # kernels with no backward yet raise under a gradient on the card
+    raised = {}
+    for arch, item in (("mamba2-130m", "16.4c"),
+                       ("deepseek-v2-lite-16b", "16.4d")):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, seed=1, device=device)
+        toks = token_batch(TokenGenConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=64, batch=2, seed=3), 0,
+                           device=device)
+        try:
+            value_and_grad(make_loss_fn(model), model.params,
+                           {"tokens": toks})
+        except NotImplementedError as e:
+            raised[arch] = str(e)
+            if item not in str(e):
+                raise AssertionError(f"{arch}: {e} names no {item}") from e
+        else:
+            raise AssertionError(f"{arch}: a gradient through a kernel "
+                                 f"with no backward ran on the card")
+    emit({"phase": "train_no_backward_raises", "raised": raised})
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -3087,6 +3661,11 @@ def main() -> int:
     for name in ATTN_SHAPES:
         if name not in ATTN_TIMED:
             check_flash_attention(name, dev, rates, timed=False)
+    bwd_timed = check_flash_attention_bwd("train_main", dev, rates,
+                                          timed=True)
+    for name in BWD_SHAPES:
+        if name != "train_main":
+            check_flash_attention_bwd(name, dev, rates, timed=False)
     ssd_timed = {name: check_ssd(name, dev, rates, timed=True)
                  for name in SSD_TIMED}
     for name in SSD_SHAPES:
@@ -3182,6 +3761,12 @@ def main() -> int:
     sharded["nvidia_smi"] = smi
     emit(sharded)
 
+    # --- 15. training at full width ------------------------------------------
+    trained = train_path(dev)
+
+    # --- 16. training, card against CPU ------------------------------------
+    train_card_vs_cpu(dev)
+
     # --- summary ------------------------------------------------------------
     essp = timed["essp"]
     source = "src/repro_torch/kernels/csrc/ps_view.cu"
@@ -3263,6 +3848,23 @@ def main() -> int:
             a: served[a]["launches_per_prefill"][counter] for a in archs}
         if counter == "flash_attention":
             kernels[-1]["library_backend"] = rec["library_backend"]
+    # the backward of attention: no pallas_call stands behind it (the TPU's
+    # train step differentiates the blocked reference attention with XLA)
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/train/state.py:114",
+        "replaces_what": "jax.value_and_grad through "
+                         "src/repro/kernels/ref.py:52 (XLA autodiff; no "
+                         "pallas_call)",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "launches_per_step": trained["launches_per_step"][
+            "flash_attention_bwd"],
+        "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
+        "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
+        "bound_by": bwd_timed["bound_by"],
+        "library_ms": bwd_timed["library_ms"],
+        "library_backend": bwd_timed["library_backend"]})
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",
@@ -3311,7 +3913,13 @@ def main() -> int:
           "sharded_sweep_peak_above_start_bytes": [
               t["peak_above_start_bytes"] for t in sharded["turns"]],
           "sharded_tuner_equal": sharded["tuner"]["equal_to_unsharded"],
-          "analysis_s": sharded["analysis"]["seconds"]})
+          "analysis_s": sharded["analysis"]["seconds"],
+          "train": {k: trained[k] for k in (
+              "ms_per_step", "warmup_step_ms", "tokens_per_s",
+              "max_memory_allocated_bytes", "launches_per_step", "loss",
+              "grad_norm")},
+          "train_profiled_step": trained["profiled_step"],
+          "train_ssp_apply_scale": trained["ssp"]["apply_scale"]})
     emit({"kernels": kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

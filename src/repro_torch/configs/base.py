@@ -93,7 +93,7 @@ class ModelConfig:
     # numerics / execution policy
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: bool = True                # no counterpart in eager serving
+    remat: bool = True                # recompute each block in the backward
     scan_layers: bool = True          # the port always loops over layers
     source: str = ""
 

@@ -4,8 +4,9 @@ The port never imports JAX; the caller hands over numpy arrays (what
 ``np.asarray`` gives for a JAX array) and gets tensors back, and the
 reverse for traces.  The parity tests use this to start both simulators
 from the very same ``x0`` and ``local0``, both model zoos from the very
-same weights, and both sharded runtimes from the very same mid-run state
-(``psstate_from_jax``).
+same weights, both sharded runtimes from the very same mid-run state
+(``psstate_from_jax``) and both trainers from the very same train state
+(``train_state_from_jax``).
 """
 from __future__ import annotations
 
@@ -23,11 +24,19 @@ from .models.registry import Model, model_specs
 
 
 def to_tensors(arrays, device=None):
-    """A numpy array, or a dict of them, as tensors on ``device``."""
+    """A numpy array, or a (nested) dict of them, as tensors on
+    ``device`` (``None`` stays ``None``; bfloat16, which numpy holds as
+    ``ml_dtypes.bfloat16`` and torch does not read, is kept)."""
     dev = resolve_device(device)
+    if arrays is None:
+        return None
     if isinstance(arrays, dict):
         return {k: to_tensors(v, dev) for k, v in arrays.items()}
-    return torch.from_numpy(np.array(arrays, copy=True)).to(dev)
+    a = np.asarray(arrays)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
 def psapp_from_state(name: str, x0, local0: dict, worker_update, loss,
@@ -125,3 +134,20 @@ def model_params_from_jax(cfg, params_np, device=None) -> Model:
         np.array(got[path], dtype=np.float32, copy=True)).to(
             device=dev, dtype=ps.dtype), model_specs(cfg))
     return Model(cfg, tensors)
+
+
+def train_state_from_jax(cfg, state, device=None):
+    """``(model, state)``: the port's `Model` of ``cfg`` and its
+    `train.state.TrainState`, holding a JAX ``TrainState`` whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, state)``): its params
+    (`model_params_from_jax`; the state's params are the model's
+    tensors), its optimizer state (the step and ``m``/``v`` or ``mu``,
+    their dtypes kept), its SSP gradient FIFO and its step.  A run
+    resumed from it in the port continues JAX's."""
+    from .train.state import TrainState
+    dev = resolve_device(device)
+    model = model_params_from_jax(cfg, state.params, dev)
+    return model, TrainState(params=model.params,
+                             opt_state=to_tensors(state.opt_state, dev),
+                             fifo=to_tensors(state.fifo, dev),
+                             step=to_tensors(state.step, dev))

@@ -1,6 +1,7 @@
 """Deterministic synthetic token streams, bit-equal to the JAX package's
-``data/synthetic.py::token_batch``, and the audio and vlm families'
-modality stubs (``modality_stub``).
+``data/synthetic.py::token_batch``, the training batches
+(``token_batches``) and the audio and vlm families' modality stubs
+(``modality_stub``).
 
 Each sequence draws a hidden affine rule ``next = (a * cur + b) mod V_eff``
 plus noise.  The draws go through ``repro_torch.rng`` (bit-equal to
@@ -50,6 +51,21 @@ def token_batch(cfg: TokenGenConfig, step: int, device=None):
     noise = rng.bernoulli(k_n, cfg.noise, (B, S))
     rand = rng.randint(k_m, (B, S), 0, v)
     return torch.where(noise, rand, toks.to(torch.int32))
+
+
+def token_batches(cfg: TokenGenConfig, n_steps: int | None = None,
+                  extra: dict | None = None, device=None):
+    """Iterator of training batches: ``{"tokens": token_batch(cfg, step)}``
+    for step 0, 1, ... (``n_steps`` of them, or without end), each with
+    the entries of ``extra`` (the audio and vlm families' stub,
+    `modality_stub`) merged in."""
+    step = 0
+    while n_steps is None or step < n_steps:
+        batch = {"tokens": token_batch(cfg, step, device=device)}
+        if extra:
+            batch.update(extra)
+        yield batch
+        step += 1
 
 
 def modality_stub(cfg_model, batch: int, device=None) -> dict:

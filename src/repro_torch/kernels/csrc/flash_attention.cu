@@ -76,34 +76,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fa_common.cuh"
 #include "mbarrier.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -0x1.fffffep+126f;   // float32 min / 2
-constexpr int PAD_QPOS = 1 << 30;
-
-__device__ __forceinline__ bool visible(int qp, int kp, int causal,
-                                        int window) {
-  bool ok = kp >= 0;
-  if (causal) ok = ok && kp <= qp;
-  if (window > 0) ok = ok && kp > qp - window;
-  return ok;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -318,8 +294,9 @@ template <int DK, int DV>
 __global__ void __launch_bounds__(128) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, float* __restrict__ out, int Sq, int Sk,
-    int H, int Hkv, float scale, int causal, int window, int ldv) {
+    const int* __restrict__ kpos, float* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, float scale,
+    int causal, int window, int ldv) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                          // [BQ][DK+1]
   float* k_s = q_s + F_BQ * (DK + 1);         // [BK][DK+1]
@@ -434,6 +411,10 @@ __global__ void __launch_bounds__(128) fa_f32_kernel(
     float* orow = out + (((long long)b * Sq + q0 + r) * H + h) * DV;
 #pragma unroll
     for (int i = 0; i < DV / 4; ++i) orow[c + 4 * i] = acc[i] / lr;
+    // training's log-sum-exp, natural units (+inf: the row sees no key)
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * H + h) * Sq + q0 + r] =
+          l > 0.f ? m + logf(l) : pos_inf();
   }
 }
 
@@ -741,27 +722,6 @@ __device__ __forceinline__ void turn_pass(int to) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + to) : "memory");
 }
 
-enum : uint8_t { TILE_SKIP = 0, TILE_FULL = 1, TILE_PARTIAL = 2 };
-constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
-
-// The class of a KV tile for a query block, from the range [kmin, kmax] of
-// its keys' non-negative positions, whether any key is masked (kv_pos < 0
-// or past Sk), and the range [qmin, qmax] of the block's query positions
-// (rows past Sq left out): no pair visible (skip), every pair visible
-// (full, no mask applied), or the element mask needed (partial).  The
-// plain version is ref.attention_tile_classes.
-__device__ __forceinline__ uint8_t tile_class(int kmin, int kmax, bool neg,
-                                              int qmin, int qmax, int causal,
-                                              int window) {
-  if (kmin > kmax || (causal && kmin > qmax) ||
-      (window > 0 && kmax <= qmin - window))
-    return TILE_SKIP;
-  if (!neg && (!causal || kmax <= qmin) &&
-      (window <= 0 || kmin > qmax - window))
-    return TILE_FULL;
-  return TILE_PARTIAL;
-}
-
 // Shared memory of the wgmma kernel, from a 1024-byte aligned base: two Q
 // buffers (one item's Q while the next one's loads), a ring of STAGES K
 // and V tiles, the mbarriers (Q full and Q empty per buffer; K full,
@@ -801,8 +761,8 @@ __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_o, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, int Sq, int Sk, int H, int Hkv, int B,
-    float scale, int causal, int window) {
+    const int* __restrict__ kpos, float* __restrict__ lse, int Sq, int Sk,
+    int H, int Hkv, int B, float scale, int causal, int window) {
   using L = WgLayout<D>;
   constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES, QB = L::QBUF;
   extern __shared__ uint8_t smem_raw[];
@@ -1066,6 +1026,17 @@ __global__ void __launch_bounds__(384, 1) fa_wgmma_kernel(
       l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
     }
     const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    // training's log-sum-exp in natural units, from m (log2 units, the
+    // scale folded in) and l; +inf where the row sees no key
+    if (lse != nullptr && tq == 0) {
+      float* lrow = lse + ((long long)b * H + h) * Sq + q0;
+      if (q0 + r0 < Sq)
+        lrow[r0] = l[0] > 0.f ? (m[0] + log2f(l[0])) * 0.6931471805599453f
+                              : pos_inf();
+      if (q0 + r1 < Sq)
+        lrow[r1] = l[1] > 0.f ? (m[1] + log2f(l[1])) * 0.6931471805599453f
+                              : pos_inf();
+    }
     // this warpgroup's rows of Q are read out: O takes their place, in the
     // 128-byte swizzle the output's tensor map expects
     uint8_t* qg = gbase + q * L::Q_BYTES;
@@ -1835,9 +1806,10 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         const int* qpos, const int* kpos, void* out, int B,
-                         int Sq, int Sk, int H, int Hkv, float scale,
-                         int causal, int window, cudaStream_t stream) {
+                         const int* qpos, const int* kpos, void* out,
+                         float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                         float scale, int causal, int window,
+                         cudaStream_t stream) {
   using L = WgLayout<D>;
   CUtensorMap tq, tk, tv, to;
   cudaError_t err;
@@ -1860,7 +1832,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
   fa_wgmma_kernel<D><<<grid, 384, L::BYTES, stream>>>(
-      tq, tk, tv, to, qpos, kpos, Sq, Sk, H, Hkv, B, scale, causal, window);
+      tq, tk, tv, to, qpos, kpos, lse, Sq, Sk, H, Hkv, B, scale, causal,
+      window);
   return cudaGetLastError();
 }
 
@@ -1924,9 +1897,10 @@ cudaError_t launch_mla(const void* q, const void* k, const void* v,
 
 template <int DK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const int* qpos, const int* kpos, void* out, int B,
-                       int Sq, int Sk, int H, int Hkv, float scale,
-                       int causal, int window, int ldv, cudaStream_t stream) {
+                       const int* qpos, const int* kpos, void* out,
+                       float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                       float scale, int causal, int window, int ldv,
+                       cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_f32_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1935,8 +1909,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
   fa_f32_kernel<DK, DV><<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), Sq,
-      Sk, H, Hkv, scale, causal, window, ldv);
+      static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), lse,
+      Sq, Sk, H, Hkv, scale, causal, window, ldv);
   return cudaGetLastError();
 }
 
@@ -1964,20 +1938,33 @@ extern "C" {
 
 int fa_variant(int bf16, int dk, int dv) { return variant_of(bf16, dk, dv); }
 
-int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
-               const void* kpos, void* out, int B, int Sq, int Sk, int H,
-               int Hkv, int dk, int dv, int bf16, float scale, int causal,
-               int window, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The launch of the variant's kernel; `lse` (float32 [B, H, Sq], or null)
+// is written by the wgmma and CUDA-core kernels only: the mma.sync and
+// MLA kernels refuse it (cudaErrorNotSupported).
+cudaError_t forward(const void* q, const void* k, const void* v,
+                    const void* qpos, const void* kpos, void* out, float* lse,
+                    int B, int Sq, int Sk, int H, int Hkv, int dk, int dv,
+                    int bf16, float scale, int causal, int window,
+                    void* stream) {
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // v == k: V is K's first dv columns, rows dk apart (MLA's latent values)
   const int ldv = v == k ? dk : dv;
 #define FA_ARGS q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, scale, causal, window
-  switch (variant_of(bf16, dk, dv)) {
+#define FA_LSE_ARGS q, k, v, qp, kp, out, lse, B, Sq, Sk, H, Hkv, scale, \
+    causal, window
+  const int var = variant_of(bf16, dk, dv);
+  if (lse != nullptr && (var == V_MMA_SYNC || var == V_MLA))
+    return cudaErrorNotSupported;
+  switch (var) {
     case V_WGMMA:
-      return dk == 64 ? launch_wgmma<64>(FA_ARGS, st)
-                      : launch_wgmma<128>(FA_ARGS, st);
+      return dk == 64 ? launch_wgmma<64>(FA_LSE_ARGS, st)
+                      : launch_wgmma<128>(FA_LSE_ARGS, st);
     case V_MMA_SYNC:
       if (dk == 80)
         return dv == 64 ? launch_mma_sync<80, 64>(FA_ARGS, ldv, st)
@@ -1987,17 +1974,46 @@ int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
     case V_MLA:
       return launch_mla(FA_ARGS, st);
     case V_F32:
-      if (dk == 32) return dv == 16 ? launch_f32<32, 16>(FA_ARGS, ldv, st)
-                                    : launch_f32<32, 32>(FA_ARGS, ldv, st);
-      if (dk == 80) return dv == 64 ? launch_f32<80, 64>(FA_ARGS, ldv, st)
-                                    : launch_f32<80, 80>(FA_ARGS, ldv, st);
-      if (dk == 576) return launch_f32<576, 512>(FA_ARGS, ldv, st);
-      return dk == 64 ? launch_f32<64, 64>(FA_ARGS, ldv, st)
-                      : launch_f32<128, 128>(FA_ARGS, ldv, st);
+      if (dk == 32)
+        return dv == 16 ? launch_f32<32, 16>(FA_LSE_ARGS, ldv, st)
+                        : launch_f32<32, 32>(FA_LSE_ARGS, ldv, st);
+      if (dk == 80)
+        return dv == 64 ? launch_f32<80, 64>(FA_LSE_ARGS, ldv, st)
+                        : launch_f32<80, 80>(FA_LSE_ARGS, ldv, st);
+      if (dk == 576) return launch_f32<576, 512>(FA_LSE_ARGS, ldv, st);
+      return dk == 64 ? launch_f32<64, 64>(FA_LSE_ARGS, ldv, st)
+                      : launch_f32<128, 128>(FA_LSE_ARGS, ldv, st);
     default:
       return cudaErrorInvalidValue;
   }
 #undef FA_ARGS
+#undef FA_LSE_ARGS
+}
+
+}  // namespace
+
+extern "C" {
+
+// Serving: the output alone.
+int fa_forward(const void* q, const void* k, const void* v, const void* qpos,
+               const void* kpos, void* out, int B, int Sq, int Sk, int H,
+               int Hkv, int dk, int dv, int bf16, float scale, int causal,
+               int window, void* stream) {
+  return forward(q, k, v, qpos, kpos, out, nullptr, B, Sq, Sk, H, Hkv, dk,
+                 dv, bf16, scale, causal, window, stream);
+}
+
+// Training: the output and each row's log-sum-exp (float32 [B, H, Sq],
+// natural units, +inf for a row that sees no key), which the backward
+// (flash_attention_bwd.cu) recomputes P from.
+int fa_forward_lse(const void* q, const void* k, const void* v,
+                   const void* qpos, const void* kpos, void* out, void* lse,
+                   int B, int Sq, int Sk, int H, int Hkv, int dk, int dv,
+                   int bf16, float scale, int causal, int window,
+                   void* stream) {
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  return forward(q, k, v, qpos, kpos, out, static_cast<float*>(lse), B, Sq,
+                 Sk, H, Hkv, dk, dv, bf16, scale, causal, window, stream);
 }
 
 const char* fa_error_string(int err) {

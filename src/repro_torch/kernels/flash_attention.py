@@ -35,6 +35,18 @@ output, launches on the current stream, raises on a non-zero
 version is ``ref.attention``; ``ops.attention`` picks between the two by
 the tensor's device.
 
+Training (``ops.attention`` under autograd): :func:`flash_attention_fwd_lse`
+runs the same kernel and also writes each row's log-sum-exp ``lse``
+(float32 ``[B, H, Sq]``, natural units, ``+inf`` for a row that sees no
+key; ``ref.attention_lse``), and :func:`flash_attention_bwd` launches the
+backward of ``csrc/flash_attention_bwd.cu`` (``ref.attention_bwd``),
+counted in ``launch.launches["flash_attention_bwd"]`` (its three kernels,
+one count a call).  Both take the head sizes of :data:`BWD_HEAD_DIMS`,
+``(64, 64)`` and ``(128, 128)`` in bf16 and float32; elsewhere they raise
+``NotImplementedError`` naming the ROADMAP item that adds the backward
+(the ``mma_sync`` head sizes, 16.4e; MLA's ``(576, 512)`` and its smoke
+config's ``(80, 64)``, 16.4d).
+
 V as K's prefix: ``v`` may be the view ``k[..., :Dv]`` of a contiguous
 ``k`` (the same ``data_ptr`` and ``k``'s strides), as MLA passes its
 latent values (``models.attention._mla_blocked``); only that view is
@@ -66,7 +78,19 @@ VARIANTS = ("wgmma_tma", "mma_sync", "f32_cuda_cores", "mla_wgmma")
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                             _i, _i, _i, ctypes.c_float, _i, _i, _vp],
+             "fa_forward_lse": [_vp] * 7 + [_i] * 8 + [ctypes.c_float, _i,
+                                                       _i, _vp],
              "fa_variant": [_i, _i, _i]}
+_BWD_ARGTYPES = {"fa_backward": [_vp] * 12 + [_i] * 8 + [ctypes.c_float,
+                                                         _i, _i, _vp],
+                 "fa_bwd_supported": [_i, _i, _i]}
+# The head sizes the backward takes (bf16 and float32).
+BWD_HEAD_DIMS = ((64, 64), (128, 128))
+# The ROADMAP item that adds the backward of the other head sizes.
+BWD_TODO = {(576, 512): "16.4d (MLA's backward at (576, 512))",
+            (80, 64): "16.4d (MLA's backward; (80, 64) is its smoke "
+                      "config's latent heads)"}
+BWD_TODO_DEFAULT = "16.4e (the backward of the mma_sync head sizes)"
 
 # The kernel the last call launched (one of VARIANTS).
 last_variant = None
@@ -82,12 +106,9 @@ def variant(dtype, Dk: int, Dv: int) -> str:
     return VARIANTS[v]
 
 
-def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
-                    window=None):
-    """Attention of ``q [B,Sq,H,Dk]`` over ``k [B,Sk,Hkv,Dk]``,
-    ``v [B,Sk,Hkv,Dv]`` at int32 positions ``q_pos [B,Sq]``,
-    ``kv_pos [B,Sk]`` -> ``[B,Sq,H,Dv]`` in q's dtype, on the card;
-    contract of ``ref.attention``."""
+def _check_inputs(q, k, v, q_pos, kv_pos, window):
+    """The wrapper's checks of the forward's inputs; returns
+    ``(B, Sq, Sk, H, Hkv, Dk, Dv, v_in_k)``."""
     require_cuda(q)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, S, heads, head_dim]")
@@ -118,6 +139,30 @@ def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+    return B, Sq, Sk, H, Hkv, Dk, Dv, v_in_k
+
+
+def require_backward(q, Dk: int, Dv: int) -> None:
+    """Raise ``NotImplementedError`` unless the backward takes these head
+    sizes (:data:`BWD_HEAD_DIMS`), naming the shape and the ROADMAP item
+    that adds it."""
+    if (Dk, Dv) not in BWD_HEAD_DIMS:
+        todo = BWD_TODO.get((Dk, Dv), BWD_TODO_DEFAULT)
+        raise NotImplementedError(
+            f"no backward kernel for attention at (Dk={Dk}, Dv={Dv}) in "
+            f"{q.dtype} on the card (it takes {BWD_HEAD_DIMS}); ROADMAP "
+            f"{todo}")
+
+
+def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
+                    window=None):
+    """Attention of ``q [B,Sq,H,Dk]`` over ``k [B,Sk,Hkv,Dk]``,
+    ``v [B,Sk,Hkv,Dv]`` at int32 positions ``q_pos [B,Sq]``,
+    ``kv_pos [B,Sk]`` -> ``[B,Sq,H,Dv]`` in q's dtype, on the card;
+    contract of ``ref.attention``."""
+    B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
+                                                 window)
+    dev = q.device
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lib = load_lib("flash_attention", _ARGTYPES, "fa_error_string")
     with torch.cuda.device(dev):
@@ -131,3 +176,65 @@ def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
     global last_variant
     last_variant = variant(q.dtype, Dk, Dv)
     return out
+
+
+def flash_attention_fwd_lse(q, k, v, *, scale, q_pos, kv_pos, causal=True,
+                            window=None):
+    """`flash_attention` that also returns each row's log-sum-exp: ``(out,
+    lse)``, ``lse`` float32 ``[B, H, Sq]`` (contract of
+    ``ref.attention_lse``); the output is bit-equal to
+    `flash_attention`'s.  Counted as a ``flash_attention`` launch.  Only
+    at the head sizes the backward takes (:data:`BWD_HEAD_DIMS`)."""
+    B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
+                                                 window)
+    require_backward(q, Dk, Dv)
+    dev = q.device
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lib = load_lib("flash_attention", _ARGTYPES, "fa_error_string")
+    with torch.cuda.device(dev):
+        err = lib.fa_forward_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H,
+            Hkv, Dk, Dv, int(q.dtype == torch.bfloat16), float(scale),
+            int(bool(causal)), -1 if window is None else int(window),
+            stream(dev))
+    raise_on(lib, err, "flash_attention (with lse)")
+    launches["flash_attention"] += 1
+    global last_variant
+    last_variant = variant(q.dtype, Dk, Dv)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
+                        causal=True, window=None):
+    """``(dq, dk, dv)`` of attention for the cotangent ``dout`` (the
+    shape and dtype of ``out``), from the forward's ``out`` and ``lse``
+    (`flash_attention_fwd_lse`), on the card; contract of
+    ``ref.attention_bwd``.  Three kernels (D, then dK/dV, then dQ) behind
+    one count, ``launches["flash_attention_bwd"]``; no atomics, so two
+    calls on the same inputs are bit-equal."""
+    B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
+                                                 window)
+    require_backward(q, Dk, Dv)
+    dev = q.device
+    check("out", out, q.dtype, (B, Sq, H, Dv), dev)
+    check("dout", dout, q.dtype, (B, Sq, H, Dv), dev)
+    check("lse", lse, torch.float32, (B, H, Sq), dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lib = load_lib("flash_attention_bwd", _BWD_ARGTYPES,
+                   "fa_bwd_error_string")
+    with torch.cuda.device(dev):
+        err = lib.fa_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), B, Sq, Sk, H, Hkv, Dk, Dv,
+            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
+            -1 if window is None else int(window), stream(dev))
+    raise_on(lib, err, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -23,7 +23,8 @@ from . import build
 
 # Launches per kernel since the last reset_launches().
 launches = {"ring_view": 0, "vap_suffix_norms": 0, "delta_pack": 0,
-            "flash_attention": 0, "ssd": 0, "mf_sgd_block": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0,
+            "mf_sgd_block": 0}
 
 
 def reset_launches() -> None:

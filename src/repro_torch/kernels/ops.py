@@ -6,8 +6,19 @@ the hand-written kernel (``ps_view.py``, ``delta_pack.py``,
 or raises.  There
 is no backend switch and no fallback: on the card, the main path runs the
 kernels or fails.
+
+Under autograd (grad enabled and an input that requires grad),
+``attention`` is a ``torch.autograd.Function`` whose forward also keeps
+each row's log-sum-exp and whose backward is ``flash_attention_bwd`` on
+the card (``ref.attention_lse`` / ``ref.attention_bwd`` on the CPU); a
+kernel with no backward yet (``ssd``; attention at head sizes outside
+``flash_attention.BWD_HEAD_DIMS``) raises ``NotImplementedError`` on the
+card rather than return a tensor with no gradient.  Without a gradient
+the calls are the serving path's, unchanged.
 """
 from __future__ import annotations
+
+import torch
 
 from . import ref
 
@@ -55,8 +66,55 @@ def mf_sgd_block(L, R, D, mask, gamma, lam):
     return ref.mf_sgd_block(L, R, D, mask, gamma, lam)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _attention_fwd(q, k, v, **kw):
+    """``(out, lse)`` of attention, for its gradient."""
+    if _on_cuda(q):
+        from . import flash_attention as fa
+        return fa.flash_attention_fwd_lse(q, k, v, **kw)
+    return ref.attention_lse(q, k, v, **kw)
+
+
+def _attention_bwd(q, k, v, out, lse, dout, **kw):
+    """``(dq, dk, dv)`` of attention from its ``out`` and ``lse``."""
+    if _on_cuda(q):
+        from . import flash_attention as fa
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    return ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with its gradient: the forward keeps ``lse``, the backward
+    recomputes P from it (`_attention_fwd`, `_attention_bwd`).  The
+    positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, scale, causal, window):
+        out, lse = _attention_fwd(q, k, v, scale=scale, q_pos=q_pos,
+                                  kv_pos=kv_pos, causal=causal,
+                                  window=window)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        ctx.kw = dict(scale=scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        dq, dk, dv = _attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                    q_pos=q_pos, kv_pos=kv_pos, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None):
-    """Blocked attention; see `ref.attention` for the contract."""
+    """Blocked attention; see `ref.attention` for the contract.  Under
+    autograd, `_Attention` (its gradient through ``flash_attention_bwd``
+    on the card)."""
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, q_pos, kv_pos, scale, causal,
+                                window)
     if _on_cuda(q):
         from . import flash_attention as fa
         return fa.flash_attention(q, k, v, scale=scale, q_pos=q_pos,
@@ -66,8 +124,15 @@ def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None):
 
 
 def ssd(x, dt, A, B, C, chunk=128):
-    """Mamba-2 SSD chunked scan; see `ref.ssd_chunked` for the contract."""
+    """Mamba-2 SSD chunked scan; see `ref.ssd_chunked` for the contract.
+    On the card it has no backward kernel yet: under autograd it raises
+    (on the CPU, autograd differentiates the plain version)."""
     if _on_cuda(x):
+        if _needs_grad(x, dt, A, B, C):
+            raise NotImplementedError(
+                f"no backward kernel for ssd on the card (x "
+                f"{tuple(x.shape)}, d_state {B.shape[-1]}, chunk {chunk}); "
+                f"ROADMAP 16.4c (the ssd backward)")
         from . import ssd_scan
         return ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
     return ref.ssd_chunked(x, dt, A, B, C, chunk)

@@ -275,15 +275,31 @@ def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None,
     product, a query that sees no key returns 0, and the output has q's
     dtype.  (The JAX package's ``assume_prefix`` shortcut is off on its
     default path and is not ported.)"""
+    return attention_lse(q, k, v, scale=scale, q_pos=q_pos, kv_pos=kv_pos,
+                         causal=causal, window=window, kv_chunk=kv_chunk,
+                         q_chunk=q_chunk)[0]
+
+
+def attention_lse(q, k, v, *, scale, q_pos, kv_pos, causal=True,
+                  window=None, kv_chunk=1024, q_chunk=2048):
+    """`attention`'s output and each row's log-sum-exp ``lse [B, H, Sq]``
+    in ``acc_dtype`` (float32 for bf16 and float32 inputs): ``lse = log
+    sum_k exp(scale * q.k)`` over the keys the row sees, in natural-log
+    units, ``+inf`` for a row that sees no key (its ``P = exp(s - lse)``
+    is then 0).  The CUDA forward writes the same quantity: its float32
+    kernel keeps its softmax in natural units, its wgmma kernel in log2
+    units with the scale folded in, and converts once a row."""
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return _attention_impl(q, k, v, scale=scale, q_pos=q_pos,
                                kv_pos=kv_pos, causal=causal, window=window,
                                kv_chunk=kv_chunk)
-    return torch.cat([_attention_impl(
+    parts = [_attention_impl(
         q[:, i:i + q_chunk], k, v, scale=scale, q_pos=q_pos[:, i:i + q_chunk],
         kv_pos=kv_pos, causal=causal, window=window, kv_chunk=kv_chunk)
-        for i in range(0, Sq, q_chunk)], dim=1)
+        for i in range(0, Sq, q_chunk)]
+    return (torch.cat([o for o, _ in parts], dim=1),
+            torch.cat([lse for _, lse in parts], dim=2))
 
 
 def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
@@ -315,7 +331,97 @@ def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
             "bgrqk,bkgd->bgrqd", p.to(v.dtype).to(ft), vb.to(ft))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                      float("inf"))
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype),
+            lse.reshape(B, H, Sq))
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
+                  causal=True, window=None, q_chunk=512):
+    """The gradient of `attention` with respect to ``q``, ``k`` and ``v``
+    for the output cotangent ``dout [B,Sq,H,Dv]``, from the forward's
+    ``out`` and ``lse`` (`attention_lse`), by the flash recompute:
+
+        P  = exp(scale * Q K^T - lse)      (0 where the mask hides a pair)
+        D  = rowsum(dO * O)
+        dV = P^T dO
+        dS = P * (dO V^T - D)
+        dQ = scale * dS K
+        dK = scale * dS^T Q
+
+    dK and dV sum over the ``rep = H / Hkv`` query heads of each KV head;
+    a row that sees no key (``lse = +inf``) adds nothing.  Returns
+    ``(dq, dk, dv)`` in the dtypes of ``q``, ``k`` and ``v``.  The
+    contract of the CUDA ``flash_attention_bwd``: everything runs in
+    ``acc_dtype``, and for bf16 inputs ``P`` and ``dS`` are rounded to
+    bf16 before the products that take them (dV, and dQ and dK), as the
+    kernel's tensor-core products do.  ``q_chunk`` queries at a time
+    (``[B, H, q_chunk, Sk]`` scores)."""
+    B, Sq, H, Dk = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    rep = H // Hkv
+    ft = acc_dtype(q.dtype)
+    kf, vf = k.to(ft), v.to(ft)
+    dk = torch.zeros((B, Sk, Hkv, Dk), dtype=ft, device=q.device)
+    dv = torch.zeros((B, Sk, Hkv, Dv), dtype=ft, device=q.device)
+    dq = []
+    for i in range(0, Sq, q_chunk):
+        n = min(q_chunk, Sq - i)
+        qg = q[:, i:i + n].reshape(B, n, Hkv, rep, Dk).to(ft)
+        og = out[:, i:i + n].reshape(B, n, Hkv, rep, Dv).to(ft)
+        dog = dout[:, i:i + n].reshape(B, n, Hkv, rep, Dv).to(ft)
+        L = lse[:, :, i:i + n].reshape(B, Hkv, rep, n).to(ft)
+        mask = _block_mask(q_pos[:, i:i + n], kv_pos, causal,
+                           window)[:, None, None]           # [B,1,1,n,Sk]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+        p = torch.where(mask, torch.exp(s - L[..., None]), 0.0)
+        del s
+        D = (dog * og).sum(-1).permute(0, 2, 3, 1)           # [B,Hkv,rep,n]
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+        ds = p * (dp - D[..., None])
+        del dp
+        dv += torch.einsum("bgrqk,bqgrd->bkgd", p.to(v.dtype).to(ft), dog)
+        del p
+        ds = ds.to(q.dtype).to(ft)
+        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale
+        dq.append((torch.einsum("bgrqk,bkgd->bqgrd", ds, kf)
+                   * scale).reshape(B, n, H, Dk))
+    return (torch.cat(dq, dim=1).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def attention_bwd_fault(q, k, v, out, lse, dout, *, fault: str, tile=64,
+                        **kw):
+    """`attention_bwd` with a planted fault, which the card's limit must
+    fail: ``"d_zero"`` takes D as 0 (dS = P * dO V^T); ``"dropped_tile"``
+    leaves one key tile (``tile`` key slots, the tile the later half of
+    the queries sees most pairs of) out for the later half of the queries,
+    as a kernel that skipped it would.  The forward's ``lse`` is kept, so
+    only the dropped pairs change."""
+    if fault == "d_zero":
+        return attention_bwd(q, k, v, torch.zeros_like(out), lse, dout,
+                             **kw)
+    if fault != "dropped_tile":
+        raise ValueError(f"unknown fault {fault!r}")
+    h, Sk = q.shape[1] // 2, k.shape[1]
+    seen = _block_mask(kw["q_pos"][:, h:], kw["kv_pos"], kw["causal"],
+                       kw["window"]).sum((0, 1))             # [Sk]
+    n = -(-Sk // tile)
+    per_tile = torch.nn.functional.pad(seen, (0, n * tile - Sk)).reshape(
+        n, tile).sum(-1)
+    t0 = int(per_tile.argmax()) * tile
+    kp = kw["kv_pos"].clone()
+    kp[:, t0:t0 + tile] = -1
+    early = attention_bwd(q[:, :h], k, v, out[:, :h], lse[:, :, :h],
+                          dout[:, :h], **kw | {"q_pos": kw["q_pos"][:, :h]})
+    late = attention_bwd(q[:, h:], k, v, out[:, h:], lse[:, :, h:],
+                         dout[:, h:], **kw | {"q_pos": kw["q_pos"][:, h:],
+                                              "kv_pos": kp})
+    return (torch.cat([early[0], late[0]], dim=1),
+            (early[1].float() + late[1].float()).to(k.dtype),
+            (early[2].float() + late[2].float()).to(v.dtype))
 
 
 # ==========================================================================
@@ -462,6 +568,21 @@ def attention_tolerance(dtype) -> tuple[float, float]:
     rounding of a large output and of ``p``, which the two round from
     float32 values that differ."""
     return (2e-2, 1e-2) if dtype == torch.bfloat16 else (3e-5, 3e-5)
+
+
+def attention_bwd_tolerance(dtype) -> tuple[float, float]:
+    """``(atol, rtol)`` between the CUDA ``flash_attention_bwd`` and
+    `attention_bwd` on the same inputs, for each of dq, dk and dv: ``atol``
+    is a share of the output's largest magnitude, ``rtol`` of each
+    entry's.  float32: 3e-5 and 3e-5, the forward's (both sum the same
+    float32 terms in other orders; the kernel's exp differs from torch's by
+    an ulp or two).  bfloat16: 1e-2 and 1e-2: both round ``P`` and ``dS``
+    to bf16 from float32 values that differ by a few float32 ulp, so a
+    rare entry lands one bf16 step (2^-8 of it) away, and each output's
+    own bf16 rounding (2^-8 relative) may go the other way; a dropped key
+    tile or D taken as 0 moves the outputs it touches by tens of percent
+    of their scale."""
+    return (1e-2, 1e-2) if dtype == torch.bfloat16 else (3e-5, 3e-5)
 
 
 # ==========================================================================

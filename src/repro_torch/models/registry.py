@@ -142,12 +142,20 @@ class Model(nn.Module):
                              f"(data.synthetic.modality_stub)")
         return t.to(cfg.cdtype)
 
-    @torch.no_grad()
-    def forward(self, tokens, *, frames=None, image_embeds=None):
+    def forward(self, tokens, *, frames=None, image_embeds=None,
+                params=None):
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
         auxiliary loss: the MoE layers' load-balance losses summed (a
-        float32 scalar), 0.0 for the other families."""
-        cfg, p = self.cfg, self.params
+        float32 scalar), 0.0 for the other families.
+
+        ``params`` (the `params` tree by default) is the tree the forward
+        reads: training passes leaves that require grad (the module's own
+        parameters do not), and the forward then builds the autograd
+        graph, each block under ``torch.utils.checkpoint`` when
+        ``cfg.remat`` is on (the JAX package's ``remat``).  Without such
+        leaves, or under ``torch.no_grad()``, it builds none."""
+        cfg = self.cfg
+        p = self.params if params is None else params
         mem = self._memory(frames, image_embeds)
         B, S = tokens.shape
         x = embed(p["embed"], tokens, cfg.cdtype)
@@ -158,17 +166,19 @@ class Model(nn.Module):
         elif cfg.family == "hybrid":
             x, aux = tf._scan_blocks(
                 lambda pl, x: tf.hybrid_group_fwd(pl, cfg, x, pos),
-                p["blocks"], x)
+                p["blocks"], x, cfg.remat)
         elif cfg.family == "vlm":
             x, aux = tf._scan_blocks(
                 lambda pl, x: tf.vlm_group_fwd(pl, cfg, x, pos, mem),
-                p["blocks"], x)
+                p["blocks"], x, cfg.remat)
         elif cfg.family == "ssm":
             x, aux = tf._scan_blocks(
-                lambda pl, x: tf.mamba_block_fwd(pl, cfg, x), p["blocks"], x)
+                lambda pl, x: tf.mamba_block_fwd(pl, cfg, x), p["blocks"], x,
+                cfg.remat)
         else:
             x, aux = tf._scan_blocks(
-                lambda pl, x: tf.block_fwd(pl, cfg, x, pos), p["blocks"], x)
+                lambda pl, x: tf.block_fwd(pl, cfg, x, pos), p["blocks"], x,
+                cfg.remat)
         return self._logits(p, x), aux
 
     def init_cache(self, batch: int, max_len: int, dtype=None):

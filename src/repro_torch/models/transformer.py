@@ -4,9 +4,11 @@ ParamSpec trees and run layer after layer.
 
 The JAX package's ``models/transformer.py``: its ``lax.scan`` over the
 stacked ``layers`` axis is a plain loop here (`_scan_blocks`,
-`_scan_blocks_cache`), and ``remat`` and the sharding hints have no
-counterpart in serving.  A block's attention is GQA or MLA and its FFN
-the dense MLP or the MoE layer (``_attn_*``, ``_ffn_*``).  A hybrid
+`_scan_blocks_cache`), its ``remat`` (``jax.checkpoint`` of each block)
+is ``torch.utils.checkpoint`` of each block of a forward that trains,
+and the sharding hints have no counterpart on one card.  A block's
+attention is GQA or MLA and its FFN the dense MLP or the MoE layer
+(``_attn_*``, ``_ffn_*``).  A hybrid
 (Jamba) group is ``attn_every - 1`` mamba sublayers and one attention
 sublayer, each followed by an FFN sublayer, dense and MoE in turn.  A VLM
 group is ``cross_attn_every - 1`` self-attention blocks and one gated
@@ -17,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
@@ -57,12 +60,51 @@ def stacked_zeros(tree, n: int, device):
                        device=device)
 
 
-def _scan_blocks(block_fn, stacked_params, x):
+def _unbind(tree):
+    """The layers of a stacked tree as a list of trees of views: one
+    ``torch.unbind`` a leaf, whose backward is one ``stack`` of the
+    layers' gradients.  (Indexing layer ``i`` of a leaf that requires grad
+    would give each layer's gradient a whole ``[L, ...]`` zero tensor in
+    the backward: ``L`` full-size gradients a step.)"""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _with_leaves(tree, it):
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def _scan_blocks(block_fn, stacked_params, x, remat: bool = False):
     """Run x through stacked blocks; block_fn(p_layer, x) -> (x, aux).
-    Returns x and the blocks' aux losses summed."""
+    Returns x and the blocks' aux losses summed.
+
+    The layers' parameters come from `_unbind`.  With ``remat`` and grad
+    enabled, each block runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` of the block): its activations are
+    recomputed in the backward instead of kept, and the results are the
+    same bits."""
     aux = 0.0
-    for i in range(n_layers(stacked_params)):
-        x, a = block_fn(layer(stacked_params, i), x)
+    remat = remat and torch.is_grad_enabled()
+    for p_i in _unbind(stacked_params):
+        if remat:
+            leaves = _leaves(p_i)
+            x, a = torch.utils.checkpoint.checkpoint(
+                lambda x, *ls, p_i=p_i: block_fn(
+                    _with_leaves(p_i, iter(ls)), x),
+                x, *leaves, use_reentrant=False)
+        else:
+            x, a = block_fn(p_i, x)
         aux = aux + a
     return x, aux
 

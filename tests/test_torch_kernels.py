@@ -318,7 +318,8 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
     torch.cuda.synchronize()
     assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1,
                                 "delta_pack": 0, "flash_attention": 0,
-                                "ssd": 0, "mf_sgd_block": 0}
+                                "flash_attention_bwd": 0, "ssd": 0,
+                                "mf_sgd_block": 0}
     want = ref.ring_view(b, u, uc, cv)
     assert (got - want).abs().max().item() <= ref.ring_view_tolerance(b, u)
     torch.testing.assert_close(norms, ref.vap_suffix_norms(u, uc, c),
@@ -500,7 +501,8 @@ def test_cuda_clock_loop_does_not_sync(cuda, model):
     if model == "wired":
         assert launch.launches == {"ring_view": 12, "vap_suffix_norms": 6,
                                    "delta_pack": 3, "flash_attention": 0,
-                                   "ssd": 0, "mf_sgd_block": 0}
+                                   "flash_attention_bwd": 0, "ssd": 0,
+                                   "mf_sgd_block": 0}
 
 
 # flash_attention's cases on the card: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
@@ -899,3 +901,141 @@ def test_cuda_mf_sgd_checks_its_inputs(cuda):
                             torch.zeros((4, 6), device=cuda),
                             torch.ones((4, 6), dtype=torch.bool, device=cuda),
                             0.1, 1e-3)
+
+
+# flash_attention_bwd's cases on the card: (B, Sq, Sk, H, Hkv, D, causal,
+# window, dtype, positions): bf16 at (64, 64) and (128, 128), float32,
+# rep 1, 4 and 8, a window, masked keys (kv_pos < 0), ragged Sq and Sk
+# (not multiples of the kernels' tiles), rows that see no key
+BWD_CASES = {
+    "bf16_d128_rep2": (2, 256, 256, 16, 8, 128, True, None, "bf16",
+                       "arange"),
+    "bf16_d64_rep4": (2, 200, 200, 8, 2, 64, True, None, "bf16", "arange"),
+    "bf16_d128_rep8_window": (1, 300, 300, 16, 2, 128, True, 70, "bf16",
+                              "arange"),
+    "bf16_d128_rep1_noncausal": (2, 100, 230, 4, 4, 128, False, None,
+                                 "bf16", "arange"),
+    "bf16_d64_holes": (2, 150, 150, 4, 2, 64, True, None, "bf16", "holes"),
+    "bf16_d128_late_keys": (1, 130, 130, 4, 2, 128, True, None, "bf16",
+                            "late_keys"),
+    "bf16_d128_ragged": (1, 77, 333, 4, 2, 128, True, None, "bf16",
+                         "arange"),
+    "f32_d64_rep2": (2, 100, 100, 4, 2, 64, True, None, "f32", "arange"),
+    "f32_d128_window_holes": (1, 150, 170, 8, 2, 128, True, 50, "f32",
+                              "holes"),
+    "f32_d64_late_keys": (1, 70, 70, 4, 4, 64, True, None, "f32",
+                          "late_keys"),
+}
+
+
+def _bwd_tensors(case, device):
+    B, Sq, Sk, H, Hkv, D, causal, window, dt, kind = BWD_CASES[case]
+    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, D, D, dt, kind),
+                         device=device)
+    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    gd = torch.Generator(device=device).manual_seed(Sq + Sk)
+    dout = torch.randn(q.shape, generator=gd, device=device).to(q.dtype)
+    kw = dict(scale=1.0 / np.sqrt(D), q_pos=qp, kv_pos=kp, causal=causal,
+              window=window)
+    return q, k, v, dout, kw
+
+
+def _within(got, want, dtype):
+    atol, rtol = ref.attention_bwd_tolerance(dtype)
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol * w.abs().max() + rtol * w.abs()
+                 ).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_cuda_flash_attention_bwd_matches_plain_version(cuda, case):
+    """The forward with ``lse`` (its output bit-equal to the forward's,
+    ``lse`` within float32 rounding of the plain version's) and the
+    backward against ``ref.attention_bwd`` on the same inputs, within
+    ``ref.attention_bwd_tolerance``, where both planted faults fail."""
+    q, k, v, dout, kw = _bwd_tensors(case, cuda)
+    launch.reset_launches()
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    plain = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert launch.launches["flash_attention"] == 2
+    assert launch.launches["flash_attention_bwd"] == 1
+    bits_t = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits_t), plain.view(bits_t))
+    _, want_lse = ref.attention_lse(q, k, v, **kw)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-5)
+    want = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _within(g, w, q.dtype)
+    for fault in ("d_zero", "dropped_tile"):
+        bad = ref.attention_bwd_fault(q, k, v, out, lse, dout, fault=fault,
+                                      **kw)
+        assert not all(_within(b, w, q.dtype)
+                       for b, w in zip(bad, want, strict=True)), fault
+    if BWD_CASES[case][-1] == "late_keys":   # rows that see no key
+        assert not got[0][:, :5].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16_d128_rep8_window", "bf16_d64_holes",
+                                  "f32_d128_window_holes"])
+def test_cuda_flash_attention_bwd_is_deterministic(cuda, case):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics, a fixed order of sums)."""
+    q, k, v, dout, kw = _bwd_tensors(case, cuda)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b, strict=True):
+        bits_t = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(x.view(bits_t), y.view(bits_t))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_under_grad_goes_through_the_kernels(cuda):
+    """``ops.attention`` under autograd launches the forward with ``lse``
+    and the backward kernel; the gradient equals the wrappers'."""
+    q, k, v, dout, kw = _bwd_tensors("bf16_d64_rep4", cuda)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    launch.reset_launches()
+    out = ops.attention(*ins, **kw)
+    got = torch.autograd.grad(out, ins, dout)
+    torch.cuda.synchronize()
+    assert launch.launches["flash_attention"] == 1
+    assert launch.launches["flash_attention_bwd"] == 1
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_backward_raise_under_grad(cuda):
+    """On the card a gradient through ``ssd`` or through attention at a
+    head size with no backward kernel (MLA's (576, 512), the mma.sync
+    sizes) raises ``NotImplementedError`` naming its ROADMAP item; without
+    a gradient the same calls run."""
+    x, dt, A, Bm, C = _t(*ssd_case(1, 64, 2, 32, 1, 32), device=cuda)
+    x = x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="16.4c"):
+        ops.ssd(x, dt, A, Bm, C, chunk=32)
+    with torch.no_grad():
+        ops.ssd(x, dt, A, Bm, C, chunk=32)
+    for (Dk, Dv), item in (((576, 512), "16.4d"), ((80, 80), "16.4e")):
+        q, k, v, qp, kp = _t(*attn_case(1, 64, 64, 4, 1, Dk, Dv, "bf16",
+                                        "arange"), device=cuda)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        if Dk == 576:
+            v = k[..., :512]
+        q.requires_grad_()
+        with pytest.raises(NotImplementedError, match=item):
+            ops.attention(q, k, v, scale=0.1, q_pos=qp, kv_pos=kp)
+        with torch.no_grad():
+            ops.attention(q, k, v, scale=0.1, q_pos=qp, kv_pos=kp)
