@@ -18,11 +18,13 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    ``flash_attention_bwd`` (``check_flash_attention_bwd``, `BWD_SHAPES`:
    qwen3-0.6b's training step ``train_main``, timed beside its bound, its
    plain version and the backward of one ``scaled_dot_product_attention``
-   call, with its kernels' ptxas lines, no spills; head size 64, float32,
-   rep 1, 4 and 8, a window, masked keys, ragged Sq and Sk, rows that see
-   no key) within ``ref.attention_bwd_tolerance`` of its plain version,
-   where D taken as 0 and a dropped key tile must fail, and the forward
-   with ``lse`` bit-equal to the forward without;
+   call, with its kernels' ptxas lines, no spills, and the bf16 wgmma
+   kernels' ring stages, shared bytes and registers; head size 64,
+   float32, rep 1, 4 and 8, a window, masked keys, ragged Sq and Sk, rows
+   that see no key) within ``ref.attention_bwd_tolerance`` of its plain
+   version, where D taken as 0 and a dropped key tile must fail, two calls
+   bit-equal, and the forward with ``lse`` bit-equal to the forward
+   without;
    ``flash_attention`` (at the models' prefill shape, at MLA's,
    ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, at
    whisper-medium's encoder, ``whisper_enc``, at llama-3.2-vision's
@@ -3037,8 +3039,9 @@ BWD_SHAPES = {
                        "late_keys"),
 }
 # the backward's kernels (csrc/flash_attention_bwd.cu), for the ptxas lines
-# and the profiler
-BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+# and the profiler: D, the bf16 wgmma kernels, the float32 ones
+BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma",
+               "fa_bwd_dkdv_f32", "fa_bwd_dq_f32")
 # Training at full width (phase 15): qwen3-0.6b through
 # repro_torch.launch.train at the serving cells' batch, 8 x 2048 tokens,
 # with the launcher's AdamW and cosine schedule, BSP; step 1 is the
@@ -3115,12 +3118,14 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
     """``flash_attention_bwd`` against ``ref.attention_bwd`` on one shape
     of `BWD_SHAPES`, within ``ref.attention_bwd_tolerance`` (each of dq,
     dk and dv), where both planted faults (D taken as 0, a key tile
-    dropped for the later half of the queries) must fail; the forward
-    with ``lse`` bit-equal to ``flash_attention``'s output and its ``lse``
-    against ``ref.attention_lse``'s.  Timed at ``train_main`` beside the
-    plain version, the backward of one ``scaled_dot_product_attention``
-    call (and its backend) and the bound, with the kernels' ptxas lines
-    (no spills)."""
+    dropped for the later half of the queries) must fail; two calls
+    bit-equal (no atomics); the forward with ``lse`` bit-equal to
+    ``flash_attention``'s output and its ``lse`` against
+    ``ref.attention_lse``'s.  Timed at ``train_main`` beside the plain
+    version, the backward of one ``scaled_dot_product_attention`` call
+    (and its backend) and the bound, with the kernels' ptxas lines (no
+    spills) and the bf16 wgmma kernels' ring stages, shared bytes and
+    registers (``flash_attention.bwd_kernel_info``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3135,6 +3140,7 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
     out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
     served = fa.flash_attention(q, k, v, **kw)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
     _, want_lse = ref.attention_lse(q, k, v, **kw)
@@ -3148,6 +3154,9 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
            "causal": causal, "window": window, "dtype": dt,
            "forward_bit_equal_with_lse": torch.equal(out.view(bits),
                                                      served.view(bits)),
+           "repeat_bit_equal": all(
+               torch.equal(a.view(bits), b.view(bits))
+               for a, b in zip(got, again, strict=True)),
            "lse_unseeing_rows_equal": torch.equal(seen, torch.isfinite(lse)),
            "lse_max_abs_err": lse_err.max().item(),
            "max_abs_err": max((g.float() - w.float()).abs().max().item()
@@ -3159,7 +3168,9 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
            "scale_by_output": {n: w.float().abs().max().item() for n, w in
                                zip(("dq", "dk", "dv"), want, strict=True)},
            "atol_of_scale": atol, "rtol": rtol}
+    del again
     bad = not (rec["forward_bit_equal_with_lse"]
+               and rec["repeat_bit_equal"]
                and rec["lse_unseeing_rows_equal"]
                and bool((lse_err <= 1e-4 + 1e-5 * want_lse[seen].abs()
                          ).all())
@@ -3209,7 +3220,8 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
         del library
         rec["ptxas"] = [ln for entry in BWD_KERNELS
                         for ln in kernel_ptxas("flash_attention_bwd", entry)]
-        if len(rec["ptxas"]) < 6 or any(
+        rec["bwd_kernels"] = fa.bwd_kernel_info(q.shape[-1])
+        if len(rec["ptxas"]) < 2 * len(BWD_KERNELS) or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
                 for ln in rec["ptxas"]):
             emit(rec)
@@ -3864,7 +3876,9 @@ def main() -> int:
         "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
         "bound_by": bwd_timed["bound_by"],
         "library_ms": bwd_timed["library_ms"],
-        "library_backend": bwd_timed["library_backend"]})
+        "library_backend": bwd_timed["library_backend"],
+        "bwd_kernels": bwd_timed["bwd_kernels"],
+        "repeat_bit_equal": bwd_timed["repeat_bit_equal"]})
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",

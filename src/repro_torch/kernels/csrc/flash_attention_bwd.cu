@@ -24,44 +24,95 @@
 // 8, D 128, causal) the 268.6 M visible (query, key, head) triples need
 // 2 (3 D + 2 D) = 1280 FLOP each, 344 GFLOP of bf16 products (0.348 ms on
 // an H100 SXM at 989 TFLOP/s), against ~0.4 GB of inputs and outputs
-// (0.12 ms): the tensor cores bound it.  This first version recomputes S
-// and dO V^T in both main kernels (1792 FLOP a triple) and runs on
-// mma.sync, not wgmma: a simple kernel that is right, to be made fast
-// later.
+// (0.12 ms): the tensor cores bound it, so the products must run on
+// wgmma, fed by TMA, with the elementwise work (an exp2 and a handful of
+// FFMAs a score) beside them and not between them.
 //
 // Three kernels, launched in turn on the caller's stream:
 //
 // - `fa_bwd_delta`: D = rowsum(dO * O) in float32, a warp a row;
-// - `fa_bwd_dkdv_*`: one CTA per (KV tile, KV head, batch row), looping
-//   over the rep query heads and their query tiles in a fixed order; dK
-//   and dV stay in registers for the whole loop and are stored once;
-// - `fa_bwd_dq_*`: one CTA per (query tile, head, batch row), heaviest
-//   (causal: last) tile first, looping over the KV tiles.
+// - `fa_bwd_dkdv_wgmma` (bf16): dK and dV.  A persistent grid (one CTA an
+//   SM) walks work items of 128 keys of one KV head and batch row,
+//   heaviest first (`item_of`).  A producer warp (setmaxnreg 40) loads
+//   each item's K and V by TMA into one of two buffers (the next item's
+//   load while this one's dK and dV are stored), classes the item's
+//   64-query tiles 32 at a time, a lane a tile (`tile_class`), and sends
+//   the tiles not skipped, chunk by chunk and each chunk's for each rep
+//   head in turn: their Q and dO by TMA, their rows' lse, D and positions
+//   by the warp, into a ring of stages guarded by full/empty mbarriers.
+//   Two consumer warpgroups (232 registers) own 64 keys each: S^T = K Q^T
+//   and dP^T = V dO^T run on wgmma with both operands K-major in shared
+//   memory (m64n64k16), P^T and dS^T = P^T (dP^T - D) are formed in
+//   registers (one FFMA and an exp2 a score; the element mask only on
+//   partial tiles), and dV += P^T dO and dK += dS^T Q run on wgmma with
+//   P^T and dS^T rounded to bf16 as the register A operand (the
+//   accumulator layout of S^T is wgmma's A layout) and dO and Q read
+//   MN-major, so nothing is transposed in shared memory.  dK and dV stay
+//   in registers (64 + 64 a thread at D = 128) for the whole item and are
+//   stored once, through the K and V buffer and a TMA store.
+// - `fa_bwd_dq_wgmma` (bf16): dQ, the forward's `fa_wgmma_kernel` shape
+//   with a third product.  Items of 128 queries of one head, heaviest
+//   first; Q and dO are resident (two buffers, so the next item's load
+//   while this one runs); the producer classes the 64-key tiles 32 at a
+//   time and streams the K and V of those not skipped through a ring.
+//   Each consumer warpgroup owns 64 queries: S = Q K^T and dP = dO V^T
+//   on wgmma SS, dS in registers, dQ += dS K on wgmma RS with K read
+//   MN-major; the sum over KV tiles runs in their fixed order.  dQ is
+//   stored once, through the Q buffer and a TMA store.
+//
+// The producers class a chunk of tiles at once because a tile classed as
+// it comes costs a serial load of its positions before the next, so the
+// half of the training shape's tiles that causality skips, in runs at the
+// start of each head's walk, drained the ring (attention_bwd_ablation.py
+// times each kernel's ring alone, its consumers doing no work).  Within a
+// consumer the products, the exp2s and the next products run in series;
+// the two consumers' interleaving is what overlaps them (turns at the
+// tensor cores, as the forward's consumers take them, measured no
+// faster: the ablation's `turns`).  The m64n64 products S^T and dP^T
+// (S and dP) read both operands from shared memory, 4 KB each 32 cycles
+// at the tensor cores' rate, the shared memory's own; wider tiles would
+// need more than the 232 registers a consumer has.
+//
+// Why two kernels and the recompute (S and dO V^T in both: 1792 FLOP a
+// triple, 481 GFLOP at the training shape, against the bound's 1280).
+// One kernel that also kept dQ per KV tile and summed it in a second pass
+// would write and read back 272 visible (64-query, 128-key) tile pairs a
+// (batch, head) x 32 KB of float32 partials x 128 (batch, head) = ~1.14
+// GB: ~0.68 ms of traffic at 3.35 TB/s, more than the 0.14 ms the
+// recompute costs at the tensor-core peak.  One kernel whose CTAs add dQ
+// into one float32 buffer in a fixed order (each KV tile's CTA waiting on
+// a per-query-tile counter) keeps 1280 FLOP, but its waits between CTAs
+// can deadlock a persistent grid whose waiting CTAs hold every SM.
+// Atomics would make the sums' order, and so the bits, change from call
+// to call.
 //
 // No atomics: every sum runs in a fixed order, so two calls on the same
 // inputs give the same bits.  A (query tile, KV tile) pair with no
-// visible pair is skipped before its tiles are staged, and one whose
+// visible pair is skipped before its tiles are loaded, and one whose
 // every pair is visible takes no mask, by the classes of the forward's
-// wgmma kernel (`tile_class`, `ref.attention_tile_classes`).  Ragged Sq and
-// Sk are masked in the kernels: a query row past Sq has position 2^30, lse
-// +inf and zero dO (it adds nothing), a key past Sk position -1; rows past
-// the end are not stored.
+// wgmma kernel (`tile_class`, `ref.attention_tile_classes`); the plain
+// version of both kernels' walks is `ref.attention_bwd_schedule`.
+// Ragged Sq and Sk come from the tensor maps: rows past the end load as
+// zeros (a query row past Sq also has lse +inf, so it adds nothing; a key
+// past Sk has position -1, so it is masked), and the TMA stores write no
+// row past the end.
 //
-// bf16 at D = 64 and 128: tensor cores, mma.sync m16n8k16 with float32
-// accumulate; each warp owns 16 key rows (dK/dV) or 16 query rows (dQ);
-// the operand that a product takes along the other axis (Q and dO for dK
-// and dV, K for dQ) is also staged transposed in padded shared memory.
 // float32 at D = 64 and 128: CUDA cores, full float32 products (no TF32),
-// 32 x 32 tiles, four threads a row.
+// 32 x 32 tiles, four threads a row (`fa_bwd_dkdv_f32`, `fa_bwd_dq_f32`).
 //
 // Plain C interface, loaded with ctypes: fa_backward returns a
-// cudaError_t, fa_bwd_supported says which (dtype, Dk, Dv) it takes.
+// cudaError_t, fa_bwd_supported says which (dtype, Dk, Dv) it takes,
+// fa_bwd_kernel_info gives a bf16 kernel's ring stages, shared memory and
+// registers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fa_common.cuh"
+#include "fa_hopper.cuh"
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -71,10 +122,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // ---------------------------------------------------------------------------
 // D = rowsum(dO * O), float32 [B, H, Sq]; one warp a (batch, query, head)
@@ -106,386 +153,704 @@ __global__ void __launch_bounds__(256) fa_bwd_delta(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 at D = 64 and 128: TMA, wgmma, warp-specialised persistent CTAs
 // ---------------------------------------------------------------------------
+// Every tile lives in shared memory as TMA's 128-byte swizzle writes it:
+// D / 64 boxes of (rows) x 128 bytes, each box 1024-byte aligned.  A
+// K-major operand steps 32 bytes a 16-wide slice of D inside a box and a
+// box every 4 slices; an MN-major operand steps 1024 bytes every 8 rows
+// along its depth (SBO) and a box every 64 columns of N (LBO).
+
+// S = A B^T over the depth D for one warpgroup's 64 rows and 64 columns:
+// A's rows at `a` in boxes `abox` bytes apart, B's rows at `b` in boxes
+// `bbox` apart, both K-major (wgmma m64n64k16, SS).
 template <int D>
-struct Bf16Tiles {
-  // dK/dV kernel: 64 keys a CTA (16 a warp), BQ queries a step; at D = 128
-  // the dK and dV accumulators take 128 registers a thread, so the step's
-  // S and dP take 32 queries (16 each) and not 64
-  static constexpr int BK = 64, BQ = D == 128 ? 32 : 64;
-  static constexpr int RS = D + 8;   // row stride (bf16) of a row-major tile
-  static constexpr int TS = BQ + 8;  // row stride of a transposed Q / dO
-  static constexpr int DKDV_SMEM =
-      (2 * BK * RS + 2 * BQ * RS + 2 * D * TS) * 2 + BQ * 12 + BK * 4;
-  // dQ kernel: 64 queries a CTA (16 a warp, Q and dO in registers), KB
-  // keys a step
-  static constexpr int QB = 64, KB = D == 128 ? 32 : 64;
-  static constexpr int KTS = KB + 8;  // row stride of the transposed K
-};
+__device__ __forceinline__ void ss_64x64(float* s, uint32_t a, int abox,
+                                         uint32_t b, int bbox) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_m64n64(s, sw128_desc(a + (kk / 4) * abox + (kk % 4) * 32, 16,
+                                  1024),
+                    sw128_desc(b + (kk / 4) * bbox + (kk % 4) * 32, 16, 1024),
+                    kk > 0);
+}
 
+// acc += A B over a depth of 64 rows: A (64 x 64) from registers, four
+// 16-wide slices of `af`; B (64 rows x D) MN-major at `b`, boxes `bbox`
+// bytes apart (wgmma m64nDk16, RS).
 template <int D>
-__global__ void __launch_bounds__(128) fa_bwd_dkdv_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ qpos, const int* __restrict__ kpos,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
-    int Hkv, float scale, int causal, int window) {
-  using C = Bf16Tiles<D>;
-  constexpr int BK = C::BK, BQ = C::BQ, RS = C::RS, TS = C::TS;
-  extern __shared__ __align__(16) uint8_t bwd_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(bwd_smem);  // [BK][RS]
-  bf16* v_s = k_s + BK * RS;                      // [BK][RS]
-  bf16* q_s = v_s + BK * RS;                      // [BQ][RS]
-  bf16* do_s = q_s + BQ * RS;                     // [BQ][RS]
-  bf16* qt_s = do_s + BQ * RS;                    // [D][TS]: Q transposed
-  bf16* dot_s = qt_s + D * TS;                    // [D][TS]: dO transposed
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * TS);  // log2 units
-  float* dd_s = lse_s + BQ;
-  int* qp_s = reinterpret_cast<int*>(dd_s + BQ);
-  int* kp_s = qp_s + BQ;
-
-  const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = kb * BK, rep = H / Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  const float sl = scale * LOG2E;
-
-  if (tid < BK) {
-    const int j = k0 + tid;
-    kp_s[tid] = j < Sk ? kpos[(long long)b * Sk + j] : -1;
-  }
-  for (int e = tid; e < BK * D / 8; e += 128) {
-    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8;
-    const int j = k0 + r;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (j < Sk) {
-      const long long off = (((long long)b * Sk + j) * Hkv + hk) * D + c8;
-      kv = *reinterpret_cast<const uint4*>(k + off);
-      vv = *reinterpret_cast<const uint4*>(v + off);
-    }
-    *reinterpret_cast<uint4*>(k_s + r * RS + c8) = kv;
-    *reinterpret_cast<uint4*>(v_s + r * RS + c8) = vv;
-  }
-  __syncthreads();
-  int kmin = INT_HI, kmax = INT_LO;
-  bool neg = false;
-  for (int j = 0; j < BK; ++j) {
-    const int kp = kp_s[j];
-    if (kp < 0) {
-      neg = true;
-    } else {
-      kmin = min(kmin, kp);
-      kmax = max(kmax, kp);
-    }
-  }
-  // this thread's key rows of the tile: j0 and j1 = j0 + 8
-  const int j0 = warp * 16 + gr, j1 = j0 + 8;
-  const int kp0 = kp_s[j0], kp1 = kp_s[j1];
-
-  float dka[D / 8][4], dva[D / 8][4];
+__device__ __forceinline__ void rs_64xD(float* acc, uint32_t (*af)[4],
+                                        uint32_t b, int bbox) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  const int n_qb = (Sq + BQ - 1) / BQ;
-  for (int hh = 0; hh < rep && kmin <= kmax; ++hh) {
-    const int h = hk * rep + hh;
-    for (int qb = 0; qb < n_qb; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the previous step's tiles are read out
-      if (tid < BQ) {
-        const int i = q0 + tid;
-        const bool in = i < Sq;
-        const long long li = ((long long)b * H + h) * Sq + i;
-        qp_s[tid] = in ? qpos[(long long)b * Sq + i] : PAD_QPOS;
-        lse_s[tid] = in ? lse[li] * LOG2E : pos_inf();
-        dd_s[tid] = in ? delta[li] : 0.f;
-      }
-      __syncthreads();
-      int qmin = INT_HI, qmax = INT_LO;
-      for (int i = 0; i < BQ && q0 + i < Sq; ++i) {
-        qmin = min(qmin, qp_s[i]);
-        qmax = max(qmax, qp_s[i]);
-      }
-      const uint8_t cls =
-          tile_class(kmin, kmax, neg, qmin, qmax, causal, window);
-      if (cls == TILE_SKIP) continue;  // the same for every thread
-      const bool partial = cls == TILE_PARTIAL;
-      // stage Q and dO, row-major and transposed (rows past Sq as zeros);
-      // consecutive threads take consecutive rows, so each transposed
-      // store of a warp writes one row of qt_s / dot_s without bank
-      // conflicts
-      for (int e = tid; e < BQ * D / 8; e += 128) {
-        const int r = e % BQ, c8 = (e / BQ) * 8;
-        const int i = q0 + r;
-        uint4 qv = make_uint4(0u, 0u, 0u, 0u), gv = qv;
-        if (i < Sq) {
-          const long long off = (((long long)b * Sq + i) * H + h) * D + c8;
-          qv = *reinterpret_cast<const uint4*>(q + off);
-          gv = *reinterpret_cast<const uint4*>(dout + off);
-        }
-        *reinterpret_cast<uint4*>(q_s + r * RS + c8) = qv;
-        *reinterpret_cast<uint4*>(do_s + r * RS + c8) = gv;
-        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-        const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          qt_s[(c8 + t) * TS + r] = qe[t];
-          dot_s[(c8 + t) * TS + r] = ge[t];
-        }
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries;
-      // register e of n-tile nt holds key j0 (e < 2) or j1 and query
-      // nt * 8 + 2 tq + (e & 1)
-      float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const int c = ks * 16 + 2 * tq;
-        const uint32_t ak[4] = {ld_u32(k_s + j0 * RS + c),
-                                ld_u32(k_s + j1 * RS + c),
-                                ld_u32(k_s + j0 * RS + c + 8),
-                                ld_u32(k_s + j1 * RS + c + 8)};
-        const uint32_t av[4] = {ld_u32(v_s + j0 * RS + c),
-                                ld_u32(v_s + j1 * RS + c),
-                                ld_u32(v_s + j0 * RS + c + 8),
-                                ld_u32(v_s + j1 * RS + c + 8)};
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const bf16* qr = q_s + (nt * 8 + gr) * RS + c;
-          mma_bf16(s[nt], ak, ld_u32(qr), ld_u32(qr + 8));
-          const bf16* gr_ = do_s + (nt * 8 + gr) * RS + c;
-          mma_bf16(dp[nt], av, ld_u32(gr_), ld_u32(gr_ + 8));
-        }
-      }
-      // P^T and dS^T = P^T * (dP^T - D)
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = nt * 8 + 2 * tq + (e & 1);
-          const bool vis = !partial || visible(qp_s[i], e < 2 ? kp0 : kp1,
-                                               causal, window);
-          const float p = vis ? exp2f(fmaf(s[nt][e], sl, -lse_s[i])) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dd_s[i]);
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q: P and dS rounded to bf16 as the A
-      // fragments (the accumulator layout of S^T is the A layout of these
-      // products), dO and Q read transposed
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t as[4] = {
-            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          const bf16* gt = dot_s + (nt * 8 + gr) * TS + kk * 16 + 2 * tq;
-          mma_bf16(dva[nt], ap, ld_u32(gt), ld_u32(gt + 8));
-          const bf16* qt = qt_s + (nt * 8 + gr) * TS + kk * 16 + 2 * tq;
-          mma_bf16(dka[nt], as, ld_u32(qt), ld_u32(qt + 8));
-        }
-      }
-    }
-  }
-
-  const long long row0 = (((long long)b * Sk + k0 + j0) * Hkv + hk) * D;
-  const long long row1 = (((long long)b * Sk + k0 + j1) * Hkv + hk) * D;
-  const bool in0 = k0 + j0 < Sk, in1 = k0 + j1 < Sk;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * tq;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(dk + row0 + c) =
-          pack_bf16(dka[nt][0] * scale, dka[nt][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + row0 + c) =
-          pack_bf16(dva[nt][0], dva[nt][1]);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(dk + row1 + c) =
-          pack_bf16(dka[nt][2] * scale, dka[nt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + row1 + c) =
-          pack_bf16(dva[nt][2], dva[nt][3]);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(b + kk * 16 * 128, bbox, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_m64n128(acc, af[kk], db);
+    else
+      wgmma_rs_m64n64(acc, af[kk], db);
   }
 }
 
+// A 64 x 64 accumulator rounded to bf16 as wgmma's register A operand:
+// columns 16kk..16kk+15 are the accumulator's column groups 2kk and
+// 2kk + 1, in mma's A fragment order.
+__device__ __forceinline__ void pack_a(const float* s, uint32_t (*af)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    af[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    af[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    af[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    af[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Keeps an A operand's registers from reuse until the product that reads
+// them has been waited for.
+__device__ __forceinline__ void fence_af(uint32_t (*af)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(af[kk][e])::"memory");
+}
+
+// The accumulator's element e of a 64 x 64 tile: row r0 (e & 2 == 0) or
+// r0 + 8 of the thread's rows, column 8 (e / 4) + 2 tq + (e & 1).
+__device__ __forceinline__ int acc_col(int e, int tq) {
+  return 8 * (e >> 2) + 2 * tq + (e & 1);
+}
+
+// A consumer warpgroup's named barrier (ids 1 and 2), its 128 threads.
+__device__ __forceinline__ void wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// Stores a warpgroup's 64 x D float32 accumulator (rows r0 and r0 + 8 of
+// the thread, 64 w + 16 wl + lane / 4 of a tile of `rows` rows) times
+// `mul`, rounded to bf16, into a swizzled tile at `g` (boxes of `rows` x
+// 128 bytes), the layout its TMA store reads.
 template <int D>
-__global__ void __launch_bounds__(128) fa_bwd_dq_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__device__ __forceinline__ void stage_out(uint8_t* g, int rows, int r0,
+                                          int tq, const float* acc,
+                                          float mul) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int e = 0; e < D / 8; ++e) {
+    const int box = e / 8, ch = e % 8;
+    uint8_t* p0 = g + box * rows * 128 + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
+    uint8_t* p1 = g + box * rows * 128 + r1 * 128 + ((ch ^ (r1 & 7)) << 4);
+    *reinterpret_cast<uint32_t*>(p0 + 4 * tq) =
+        pack_bf16(acc[4 * e] * mul, acc[4 * e + 1] * mul);
+    *reinterpret_cast<uint32_t*>(p1 + 4 * tq) =
+        pack_bf16(acc[4 * e + 2] * mul, acc[4 * e + 3] * mul);
+  }
+}
+
+// The minimum and maximum of `lo` / `hi` over the warp.
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+}
+
+// Shared memory of the dK/dV kernel, from a 1024-byte aligned base: KVBUF
+// buffers of an item's K and V (128 keys each; two, so that the next
+// item's load while this one's dK and dV are stored), a ring of STAGES
+// (Q, dO) tiles of 64 queries with each stage's rows (lse in log2 units,
+// D, position), the mbarriers (full and empty per K/V buffer and per
+// stage), one slot per buffer naming its item (b, hk, k0; w = 0 ends the
+// work) and one per stage naming its tile (q0, head, class; q0 = -1 ends
+// the item).  D = 128: 2 x 64 KB of K and V and two stages of 32 KB, 194
+// KB (one buffer and three stages measured slower); D = 64: four stages,
+// 131 KB.
+template <int D>
+struct DkdvLayout {
+  static constexpr int BK = 128, BQ = 64;
+  static constexpr int STAGES = D == 128 ? 2 : 4, KVBUF = 2;
+  static constexpr int KV_BOX = BK * 128, Q_BOX = BQ * 128;
+  static constexpr int KV_BYTES = BK * D * 2, QT_BYTES = BQ * D * 2;
+  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;  // buffer k: + 2k KV
+  static constexpr int Q_OFF = KVBUF * 2 * KV_BYTES;  // stage s: Q, dO
+  static constexpr int ROW_OFF = Q_OFF + STAGES * 2 * QT_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + STAGES * 3 * BQ * 4;
+  static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 * KVBUF + 2 * STAGES);
+  static constexpr int SLOT_OFF = ISLOT_OFF + 16 * KVBUF;
+  static constexpr int BYTES = 1024 + SLOT_OFF + 16 * STAGES;
+};
+
+// A partial tile's element mask for the dK/dV kernel: bit e for the
+// accumulator's element e (key row kp0 or kp1, query column acc_col).
+__device__ __forceinline__ uint32_t dkdv_mask(const int* qp_s, int tq,
+                                              int kp0, int kp1, int causal,
+                                              int window) {
+  uint32_t vis = 0u;
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    vis |= static_cast<uint32_t>(visible(qp_s[acc_col(e, tq)],
+                                         (e & 2) ? kp1 : kp0, causal,
+                                         window))
+           << e;
+  return vis;
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_dk,
+    const __grid_constant__ CUtensorMap tm_dv,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ qpos, const int* __restrict__ kpos,
-    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv, float scale,
-    int causal, int window) {
-  using C = Bf16Tiles<D>;
-  constexpr int BQ = C::QB, BK = C::KB, RS = C::RS, TS = C::KTS;
-  __shared__ __align__(16) bf16 k_s[BK * RS];
-  __shared__ __align__(16) bf16 v_s[BK * RS];
-  __shared__ __align__(16) bf16 kt_s[D * TS];  // K transposed
-  __shared__ int qp_s[BQ];
-  __shared__ int kp_s[BK];
+    const int* __restrict__ qpos, const int* __restrict__ kpos, int Sq,
+    int Sk, int H, int Hkv, int B, float scale, int causal, int window) {
+  using L = DkdvLayout<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::STAGES, KB = L::KVBUF;
+  extern __shared__ uint8_t dkdv_smem[];
+  const uint32_t raw = smem_u32(dkdv_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = dkdv_smem + (base - raw);
+  const uint32_t bar = base + L::BAR_OFF;
+  int4* islot = reinterpret_cast<int4*>(gbase + L::ISLOT_OFF);
+  int4* slot = reinterpret_cast<int4*>(gbase + L::SLOT_OFF);
+  float* rows = reinterpret_cast<float*>(gbase + L::ROW_OFF);
+#define FULL_KV(k) (bar + 8 * (k))
+#define EMPTY_KV(k) (bar + 8 * (KB + (k)))
+#define FULL(s) (bar + 8 * (2 * KB + (s)))
+#define EMPTY(s) (bar + 8 * (2 * KB + ST + (s)))
+#define Q_STAGE(s) (base + L::Q_OFF + (s) * 2 * L::QT_BYTES)
+#define KV_BUF(k) (base + (k) * 2 * L::KV_BYTES)
 
-  const int n_qb = (Sq + BQ - 1) / BQ;
-  const int q0 = (n_qb - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
+  const int n_kb = (Sk + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
+  const int n_items = n_kb * Hkv * B, rep = H / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  const float sl = scale * LOG2E;
 
-  if (tid < BQ) {
-    const int i = q0 + tid;
-    qp_s[tid] = i < Sq ? qpos[(long long)b * Sq + i] : PAD_QPOS;
+  if (tid == 0) {
+    for (int k = 0; k < KB; ++k) {
+      mbar_init(FULL_KV(k), 1);
+      mbar_init(EMPTY_KV(k), 2);  // one thread of each consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL(s), 32);    // every lane of the producer warp
+      mbar_init(EMPTY(s), 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
   }
-  // this warp's 16 query rows: r0 = warp * 16 + gr and r1 = r0 + 8, Q and
-  // dO as A fragments
-  const int r0 = warp * 16 + gr, r1 = r0 + 8;
-  const bool in0 = q0 + r0 < Sq, in1 = q0 + r1 < Sq;
-  const long long row0 = ((long long)b * Sq + q0 + r0) * H + h;
-  const long long row1 = ((long long)b * Sq + q0 + r1) * H + h;
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * tq;
-    qf[ks][0] = in0 ? ld_u32(q + row0 * D + c) : 0u;
-    qf[ks][1] = in1 ? ld_u32(q + row1 * D + c) : 0u;
-    qf[ks][2] = in0 ? ld_u32(q + row0 * D + c + 8) : 0u;
-    qf[ks][3] = in1 ? ld_u32(q + row1 * D + c + 8) : 0u;
-    gf[ks][0] = in0 ? ld_u32(dout + row0 * D + c) : 0u;
-    gf[ks][1] = in1 ? ld_u32(dout + row1 * D + c) : 0u;
-    gf[ks][2] = in0 ? ld_u32(dout + row0 * D + c + 8) : 0u;
-    gf[ks][3] = in1 ? ld_u32(dout + row1 * D + c + 8) : 0u;
-  }
-  const long long l0 = ((long long)b * H + h) * Sq + q0 + r0;
-  const long long l1 = l0 + 8;
-  const float ls0 = in0 ? lse[l0] * LOG2E : pos_inf();
-  const float ls1 = in1 ? lse[l1] * LOG2E : pos_inf();
-  const float dd0 = in0 ? delta[l0] : 0.f, dd1 = in1 ? delta[l1] : 0.f;
   __syncthreads();
-  const int qp0 = qp_s[r0], qp1 = qp_s[r1];
-  int qmin = INT_HI, qmax = INT_LO;
-  for (int i = 0; i < BQ && q0 + i < Sq; ++i) {
-    qmin = min(qmin, qp_s[i]);
-    qmax = max(qmax, qp_s[i]);
+
+  if (warp < 4) {
+    // ---- producer: one warp loads each item's K and V, then classes the
+    // rep heads' query tiles (32 at a time, a lane a tile) and sends those
+    // not skipped in a fixed order (Q and dO by TMA from lane 0, each lane
+    // two rows' lse, D and position), then an end of item --------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0, n = 0;  // stages sent, items sent
+    for (int item; (item = item_of(n, blockIdx.x, gridDim.x)) < n_items;
+         ++n) {
+      const int g = item / n_kb, k0 = item % n_kb * BK;
+      const int hk = g % Hkv, b = g / Hkv;
+      if (lane == 0) {
+        const int kb = n % KB;
+        mbar_wait(EMPTY_KV(kb), ((n / KB) & 1) ^ 1);
+        islot[kb] = make_int4(b, hk, k0, 1);
+        mbar_expect_tx(FULL_KV(kb), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(KV_BUF(kb) + L::K_OFF + c * L::KV_BOX, &tm_k,
+                      FULL_KV(kb), c * 64, hk, k0, b);
+          tma_load_4d(KV_BUF(kb) + L::V_OFF + c * L::KV_BOX, &tm_v,
+                      FULL_KV(kb), c * 64, hk, k0, b);
+        }
+      }
+      int klo = INT_HI, khi = INT_LO;
+      bool neg = false;
+#pragma unroll
+      for (int e = 0; e < BK / 32; ++e) {
+        const int j = k0 + lane * (BK / 32) + e;
+        const int kp = j < Sk ? kpos[(long long)b * Sk + j] : -1;
+        if (kp < 0) {
+          neg = true;
+        } else {
+          klo = min(klo, kp);
+          khi = max(khi, kp);
+        }
+      }
+      warp_range(klo, khi);
+      neg = __any_sync(0xffffffffu, neg);
+      // the query tiles' classes, 32 at a time (a lane a tile), so that a
+      // skipped tile costs no load of its own; then, for each rep head in
+      // turn, the chunk's sent tiles in order
+      for (int c0 = 0; c0 < n_qt && klo <= khi; c0 += 32) {
+        int cl = TILE_SKIP;
+        if (c0 + lane < n_qt) {
+          const int i0 = (c0 + lane) * BQ, rows_in = min(BQ, Sq - i0);
+          const int* qp_t = qpos + (long long)b * Sq + i0;
+          int qlo = INT_HI, qhi = INT_LO;
+#pragma unroll 16
+          for (int i = 0; i < BQ; ++i) {
+            if (i < rows_in) {
+              const int qp = __ldg(qp_t + i);
+              qlo = min(qlo, qp);
+              qhi = max(qhi, qp);
+            }
+          }
+          cl = tile_class(klo, khi, neg, qlo, qhi, causal, window);
+        }
+        const uint32_t part = __ballot_sync(0xffffffffu, cl == TILE_PARTIAL);
+        const uint32_t sent = __ballot_sync(0xffffffffu, cl != TILE_SKIP);
+        for (int hh = 0; hh < rep; ++hh) {
+          const int h = hk * rep + hh;
+          const long long lrow = ((long long)b * H + h) * Sq;
+          for (uint32_t send = sent; send; send &= send - 1) {
+            const int t = __ffs(send) - 1, q0 = (c0 + t) * BQ;
+            int qp[2];
+            float l2[2], dd[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = q0 + 2 * lane + e;
+              const bool in = i < Sq;
+              qp[e] = in ? qpos[(long long)b * Sq + i] : PAD_QPOS;
+              l2[e] = in ? lse[lrow + i] * LOG2E : pos_inf();
+              dd[e] = in ? delta[lrow + i] : 0.f;
+            }
+            const int s = ring % ST;
+            mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+            float* rs = rows + s * 3 * BQ;
+            *reinterpret_cast<float2*>(rs + 2 * lane) =
+                make_float2(l2[0], l2[1]);
+            *reinterpret_cast<float2*>(rs + BQ + 2 * lane) =
+                make_float2(dd[0], dd[1]);
+            *reinterpret_cast<int2*>(rs + 2 * BQ + 2 * lane) =
+                make_int2(qp[0], qp[1]);
+            if (lane == 0) {
+              slot[s] = make_int4(q0, h,
+                                  (part >> t) & 1u ? TILE_PARTIAL : TILE_FULL,
+                                  0);
+              mbar_expect_tx(FULL(s), 2 * L::QT_BYTES);
+#pragma unroll
+              for (int c = 0; c < D / 64; ++c) {
+                tma_load_4d(Q_STAGE(s) + c * L::Q_BOX, &tm_q, FULL(s),
+                            c * 64, h, q0, b);
+                tma_load_4d(Q_STAGE(s) + L::QT_BYTES + c * L::Q_BOX, &tm_do,
+                            FULL(s), c * 64, h, q0, b);
+              }
+            } else {
+              mbar_arrive(FULL(s));
+            }
+            ++ring;
+          }
+        }
+      }
+      const int s = ring % ST;  // the end of the item
+      mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+      if (lane == 0) slot[s] = make_int4(-1, 0, 0, 0);
+      mbar_arrive(FULL(s));
+      ++ring;
+    }
+    if (lane == 0) {  // no more items
+      const int kb = n % KB;
+      mbar_wait(EMPTY_KV(kb), ((n / KB) & 1) ^ 1);
+      islot[kb] = make_int4(0, 0, 0, 0);
+      mbar_arrive(FULL_KV(kb));
+    }
+    return;
   }
 
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
+  // ---- two consumer warpgroups, 64 keys of each item each ---------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3, tq = lane & 3;
+  const int r0 = 64 * w + 16 * wl + (lane >> 2), r1 = r0 + 8;  // item keys
+  const float sl = scale * LOG2E;  // scores in log2 units
+  float dk[D / 2], dv[D / 2], s[32], dp[32];
+  uint32_t pf[4][4], sf[4][4];
 
-  const int n_kb = (Sk + BK - 1) / BK;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tile is read out
-    if (tid < BK) {
-      const int j = k0 + tid;
-      kp_s[tid] = j < Sk ? kpos[(long long)b * Sk + j] : -1;
-    }
-    __syncthreads();
-    int kmin = INT_HI, kmax = INT_LO;
-    bool neg = false;
-    for (int j = 0; j < BK; ++j) {
-      const int kp = kp_s[j];
-      if (kp < 0) {
-        neg = true;
-      } else {
-        kmin = min(kmin, kp);
-        kmax = max(kmax, kp);
-      }
-    }
-    const uint8_t cls =
-        tile_class(kmin, kmax, neg, qmin, qmax, causal, window);
-    if (cls == TILE_SKIP) continue;  // the same for every thread
-    const bool partial = cls == TILE_PARTIAL;
-    // rows fastest across threads: the transposed stores of a warp write
-    // one row of kt_s without bank conflicts
-    for (int e = tid; e < BK * D / 8; e += 128) {
-      const int r = e % BK, c8 = (e / BK) * 8;
-      const int j = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (j < Sk) {
-        const long long off = (((long long)b * Sk + j) * Hkv + hk) * D + c8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * RS + c8) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * RS + c8) = vv;
-      const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+  int ring = 0;  // stages consumed
+  for (int n = 0;; ++n) {
+    const int kb = n % KB;
+    mbar_wait(FULL_KV(kb), (n / KB) & 1);
+    const int4 it = islot[kb];
+    if (!it.w) break;
+    const int b = it.x, hk = it.y, k0 = it.z;
+    const int kp0 = k0 + r0 < Sk ? kpos[(long long)b * Sk + k0 + r0] : -1;
+    const int kp1 = k0 + r1 < Sk ? kpos[(long long)b * Sk + k0 + r1] : -1;
+    const uint32_t ka = KV_BUF(kb) + L::K_OFF + w * 64 * 128;  // this
+    const uint32_t va = KV_BUF(kb) + L::V_OFF + w * 64 * 128;  // WG's keys
 #pragma unroll
-      for (int t = 0; t < 8; ++t) kt_s[(c8 + t) * TS + r] = ke[t];
-    }
-    __syncthreads();
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x BK keys a warp
-    float s[BK / 8][4], dp[BK / 8][4];
+    int st;
+    for (;;) {
+      st = ring % ST;
+      mbar_wait(FULL(st), (ring / ST) & 1);
+      const int4 tile = slot[st];
+      if (tile.x < 0) break;
+      const uint32_t sq = Q_STAGE(st), sdo = sq + L::QT_BYTES;
+      const float* rs = rows + st * 3 * BQ;
+      // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x the
+      // tile's 64 queries
+      wgmma_fence();
+      ss_64x64<D>(s, ka, L::KV_BOX, sq, L::Q_BOX);
+      wgmma_commit();
+      ss_64x64<D>(dp, va, L::KV_BOX, sdo, L::Q_BOX);
+      wgmma_commit();
+      const uint32_t vis =
+          tile.z == TILE_PARTIAL
+              ? dkdv_mask(reinterpret_cast<const int*>(rs + 2 * BQ), tq, kp0,
+                          kp1, causal, window)
+              : ~0u;
+      wgmma_wait<1>();
+      fence_regs<32>(s);
+      // P^T = exp2(S^T scale log2(e) - lse), lse in log2 units a column
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const bf16* kr = k_s + (nt * 8 + gr) * RS + ks * 16 + 2 * tq;
-        mma_bf16(s[nt], qf[ks], ld_u32(kr), ld_u32(kr + 8));
-        const bf16* vr = v_s + (nt * 8 + gr) * RS + ks * 16 + 2 * tq;
-        mma_bf16(dp[nt], gf[ks], ld_u32(vr), ld_u32(vr + 8));
+      for (int e = 0; e < 32; ++e) {
+        const float p = ex2(fmaf(s[e], sl, -rs[acc_col(e, tq)]));
+        s[e] = (vis >> e) & 1u ? p : 0.f;
       }
+      wgmma_wait<0>();
+      fence_regs<32>(dp);
+      // dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        dp[e] = s[e] * (dp[e] - rs[BQ + acc_col(e, tq)]);
+      pack_a(s, pf);
+      pack_a(dp, sf);
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+      fence_regs<D / 2>(dv);
+      fence_regs<D / 2>(dk);
+      wgmma_fence();
+      rs_64xD<D>(dv, pf, sdo, L::Q_BOX);
+      rs_64xD<D>(dk, sf, sq, L::Q_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dv);
+      fence_regs<D / 2>(dk);
+      fence_af(pf);
+      fence_af(sf);
+      mbar_arrive(EMPTY(st));
+      ++ring;
     }
-    // dS = P * (dP - D)
+    mbar_arrive(EMPTY(st));  // the end of the item holds no tile
+    ++ring;
+
+    // ---- epilogue: this warpgroup's rows of K and V are read out: dK
+    // (times scale) and dV take their place, one TMA store each ---------
+    stage_out<D>(gbase + kb * 2 * L::KV_BYTES + L::K_OFF, BK, r0, tq, dk,
+                 scale);
+    stage_out<D>(gbase + kb * 2 * L::KV_BYTES + L::V_OFF, BK, r0, tq, dv,
+                 1.f);
+    fence_proxy_async();
+    wg_sync(w);
+    if ((tid & 127) == 0) {
+      if (k0 + 64 * w < Sk) {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * tq + (e & 1);
-        const bool vis = !partial || visible(e < 2 ? qp0 : qp1, kp_s[j],
-                                             causal, window);
-        const float p =
-            vis ? exp2f(fmaf(s[nt][e], sl, -(e < 2 ? ls0 : ls1))) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - (e < 2 ? dd0 : dd1));
+        for (int c = 0; c < D / 64; ++c) {
+          tma_store_4d(&tm_dk, ka + c * L::KV_BOX, c * 64, hk, k0 + 64 * w,
+                       b);
+          tma_store_4d(&tm_dv, va + c * L::KV_BOX, c * 64, hk, k0 + 64 * w,
+                       b);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
-    }
-    // dQ += dS K: dS rounded to bf16 as the A fragment, K read transposed
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                             pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const bf16* kt = kt_s + (nt * 8 + gr) * TS + kk * 16 + 2 * tq;
-        mma_bf16(dqa[nt], a, ld_u32(kt), ld_u32(kt + 8));
-      }
+      mbar_arrive(EMPTY_KV(kb));  // the buffer may load a later item
     }
   }
+#undef FULL_KV
+#undef EMPTY_KV
+#undef FULL
+#undef EMPTY
+#undef Q_STAGE
+#undef KV_BUF
+}
 
+// Shared memory of the dQ kernel, from a 1024-byte aligned base: two
+// buffers of an item's Q and dO (128 queries each), a ring of STAGES K and
+// V tiles of 64 keys, the mbarriers (Q full and Q empty per buffer; full
+// and empty per stage), one slot per buffer naming its item (b, h, q0;
+// w = 0 ends the work) and one per stage naming its tile (index and
+// class; index -1 ends the item).  D = 128: 128 KB of Q and dO and three
+// stages of 32 KB, 225 KB; D = 64: four stages, 129 KB.
+template <int D>
+struct DqLayout {
+  static constexpr int BQ = 128, BK = 64;
+  static constexpr int STAGES = D == 128 ? 3 : 4, QBUF = 2;
+  static constexpr int Q_BOX = BQ * 128, K_BOX = BK * 128;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = QBUF * 2 * Q_BYTES;  // stage s: K, then V
+  static constexpr int BAR_OFF = K_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 * QBUF + 2 * STAGES);
+  static constexpr int SLOT_OFF = ISLOT_OFF + 16 * QBUF;
+  static constexpr int BYTES = 1024 + SLOT_OFF + 8 * STAGES;
+};
+
+// A partial tile's element mask for the dQ kernel: bit e for the
+// accumulator's element e (query row qp0 or qp1, key acc_col of the tile
+// at k0; a key past Sk has position -1).
+__device__ __forceinline__ uint32_t dq_mask(const int* kp_row, int k0, int Sk,
+                                            int tq, int qp0, int qp1,
+                                            int causal, int window) {
+  uint32_t vis = 0u;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * tq;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(dq + row0 * D + c) =
-          pack_bf16(dqa[nt][0] * scale, dqa[nt][1] * scale);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(dq + row1 * D + c) =
-          pack_bf16(dqa[nt][2] * scale, dqa[nt][3] * scale);
+  for (int e = 0; e < 32; e += 4) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int col = k0 + acc_col(e + x, tq);
+      const int kp = col < Sk ? __ldg(kp_row + col) : -1;
+      vis |= static_cast<uint32_t>(visible(qp0, kp, causal, window))
+             << (e + x);
+      vis |= static_cast<uint32_t>(visible(qp1, kp, causal, window))
+             << (e + 2 + x);
+    }
   }
+  return vis;
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1) fa_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_dq,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, const int* __restrict__ kpos, int Sq,
+    int Sk, int H, int Hkv, int B, float scale, int causal, int window) {
+  using L = DqLayout<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES, QB = L::QBUF;
+  extern __shared__ uint8_t dq_smem[];
+  const uint32_t raw = smem_u32(dq_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = dq_smem + (base - raw);
+  const uint32_t bar = base + L::BAR_OFF;
+  int4* islot = reinterpret_cast<int4*>(gbase + L::ISLOT_OFF);
+  int2* slot = reinterpret_cast<int2*>(gbase + L::SLOT_OFF);
+#define Q_BUF(q) (base + (q) * 2 * L::Q_BYTES)
+#define FULL_Q(q) (bar + 8 * (q))
+#define EMPTY_Q(q) (bar + 8 * (QB + (q)))
+#define FULL(s) (bar + 8 * (2 * QB + (s)))
+#define EMPTY(s) (bar + 8 * (2 * QB + ST + (s)))
+#define K_STAGE(s) (base + L::K_OFF + (s) * 2 * L::KV_BYTES)
+
+  const int n_qb = (Sq + BQ - 1) / BQ, n_kb = (Sk + BK - 1) / BK;
+  const int n_items = n_qb * H * B, rep = H / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int q = 0; q < QB; ++q) {
+      mbar_init(FULL_Q(q), 1);
+      mbar_init(EMPTY_Q(q), 2);  // one thread of each consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL(s), 1);
+      mbar_init(EMPTY(s), 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer: for each item one warp loads Q and dO, classes the
+    // KV tiles (32 at a time, a lane a tile) and sends those not skipped
+    // through the ring in order (one thread issues every TMA copy), then
+    // an end of item ----------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0, n = 0;  // stages sent, items sent
+    for (int item; (item = item_of(n, blockIdx.x, gridDim.x)) < n_items;
+         ++n) {
+      // the forward's order: the rep heads of one KV head next to each
+      // other, the query blocks of that KV head and batch row heaviest
+      // (causal: last) first
+      const int g = item / rep / n_qb;  // (batch row, KV head)
+      const int hk = g % Hkv, b = g / Hkv;
+      const int h = hk * rep + item % rep;
+      const int q0 = (n_qb - 1 - item / rep % n_qb) * BQ;
+      if (lane == 0) {
+        const int q = n % QB;
+        mbar_wait(EMPTY_Q(q), ((n / QB) & 1) ^ 1);
+        islot[q] = make_int4(b, h, q0, 1);
+        mbar_expect_tx(FULL_Q(q), 2 * L::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(Q_BUF(q) + c * L::Q_BOX, &tm_q, FULL_Q(q), c * 64, h,
+                      q0, b);
+          tma_load_4d(Q_BUF(q) + L::Q_BYTES + c * L::Q_BOX, &tm_do,
+                      FULL_Q(q), c * 64, h, q0, b);
+        }
+      }
+      int qlo = INT_HI, qhi = INT_LO;  // the block's rows before Sq
+#pragma unroll
+      for (int e = 0; e < BQ / 32; ++e) {
+        const int i = q0 + lane * (BQ / 32) + e;
+        if (i < Sq) {
+          const int qp = qpos[(long long)b * Sq + i];
+          qlo = min(qlo, qp);
+          qhi = max(qhi, qp);
+        }
+      }
+      warp_range(qlo, qhi);
+      // the KV tiles' classes, 32 at a time (a lane a tile), so that a
+      // skipped tile costs no load of its own; then the sent ones in turn
+      for (int c0 = 0; c0 < n_kb; c0 += 32) {
+        int cl = TILE_SKIP;
+        if (c0 + lane < n_kb) {
+          const int j0 = (c0 + lane) * BK, keys_in = min(BK, Sk - j0);
+          const int* kp_t = kpos + (long long)b * Sk + j0;
+          int lo = INT_HI, hi = INT_LO;
+          bool neg = keys_in < BK;  // keys past Sk
+#pragma unroll 16
+          for (int j = 0; j < BK; ++j) {
+            if (j < keys_in) {
+              const int kp = __ldg(kp_t + j);
+              if (kp < 0) {
+                neg = true;
+              } else {
+                lo = min(lo, kp);
+                hi = max(hi, kp);
+              }
+            }
+          }
+          cl = tile_class(lo, hi, neg, qlo, qhi, causal, window);
+        }
+        const uint32_t part = __ballot_sync(0xffffffffu, cl == TILE_PARTIAL);
+        for (uint32_t send = __ballot_sync(0xffffffffu, cl != TILE_SKIP);
+             send; send &= send - 1) {
+          const int t = c0 + __ffs(send) - 1;
+          if (lane == 0) {
+            const int s = ring % ST;
+            mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+            slot[s] = make_int2(t, (part >> (t - c0)) & 1u ? TILE_PARTIAL
+                                                            : TILE_FULL);
+            mbar_expect_tx(FULL(s), 2 * L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c) {
+              tma_load_4d(K_STAGE(s) + c * L::K_BOX, &tm_k, FULL(s), c * 64,
+                          hk, t * BK, b);
+              tma_load_4d(K_STAGE(s) + L::KV_BYTES + c * L::K_BOX, &tm_v,
+                          FULL(s), c * 64, hk, t * BK, b);
+            }
+          }
+          __syncwarp();
+          ++ring;
+        }
+      }
+      if (lane == 0) {  // the end of the item
+        const int s = ring % ST;
+        mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+        slot[s] = make_int2(-1, 0);  // published below
+        mbar_arrive(FULL(s));
+      }
+      __syncwarp();
+      ++ring;
+    }
+    if (lane == 0) {  // no more items
+      const int q = n % QB;
+      mbar_wait(EMPTY_Q(q), ((n / QB) & 1) ^ 1);
+      islot[q] = make_int4(0, 0, 0, 0);
+      mbar_arrive(FULL_Q(q));
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups, 64 query rows of each item each --------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3, tq = lane & 3;
+  const int r0 = 64 * w + 16 * wl + (lane >> 2), r1 = r0 + 8;  // item rows
+  const float sl = scale * LOG2E;  // scores in log2 units
+  float dq[D / 2], s[32], dp[32];
+  uint32_t sf[4][4];
+
+  int ring = 0;  // stages consumed
+  for (int n = 0;; ++n) {
+    const int q = n % QB;
+    mbar_wait(FULL_Q(q), (n / QB) & 1);
+    const int4 it = islot[q];
+    if (!it.w) break;
+    const int b = it.x, h = it.y, q0 = it.z;
+    const bool in0 = q0 + r0 < Sq, in1 = q0 + r1 < Sq;
+    const long long lrow = ((long long)b * H + h) * Sq + q0;
+    const int qp0 = in0 ? qpos[(long long)b * Sq + q0 + r0] : PAD_QPOS;
+    const int qp1 = in1 ? qpos[(long long)b * Sq + q0 + r1] : PAD_QPOS;
+    const float ls0 = in0 ? lse[lrow + r0] * LOG2E : pos_inf();
+    const float ls1 = in1 ? lse[lrow + r1] * LOG2E : pos_inf();
+    const float dd0 = in0 ? delta[lrow + r0] : 0.f;
+    const float dd1 = in1 ? delta[lrow + r1] : 0.f;
+    const int* kp_row = kpos + (long long)b * Sk;
+    const uint32_t qa = Q_BUF(q) + w * 64 * 128;  // this warpgroup's rows
+    const uint32_t da = qa + L::Q_BYTES;          // of Q and dO
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+
+    int st;
+    for (;;) {
+      st = ring % ST;
+      mbar_wait(FULL(st), (ring / ST) & 1);
+      const int2 tile = slot[st];
+      if (tile.x < 0) break;
+      const uint32_t sk = K_STAGE(st), sv = sk + L::KV_BYTES;
+      // S = Q K^T and dP = dO V^T: this warpgroup's 64 rows x 64 keys
+      wgmma_fence();
+      ss_64x64<D>(s, qa, L::Q_BOX, sk, L::K_BOX);
+      wgmma_commit();
+      ss_64x64<D>(dp, da, L::Q_BOX, sv, L::K_BOX);
+      wgmma_commit();
+      const uint32_t vis = tile.y == TILE_PARTIAL
+                               ? dq_mask(kp_row, tile.x * BK, Sk, tq, qp0,
+                                         qp1, causal, window)
+                               : ~0u;
+      wgmma_wait<1>();
+      fence_regs<32>(s);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float p = ex2(fmaf(s[e], sl, -((e & 2) ? ls1 : ls0)));
+        s[e] = (vis >> e) & 1u ? p : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs<32>(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        dp[e] = s[e] * (dp[e] - ((e & 2) ? dd1 : dd0));
+      pack_a(dp, sf);
+      // dQ += dS K, K read MN-major
+      fence_regs<D / 2>(dq);
+      wgmma_fence();
+      rs_64xD<D>(dq, sf, sk, L::K_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dq);
+      fence_af(sf);
+      mbar_arrive(EMPTY(st));
+      ++ring;
+    }
+    mbar_arrive(EMPTY(st));  // the end of the item holds no tile
+    ++ring;
+
+    // ---- epilogue: this warpgroup's rows of Q are read out: dQ (times
+    // scale) takes their place, one TMA store ----------------------------
+    stage_out<D>(gbase + q * 2 * L::Q_BYTES, BQ, r0, tq, dq, scale);
+    fence_proxy_async();
+    wg_sync(w);
+    if ((tid & 127) == 0) {
+      if (q0 + 64 * w < Sq) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_store_4d(&tm_dq, qa + c * L::Q_BOX, c * 64, h, q0 + 64 * w, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      mbar_arrive(EMPTY_Q(q));  // the buffer may load the next item
+    }
+  }
+#undef Q_BUF
+#undef FULL_Q
+#undef EMPTY_Q
+#undef FULL
+#undef EMPTY
+#undef K_STAGE
 }
 
 // ---------------------------------------------------------------------------
@@ -777,29 +1142,70 @@ cudaError_t launch_delta(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+// A persistent grid: one CTA per SM, or per item if there are fewer.
+cudaError_t persistent_grid(long long items, unsigned* grid) {
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  *grid = static_cast<unsigned>(items < sms ? items : sms);
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t launch_bf16(const BwdArgs& a) {
-  using C = Bf16Tiles<D>;
+  using KL = DkdvLayout<D>;
+  using QL = DqLayout<D>;
   cudaError_t err = launch_delta<bf16, D>(a);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_bf16<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::DKDV_SMEM);
-  if (err != cudaSuccess) return err;
-  const bf16 *q = static_cast<const bf16*>(a.q),
-             *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v),
-             *g = static_cast<const bf16*>(a.dout);
-  fa_bwd_dkdv_bf16<D><<<dim3((a.Sk + C::BK - 1) / C::BK, a.Hkv, a.B), 128,
-                         C::DKDV_SMEM, a.stream>>>(
-      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal,
-      a.window);
+  // tensor maps: Q and dO in 64-row tiles (dK/dV) and 128-row items (dQ),
+  // K and V in 128-key items (dK/dV) and 64-key tiles (dQ), the outputs in
+  // a warpgroup's 64 rows
+  CUtensorMap q64, do64, k128, v128, dk64, dv64, q128, do128, k64, v64, dq64;
+  if ((err = make_map(&q64, a.q, a.B, a.Sq, a.H, D, KL::BQ)) != cudaSuccess ||
+      (err = make_map(&do64, a.dout, a.B, a.Sq, a.H, D, KL::BQ)) !=
+          cudaSuccess ||
+      (err = make_map(&k128, a.k, a.B, a.Sk, a.Hkv, D, KL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&v128, a.v, a.B, a.Sk, a.Hkv, D, KL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&dk64, a.dk, a.B, a.Sk, a.Hkv, D, 64)) != cudaSuccess ||
+      (err = make_map(&dv64, a.dv, a.B, a.Sk, a.Hkv, D, 64)) != cudaSuccess ||
+      (err = make_map(&q128, a.q, a.B, a.Sq, a.H, D, QL::BQ)) !=
+          cudaSuccess ||
+      (err = make_map(&do128, a.dout, a.B, a.Sq, a.H, D, QL::BQ)) !=
+          cudaSuccess ||
+      (err = make_map(&k64, a.k, a.B, a.Sk, a.Hkv, D, QL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&v64, a.v, a.B, a.Sk, a.Hkv, D, QL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&dq64, a.dq, a.B, a.Sq, a.H, D, 64)) != cudaSuccess)
+    return err;
+  unsigned grid = 0;
+  const long long kv_items =
+      (long long)((a.Sk + KL::BK - 1) / KL::BK) * a.Hkv * a.B;
+  if ((err = persistent_grid(kv_items, &grid)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  KL::BYTES)) != cudaSuccess)
+    return err;
+  fa_bwd_dkdv_wgmma<D><<<grid, 384, KL::BYTES, a.stream>>>(
+      q64, do64, k128, v128, dk64, dv64, a.lse, a.delta, a.qpos, a.kpos,
+      a.Sq, a.Sk, a.H, a.Hkv, a.B, a.scale, a.causal, a.window);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dq_bf16<D><<<dim3((a.Sq + C::QB - 1) / C::QB, a.H, a.B), 128, 0,
-                       a.stream>>>(
-      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<bf16*>(a.dq),
-      a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal, a.window);
+  const long long q_items =
+      (long long)((a.Sq + QL::BQ - 1) / QL::BQ) * a.H * a.B;
+  if ((err = persistent_grid(q_items, &grid)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_dq_wgmma<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  QL::BYTES)) != cudaSuccess)
+    return err;
+  fa_bwd_dq_wgmma<D><<<grid, 384, QL::BYTES, a.stream>>>(
+      q128, do128, k64, v64, dq64, a.lse, a.delta, a.qpos, a.kpos, a.Sq,
+      a.Sk, a.H, a.Hkv, a.B, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -834,6 +1240,22 @@ cudaError_t launch_f32(const BwdArgs& a) {
 
 bool supported(int dk, int dv) { return dk == dv && (dk == 64 || dk == 128); }
 
+// A bf16 kernel's ring stages, dynamic shared memory and, from the
+// compiled kernel, registers a thread at launch and local (spill) bytes.
+template <int D>
+cudaError_t kernel_info(int which, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      which == 0 ? cudaFuncGetAttributes(&attr, fa_bwd_dkdv_wgmma<D>)
+                 : cudaFuncGetAttributes(&attr, fa_bwd_dq_wgmma<D>);
+  if (err != cudaSuccess) return err;
+  out[0] = which == 0 ? DkdvLayout<D>::STAGES : DqLayout<D>::STAGES;
+  out[1] = which == 0 ? DkdvLayout<D>::BYTES : DqLayout<D>::BYTES;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -860,6 +1282,15 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
                   causal, window, static_cast<cudaStream_t>(stream)};
   if (bf16_) return dk_ == 64 ? launch_bf16<64>(a) : launch_bf16<128>(a);
   return dk_ == 64 ? launch_f32<64>(a) : launch_f32<128>(a);
+}
+
+// out[4] = {ring stages, dynamic shared bytes, registers a thread, local
+// bytes} of the bf16 dK/dV (which = 0) or dQ (which = 1) kernel at head
+// size d (64 or 128).
+int fa_bwd_kernel_info(int which, int d, int* out) {
+  if ((which != 0 && which != 1) || (d != 64 && d != 128))
+    return cudaErrorInvalidValue;
+  return d == 64 ? kernel_info<64>(which, out) : kernel_info<128>(which, out);
 }
 
 const char* fa_bwd_error_string(int err) {

@@ -41,7 +41,11 @@ runs the same kernel and also writes each row's log-sum-exp ``lse``
 key; ``ref.attention_lse``), and :func:`flash_attention_bwd` launches the
 backward of ``csrc/flash_attention_bwd.cu`` (``ref.attention_bwd``),
 counted in ``launch.launches["flash_attention_bwd"]`` (its three kernels,
-one count a call).  Both take the head sizes of :data:`BWD_HEAD_DIMS`,
+one count a call): in bf16 the persistent ``wgmma`` kernels
+``fa_bwd_dkdv_wgmma`` and ``fa_bwd_dq_wgmma`` (TMA rings, a producer warp
+and two consumer warpgroups each; their walk over the tiles is
+``ref.attention_bwd_schedule``, their rings and registers
+:func:`bwd_kernel_info`), in float32 CUDA-core kernels.  Both take the head sizes of :data:`BWD_HEAD_DIMS`,
 ``(64, 64)`` and ``(128, 128)`` in bf16 and float32; elsewhere they raise
 ``NotImplementedError`` naming the ROADMAP item that adds the backward
 (the ``mma_sync`` head sizes, 16.4e; MLA's ``(576, 512)`` and its smoke
@@ -83,7 +87,11 @@ _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
              "fa_variant": [_i, _i, _i]}
 _BWD_ARGTYPES = {"fa_backward": [_vp] * 12 + [_i] * 8 + [ctypes.c_float,
                                                          _i, _i, _vp],
-                 "fa_bwd_supported": [_i, _i, _i]}
+                 "fa_bwd_supported": [_i, _i, _i],
+                 "fa_bwd_kernel_info": [_i, _i, _vp]}
+# The bf16 backward's two wgmma kernels, in the order fa_bwd_kernel_info
+# numbers them.
+BWD_WGMMA_KERNELS = ("fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma")
 # The head sizes the backward takes (bf16 and float32).
 BWD_HEAD_DIMS = ((64, 64), (128, 128))
 # The ROADMAP item that adds the backward of the other head sizes.
@@ -212,8 +220,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
     shape and dtype of ``out``), from the forward's ``out`` and ``lse``
     (`flash_attention_fwd_lse`), on the card; contract of
     ``ref.attention_bwd``.  Three kernels (D, then dK/dV, then dQ) behind
-    one count, ``launches["flash_attention_bwd"]``; no atomics, so two
-    calls on the same inputs are bit-equal."""
+    one count, ``launches["flash_attention_bwd"]``: in bf16 the dK/dV
+    kernel walks items of 128 keys of a KV head and the dQ kernel items of
+    128 queries of a head over persistent CTAs, both on ``wgmma`` fed by
+    TMA, both recomputing P (``ref.attention_bwd_schedule``); in float32,
+    CUDA cores.  No atomics, so two calls on the same inputs are
+    bit-equal."""
     B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
                                                  window)
     require_backward(q, Dk, Dv)
@@ -238,3 +250,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
     raise_on(lib, err, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def bwd_kernel_info(D: int) -> dict:
+    """The bf16 backward's kernels at head size ``D`` (64 or 128) as the
+    library compiled them: for each of :data:`BWD_WGMMA_KERNELS` its ring
+    stages, dynamic shared bytes, registers a thread at launch and local
+    (spill) bytes.  Needs the card (the library is loaded, no kernel
+    runs)."""
+    lib = load_lib("flash_attention_bwd", _BWD_ARGTYPES,
+                   "fa_bwd_error_string")
+    out = {}
+    for which, name in enumerate(BWD_WGMMA_KERNELS):
+        vals = (ctypes.c_int * 4)()
+        err = lib.fa_bwd_kernel_info(which, D, vals)
+        raise_on(lib, err, f"fa_bwd_kernel_info({name}, {D})")
+        out[name] = dict(zip(("stages", "shared_bytes", "registers",
+                              "local_bytes"), vals, strict=True))
+    return out

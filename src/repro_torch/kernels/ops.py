@@ -10,10 +10,12 @@ kernels or fails.
 Under autograd (grad enabled and an input that requires grad),
 ``attention`` is a ``torch.autograd.Function`` whose forward also keeps
 each row's log-sum-exp and whose backward is ``flash_attention_bwd`` on
-the card (``ref.attention_lse`` / ``ref.attention_bwd`` on the CPU); a
-kernel with no backward yet (``ssd``; attention at head sizes outside
-``flash_attention.BWD_HEAD_DIMS``) raises ``NotImplementedError`` on the
-card rather than return a tensor with no gradient.  Without a gradient
+the card (in bf16 two persistent ``wgmma`` kernels fed by TMA rings, one
+for dK and dV over 128-key items and one for dQ over 128-query items,
+with no atomics; ``ref.attention_lse`` / ``ref.attention_bwd`` on the
+CPU); a kernel with no backward yet (``ssd``; attention at head sizes
+outside ``flash_attention.BWD_HEAD_DIMS``) raises ``NotImplementedError``
+on the card rather than return a tensor with no gradient.  Without a gradient
 the calls are the serving path's, unchanged.
 """
 from __future__ import annotations

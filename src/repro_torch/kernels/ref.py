@@ -246,6 +246,87 @@ def attention_tile_classes(q_pos, kv_pos, causal, window, bq, bk):
     return out
 
 
+# The bf16 backward's tiles (csrc/flash_attention_bwd.cu, `DkdvLayout` and
+# `DqLayout`): the dK/dV kernel's items of 128 keys walk 64-query tiles,
+# the dQ kernel's items of 128 queries walk 64-key tiles.
+BWD_DKDV_TILES = (128, 64)    # (keys an item, queries a tile)
+BWD_DQ_TILES = (128, 64)      # (queries an item, keys a tile)
+
+
+def persistent_items(n_items: int, ctas: int) -> list[list[int]]:
+    """The items each CTA of a persistent grid of ``ctas`` takes, in its
+    order (``item_of`` in ``csrc/fa_hopper.cuh``): CTA j takes j, 2P - 1 -
+    j, 2P + j, 4P - 1 - j, ... below ``n_items``."""
+    out = []
+    for j in range(ctas):
+        seq, k = [], 0
+        while (item := k * ctas + (ctas - 1 - j if k & 1 else j)) < n_items:
+            seq.append(item)
+            k += 1
+        out.append(seq)
+    return out
+
+
+def attention_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window,
+                           ctas=132):
+    """The walk of the bf16 backward's two persistent kernels over the
+    work, as ``csrc/flash_attention_bwd.cu`` runs it on ``min(items,
+    ctas)`` CTAs (132 on an H100 SXM):
+
+    - ``"dkdv"``: for each CTA its items in order, each ``(b, hk, kt,
+      tiles)``: keys ``kt * 128`` on of KV head ``hk`` and batch row ``b``
+      (items ordered by (b, hk), then ``kt``), and the tiles its producer
+      sends, ``(h, qt, cls)``: the 64-query tiles ``qt`` in chunks of 32
+      (the producer classes a chunk at once, a lane a tile), each chunk's
+      tiles for each rep head ``h`` of ``hk`` in turn, those of class
+      ``TILE_SKIP`` left out;
+    - ``"dq"``: each item ``(b, h, qb, tiles)``: queries ``qb * 128`` on of
+      head ``h`` (the forward's order: the rep heads of a KV head next to
+      each other, query blocks last first), and its 64-key tiles ``(kt,
+      cls)`` in order, skipped ones left out.
+
+    Classes by `attention_tile_classes` on each kernel's tiles.  Every
+    visible (query, key, head) triple lies in exactly one sent tile of each
+    kernel, and the sums over a kernel's tiles run in this fixed order."""
+    B, Sq = q_pos.shape
+    Sk = kv_pos.shape[1]
+    rep = H // Hkv
+    kb_keys, kq = BWD_DKDV_TILES
+    cls = attention_tile_classes(q_pos, kv_pos, causal, window, kq,
+                                 kb_keys).tolist()       # [B, nq, nk]
+    n_kb, n_qt = -(-Sk // kb_keys), -(-Sq // kq)
+    n_items = n_kb * Hkv * B
+    dkdv = []
+    for seq in persistent_items(n_items, min(n_items, ctas)):
+        walk = []
+        for item in seq:
+            g, kt = divmod(item, n_kb)
+            b, hk = divmod(g, Hkv)
+            walk.append((b, hk, kt, [
+                (hk * rep + hh, qt, cls[b][qt][kt])
+                for c0 in range(0, n_qt, 32) for hh in range(rep)
+                for qt in range(c0, min(c0 + 32, n_qt))
+                if cls[b][qt][kt] != TILE_SKIP]))
+        dkdv.append(walk)
+    qb_rows, kk = BWD_DQ_TILES
+    cls = attention_tile_classes(q_pos, kv_pos, causal, window, qb_rows,
+                                 kk).tolist()
+    n_qb, n_kt = -(-Sq // qb_rows), -(-Sk // kk)
+    n_items = n_qb * H * B
+    dq = []
+    for seq in persistent_items(n_items, min(n_items, ctas)):
+        walk = []
+        for item in seq:
+            g = item // rep // n_qb
+            b, hk = divmod(g, Hkv)
+            qb = n_qb - 1 - item // rep % n_qb
+            walk.append((b, hk * rep + item % rep, qb, [
+                (kt, cls[b][qb][kt]) for kt in range(n_kt)
+                if cls[b][qb][kt] != TILE_SKIP]))
+        dq.append(walk)
+    return {"dkdv": dkdv, "dq": dq}
+
+
 def attention_dense(q, k, v, *, scale, q_pos, kv_pos, causal=True,
                     window=None):
     """Naive quadratic oracle. q [B,Sq,H,Dk], k [B,Sk,Hkv,Dk],

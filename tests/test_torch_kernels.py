@@ -905,9 +905,23 @@ def test_cuda_mf_sgd_checks_its_inputs(cuda):
 
 # flash_attention_bwd's cases on the card: (B, Sq, Sk, H, Hkv, D, causal,
 # window, dtype, positions): bf16 at (64, 64) and (128, 128), float32,
-# rep 1, 4 and 8, a window, masked keys (kv_pos < 0), ragged Sq and Sk
-# (not multiples of the kernels' tiles), rows that see no key
+# rep 1, 4, 8 and 16, a window (one narrower than a 64-query tile), masked
+# keys (kv_pos < 0), ragged Sq and Sk (not multiples of the kernels'
+# tiles: the wgmma kernels' 128-key and 128-query items and 64-row tiles,
+# Sk one past an item and one short of two), rows that see no key
 BWD_CASES = {
+    "bf16_d128_sk129": (1, 129, 129, 4, 2, 128, True, None, "bf16",
+                        "arange"),
+    "bf16_d64_sq100_sk255": (2, 100, 255, 8, 4, 64, True, None, "bf16",
+                             "arange"),
+    "bf16_d128_sq190_sk255_noncausal_holes": (1, 190, 255, 4, 4, 128, False,
+                                              None, "bf16", "holes"),
+    "bf16_d128_rep16": (1, 256, 256, 16, 1, 128, True, None, "bf16",
+                        "arange"),
+    "bf16_d64_rep16_sq77": (2, 77, 200, 16, 1, 64, True, None, "bf16",
+                            "arange"),
+    "bf16_d128_window24": (2, 320, 320, 8, 2, 128, True, 24, "bf16",
+                           "arange"),
     "bf16_d128_rep2": (2, 256, 256, 16, 8, 128, True, None, "bf16",
                        "arange"),
     "bf16_d64_rep4": (2, 200, 200, 8, 2, 64, True, None, "bf16", "arange"),
@@ -984,7 +998,9 @@ def test_cuda_flash_attention_bwd_matches_plain_version(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16_d128_rep8_window", "bf16_d64_holes",
-                                  "f32_d128_window_holes"])
+                                  "f32_d128_window_holes",
+                                  "bf16_d64_sq100_sk255",
+                                  "bf16_d128_window24"])
 def test_cuda_flash_attention_bwd_is_deterministic(cuda, case):
     """Two backward calls on the same inputs give the same bits (no
     atomics, a fixed order of sums)."""
