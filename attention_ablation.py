@@ -25,12 +25,13 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import subprocess
 import sys
 from pathlib import Path
 
+import ablation_kit
+
 ROOT = Path(__file__).resolve().parent
-SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+SRC = Path("src") / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
 SHAPE = (8, 2048, 16, 8, 128)      # B, S, H, Hkv, D: qwen3-0.6b's prefill
 
 ABLATIONS = {
@@ -58,55 +59,6 @@ ABLATIONS = {
 }
 
 
-def build_all():
-    """Every ablated copy built at once; name -> loaded library."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = SRC.read_text()
-    out_dir = ROOT / "build" / "attention_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.fa_forward.argtypes = [vp] * 6 + [i] * 8 + [ctypes.c_float, i, i,
-                                                        vp]
-        lib.fa_forward.restype = i
-        libs[name] = lib
-    return libs
-
-
-def time_ms(torch, fn, reps=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -114,7 +66,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ref
-    libs = build_all()
+    libs = {name: lib for name, (lib, _) in ablation_kit.build(
+        "attention_ablation", ablation_kit.sources(SRC, ABLATIONS)).items()}
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.fa_forward.argtypes = [vp] * 6 + [i] * 8 + [ctypes.c_float, i, i,
+                                                        vp]
+        lib.fa_forward.restype = i
     dev = torch.device("cuda")
     B, S, H, Hkv, D = SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -134,11 +92,9 @@ def main() -> int:
                 raise RuntimeError(f"fa_forward: cudaError {err}")
         want = ref.attention(q, k, v, scale=1.0 / math.sqrt(D), q_pos=pos,
                              kv_pos=pos, causal=causal)
-        ms = {name: [] for name in libs}
-        for turn in range(3):
-            names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
-            for name in names:
-                ms[name].append(time_ms(torch, lambda n=name: call(libs[n])))
+        ms = ablation_kit.in_turns(
+            {name: (lambda lib=lib: call(lib)) for name, lib in libs.items()},
+            reps=20, warmup=3)
         for name, lib in libs.items():
             call(lib)
             torch.cuda.synchronize()
@@ -148,10 +104,7 @@ def main() -> int:
                                   strict=True)),
                 "causal": causal, "ablation": name, "ms": ms[name],
                 "max_abs_err": err}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi)
+    print(ablation_kit.smi())
     return 0
 
 

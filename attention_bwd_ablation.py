@@ -46,14 +46,13 @@ import argparse
 import ctypes
 import json
 import math
-import subprocess
 import sys
 from pathlib import Path
 
-from mla_ablation import ClockSampler, time_ms
+import ablation_kit
 
 ROOT = Path(__file__).resolve().parent
-SRC = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+SRC = (Path("src") / "repro_torch" / "kernels" / "csrc"
        / "flash_attention_bwd.cu")
 OUT = ROOT / "chiprun_out" / "attention_bwd_ablation.jsonl"
 SHAPE = (8, 2048, 16, 8, 128)      # B, S, H, Hkv, D: qwen3-0.6b's step
@@ -139,53 +138,6 @@ ENTRIES = ("fa_bwd_dkdv_wgmmaILi128", "fa_bwd_dq_wgmmaILi128",
            "fa_bwd_dkdv_bf16ILi128", "fa_bwd_dq_bf16ILi128")
 
 
-def build_all(parent: Path | None):
-    """Every copy built at once; name -> (loaded library, ptxas lines)."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = SRC.read_text()
-    out_dir = ROOT / "build" / "attention_bwd_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source does not hold "
-                                   f"{old[:60]!r} once")
-            text = text.replace(old, new)
-        texts[name] = text
-    if parent is not None:
-        texts["parent"] = (parent / "src" / "repro_torch" / "kernels" / "csrc"
-                           / "flash_attention_bwd.cu").read_text()
-    procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lines = log.splitlines()
-        ptxas = []
-        for n, ln in enumerate(lines):
-            if "Compiling entry function" in ln and any(e in ln
-                                                        for e in ENTRIES):
-                ptxas += [s.strip() for s in lines[n:n + 4]]
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.fa_backward.argtypes = [vp] * 12 + [i] * 8 + [ctypes.c_float, i,
-                                                          i, vp]
-        lib.fa_backward.restype = i
-        libs[name] = (lib, ptxas)
-    return libs
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
@@ -199,7 +151,16 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_all(args.parent)
+    built = ablation_kit.build(
+        "attention_bwd_ablation",
+        ablation_kit.sources(SRC, ABLATIONS, parent=args.parent, once=True))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    for name, (lib, log) in built.items():
+        lib.fa_backward.argtypes = [vp] * 12 + [i] * 8 + [ctypes.c_float, i,
+                                                          i, vp]
+        lib.fa_backward.restype = i
+        libs[name] = (lib, ablation_kit.entry_ptxas(log, ENTRIES))
     dev = torch.device("cuda")
     B, S, H, Hkv, D = SHAPE
     scale = 1.0 / math.sqrt(D)
@@ -232,13 +193,9 @@ def main() -> int:
     calls = {name: (lambda n=name: call(n)) for name in libs}
     if library is not None:
         calls["sdpa"] = library
-    ms = {name: [] for name in calls}
-    clocks = ClockSampler()
+    clocks = ablation_kit.ClockSampler()
     clocks.start()
-    for turn in range(3):
-        names = list(calls) if turn % 2 == 0 else list(calls)[::-1]
-        for name in names:
-            ms[name].append(time_ms(torch, calls[name], reps=20))
+    ms = ablation_kit.in_turns(calls, reps=20)
     card = clocks.stop()
     lines = []
     for name in calls:
@@ -266,9 +223,7 @@ def main() -> int:
         print(lines[-1], flush=True)
     lines.append(json.dumps({"bwd_kernel_info": fa.bwd_kernel_info(D)}))
     print(lines[-1])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = ablation_kit.smi()
     lines.append(smi)
     print(smi)
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -46,6 +46,14 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    tile taken as full), two for ssd's
    y at ``main``, ``carry`` and ``jamba``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
+   ``ssd_bwd`` (``check_ssd_bwd``: at mamba2-130m's and jamba's training
+   shapes, timed beside its plain version and its bound, with its
+   kernels' ptxas lines, no spills; at the smoke configs' shape in bf16
+   and float32, a ragged s, dt in mamba2's range and ties, with and
+   without a cotangent of the final state) within
+   ``ref.ssd_bwd_tolerance`` of ``ref.ssd_bwd``, two calls bit-equal,
+   where a chunk given the next chunk's state gradient, a head left out
+   of dB and, at the ties, the tie rule dropped must fail;
    ``ring_view`` and ``vap_suffix_norms`` are also timed at the fault
    path's rings (W = 22, P = 8, d = 5,053,800), ``path: "fault"``, with
    ``vap_suffix_norms``'s ptxas lines (no spills); ``vap_suffix_norms``
@@ -206,14 +214,20 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    finite and the last step's loss below step 1's and below the initial
    weights' loss on the same batch (each step draws a new batch, whose
    losses at the initial weights differ by ~10 %); SSP with a FIFO of
-   2 for 4 steps: ``apply_scale`` 0, 0, 1, 1;
-16. training on the card against the CPU (``train_card_vs_cpu``):
-   qwen3-0.6b's smoke config in bf16 and float32, 3 SGD steps from the
-   same parameters and batches: the loss, ``grad_norm``, every gradient
-   leaf and every moved parameter within ``SERVE_TOL`` plus twice the
-   step's own rounding (the CPU's run one precision up); AdamW's updates
-   on identical gradients; a gradient through ``ssd`` (mamba2-130m's
-   smoke config) and through MLA (deepseek-v2-lite-16b's) raises
+   2 for 4 steps: ``apply_scale`` 0, 0, 1, 1; then mamba2-130m the same
+   way (``train_ssm_path``: ``--arch mamba2-130m --full --batch 8 --seq
+   2048 --steps 6``): ``ssd`` 48 and ``ssd_bwd`` 24 launches a step and
+   no other kernel, ms a step, tokens/s, peak memory, a profiled step, a
+   finite loss that falls;
+16. training on the card against the CPU (``train_card_vs_cpu``): the
+   smoke configs of qwen3-0.6b, mamba2-130m and jamba-1.5-large-398b in
+   bf16 and float32, 3 SGD steps from the same parameters and batches
+   (mamba2's and Jamba's CPU steps from the card's parameters, Jamba's on
+   the card's MoE routing, recorded and forced under autograd): the
+   loss, ``grad_norm``, every gradient leaf and every moved
+   parameter within ``SERVE_TOL`` plus twice the step's own rounding (the
+   CPU's run one precision up); AdamW's updates on identical gradients;
+   a gradient through MLA (deepseek-v2-lite-16b's smoke config) raises
    ``NotImplementedError`` on the card.
 
 Then the ``kernels`` summary line (the ``ps_view`` and ``delta_pack``
@@ -456,6 +470,28 @@ SSD_SHAPES = {
 SSD_TIMED = ("main", "jamba")
 # the cases at which ssd's y limit must fail its two planted faults
 SSD_Y_FAULT_CASES = ("main", "carry", "jamba")
+# ssd_bwd's phase cases: (an SSD_SHAPES-style shape, whether the final
+# state takes a cotangent).  "main" and "jamba" are the training shapes
+# of mamba2-130m and of jamba's mamba sublayers (8 x 2048 tokens, no
+# cotangent of the state: the mamba block drops it), timed; then the
+# smoke configs' shape (mamba2-130m's and Jamba's: h 16, p 32, g 2, n 32,
+# chunk 32, phase 16's batch 4 x 64) in bf16 and float32, a ragged s, dt
+# in mamba2's range, and ties ("ties": dt = 0 on spans of rows, where
+# cum_i == cum_j and only JAX's tie rule holds).
+SSD_BWD_SHAPES = {
+    "main": (SSD_SHAPES["main"], False),
+    "jamba": (SSD_SHAPES["jamba"], False),
+    "smoke": ((4, 64, 16, 32, 2, 32, 32, "bf16", "softplus"), True),
+    "smoke_f32": ((4, 64, 16, 32, 2, 32, 32, "f32", "softplus"), True),
+    "ragged": (SSD_SHAPES["ragged"], True),
+    "smoke_ragged": (SSD_SHAPES["smoke_ragged"], False),
+    "carry": (SSD_SHAPES["carry"], True),
+    "ties": ((2, 2048, 24, 64, 3, 128, 128, "bf16", "ties"), False),
+    "ties_f32": ((2, 300, 8, 64, 2, 64, 128, "f32", "ties"), True),
+}
+SSD_BWD_TIMED = ("main", "jamba")
+# the backward's kernels (csrc/ssd_scan_bwd.cu), for ptxas and the profiler
+SSD_BWD_KERNELS = ("ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk")
 # mf_sgd_block's phase cases: (N, M, K, density, gamma, lam, pattern),
 # inputs N(0, 1) from a seed with NaN at every unobserved rating.  "main"
 # is the dense block of the full-width MF data (FULL_MF, built by
@@ -905,12 +941,14 @@ def expected_launches(cfg, n_clocks):
     if not cfg.comm_active:
         return {"ring_view": n_clocks, "vap_suffix_norms": n_clocks,
                 "delta_pack": 0, "flash_attention": 0,
-                "flash_attention_bwd": 0, "ssd": 0, "mf_sgd_block": 0}
+                "flash_attention_bwd": 0, "ssd": 0, "ssd_bwd": 0,
+                "mf_sgd_block": 0}
     ships = sum(substrate.ship_now(c, cfg.agg_clocks)
                 for c in range(n_clocks))
     return {"ring_view": 2 * n_clocks, "vap_suffix_norms": n_clocks,
             "delta_pack": ships, "flash_attention": 0,
-            "flash_attention_bwd": 0, "ssd": 0, "mf_sgd_block": 0}
+            "flash_attention_bwd": 0, "ssd": 0, "ssd_bwd": 0,
+            "mf_sgd_block": 0}
 
 
 def device_split(app, cfg, n_clocks, **sim_kw):
@@ -2093,7 +2131,8 @@ def check_flash_attention(name, device, rates, timed: bool):
 def ssd_inputs(shape, seed, device):
     """``(x, dt, A, B, C)`` on the card for one SSD shape, made from a
     seed: dt softplus'd (or log-uniform in mamba2's dt init range [1e-3,
-    1e-1]) and A negative, as the mamba2 block gives them."""
+    1e-1]; or, for "ties", softplus'd and 0 on three spans of rows) and A
+    negative, as the mamba2 block gives them."""
     import torch
     b, s, h, p, g, n, _, dt_, dt_kind = shape
     dtype = torch.bfloat16 if dt_ == "bf16" else torch.float32
@@ -2105,6 +2144,10 @@ def ssd_inputs(shape, seed, device):
     else:
         dt = torch.nn.functional.softplus(
             torch.randn((b, s, h), generator=gd, device=device))
+    if dt_kind == "ties":
+        last = (s - 1) // shape[6] * shape[6]
+        for lo, hi in ((3, 7), (40, 48), (last, last + 20)):
+            dt[:, lo:hi] = 0.0
     A = -torch.exp(0.3 * torch.randn((h,), generator=gd, device=device))
     B, C = (torch.randn((b, s, g, n), generator=gd, device=device).to(dtype)
             for _ in range(2))
@@ -2208,6 +2251,135 @@ def check_ssd(name, device, rates, timed: bool):
             emit(rec)
             raise AssertionError(f"ssd's kernel spills or has no ptxas "
                                  f"report: {rec['ptxas']}")
+    emit(rec)
+    return rec
+
+
+def ssd_bwd_bound(shape, rates):
+    """Least time (ms) for the SSD backward: per chunk of length L and
+    (b, h), the causal scores C·Bᵀ 2·n·L(L+1)/2 and the causal dy·xᵀ
+    2·p·L(L+1)/2 (dy·x̄ᵀ with column j scaled by dt_j afterwards: both
+    operands are inputs, so bf16 on the tensor cores for bf16 inputs),
+    then in float32 Wᵀ·dy 2·p·L(L+1)/2, DS·B and DSᵀ·C 2·n·L(L+1)/2 each,
+    and five [L, p, n] products of 2·L·p·n each (the states entering
+    each chunk, their gradients, and the state terms of dx̄, dB and dC);
+    against x, dy, dt, A, B, C read and dx, ddt, dA, dB, dC written once.
+    As in `ssd_bound`, the operation time is the larger of the bf16 and
+    the float32 time (their sum in float32 inputs)."""
+    b, s, h, p, g, n, chunk, dt_, _ = shape
+    bw, f32, bf16 = rates
+    elem = 2 if dt_ == "bf16" else 4
+    tri = sum(L * (L + 1) // 2
+              for L in (min(chunk, s - c) for c in range(0, s, chunk)))
+    score_ops = (2 * n + 2 * p) * tri * b * h
+    f32_ops = (2 * p * tri + 4 * n * tri + 10 * p * n * s) * b * h
+    if elem == 2:
+        t_o = max(score_ops / bf16, f32_ops / f32) * 1e3
+    else:
+        t_o = (score_ops + f32_ops) / f32 * 1e3
+    nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * elem \
+        + 4 * (2 * b * s * h + 2 * h)
+    t_b = nbytes / bw * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_ssd_bwd(name, device, rates, timed: bool):
+    """``ssd_bwd`` against ``ref.ssd_bwd`` on one case of `SSD_BWD_SHAPES`:
+    every gradient within ``ref.ssd_bwd_tolerance`` (``ref.ssd_bwd_within``),
+    which must fail the planted faults (``ref.ssd_bwd_fault``: a chunk
+    given the state gradient of the next, a head of each group left out
+    of dB, and at the "ties" cases the tie rule dropped); two calls
+    bit-equal (no atomics).  Timed at the training shapes (`SSD_BWD_TIMED`)
+    beside the plain version and the bound, with the kernels' ptxas lines
+    (no spills); no PyTorch call computes this gradient (``library_ms``
+    None)."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+    shape, with_ds = SSD_BWD_SHAPES[name]
+    b, s, h, p, g, n, chunk = shape[:7]
+    x, dt, A, B, C = ssd_inputs(shape, seed=sum(shape[:7]) + 3,
+                                device=device)
+    gd = torch.Generator(device=device).manual_seed(sum(shape[:7]) + 4)
+    dy = torch.randn(x.shape, generator=gd, device=device).to(x.dtype)
+    ds = (torch.randn((b, h, p, n), generator=gd, device=device)
+          if with_ds else None)
+    got = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    again = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    torch.cuda.synchronize()
+    variant = ssd_scan.last_variant
+    want = ref.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    rec = {"phase": "kernels", "kernel": "ssd_bwd", "case": name,
+           "variant": variant,
+           "shape": dict(zip(("b", "s", "h", "p", "g", "n", "chunk"),
+                             shape[:7], strict=True)), "dtype": shape[7],
+           "dt": shape[8], "dstate": with_ds,
+           "repeat_bit_equal": all(
+               torch.equal(u.view(torch.int16 if u.dtype == torch.bfloat16
+                                  else torch.int32),
+                           v.view(torch.int16 if v.dtype == torch.bfloat16
+                                  else torch.int32))
+               for u, v in zip(got, again, strict=True)),
+           "finite": all(bool(torch.isfinite(t).all()) for t in got),
+           "max_abs_err": max((u.float() - w.float()).abs().max().item()
+                              for u, w in zip(got, want, strict=True)),
+           "err_over_scale_by_output": {
+               k: ((u.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item()
+               for k, u, w in zip(names, got, want, strict=True)},
+           "scale_by_output": {k: w.float().abs().max().item()
+                               for k, w in zip(names, want, strict=True)},
+           "tol": {str(t).split(".")[-1]: ref.ssd_bwd_tolerance(t)
+                   for t in (x.dtype, torch.float32)},
+           "within": ref.ssd_bwd_within(got, want)}
+    del again
+    faults = [f for f in ref.SSD_BWD_FAULTS
+              if f != "no_tie_rule" or shape[8] == "ties"]
+    missed = []
+    for fault in faults:
+        wrong = ref.ssd_bwd_fault(x, dt, A, B, C, dy, ds, chunk, fault)
+        rec[f"planted_fault_{fault}_err_over_scale"] = max(
+            ((u.float() - w.float()).abs().max() / w.float().abs().max())
+            .item() for u, w in zip(wrong, want, strict=True))
+        if ref.ssd_bwd_within(wrong, want):
+            missed.append(fault)
+        del wrong
+    del got, want
+    if not (rec["within"] and rec["repeat_bit_equal"] and rec["finite"]):
+        emit(rec)
+        raise AssertionError(f"ssd_bwd disagrees with its plain version "
+                             f"({name}): {rec}")
+    if missed:
+        emit(rec)
+        raise AssertionError(f"ssd_bwd's limit passes planted faults "
+                             f"{missed} ({name}): {rec}")
+    if timed:
+        bound, by = ssd_bwd_bound(shape, rates)
+        rec.update(
+            ms=time_ms(lambda: ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds,
+                                                chunk), 10),
+            forward_ms=time_ms(lambda: ssd_scan.ssd(x, dt, A, B, C,
+                                                    chunk=chunk), 10),
+            plain_ms=time_ms(lambda: ref.ssd_bwd(x, dt, A, B, C, dy, ds,
+                                                 chunk), 2, warmup=1),
+            library_ms=None, bound_ms=bound, bound_by=by,
+            smem_bytes=ssd_scan.bwd_smem_bytes(p, n, chunk,
+                                               shape[7] == "bf16"),
+            # each kernel's device ms in one profiled call, and the
+            # wrapper's sums over the groups' heads and casts
+            kernel_ms=mf_kernel_ms(
+                lambda: ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk),
+                {k: (k + "<", k + "I") for k in SSD_BWD_KERNELS}
+                | {"sums_and_casts": ("reduce_kernel",
+                                      "elementwise_kernel")}),
+            ptxas=[ln for e in SSD_BWD_KERNELS
+                   for ln in kernel_ptxas("ssd_scan_bwd", e)])
+        if len(rec["ptxas"]) < 10 or any(
+                ", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                for ln in rec["ptxas"]):
+            emit(rec)
+            raise AssertionError(f"ssd_bwd's kernels spill or have no "
+                                 f"ptxas lines: {rec['ptxas']}")
     emit(rec)
     return rec
 
@@ -3052,9 +3224,30 @@ SSP_STEPS = 4
 # the kernels of a training step, by profiler name
 TRAIN_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
                  "flash_attention_bwd": BWD_KERNELS}
-# Phase 16 (training, card against CPU): the smoke config, batch 4 x 64,
-# 3 SGD steps at this rate.
+# Then mamba2-130m at its published widths through the same launcher
+# (`train_ssm_path`): batch 8 x 2048, AdamW and the cosine schedule, BSP;
+# its kernels a step are ssd (twice a layer: remat) and ssd_bwd.
+TRAIN_SSM_ARCH = "mamba2-130m"
+TRAIN_SSM_STEPS = 6
+TRAIN_SSM_KERNELS = {"ssd": ("split::split_kernel", "5split12split_kernel",
+                             "ssd_kernel"),
+                     "ssd_bwd": SSD_BWD_KERNELS}
+# Phase 16 (training, card against CPU): the smoke configs of these archs,
+# batch 4 x 64, 3 SGD steps at this rate.
 TRAIN_SMALL = dict(batch=4, seq=64, steps=3, lr=0.05)
+TRAIN_VS_CPU_ARCHS = ("qwen3-0.6b", "mamba2-130m", "jamba-1.5-large-398b")
+# The archs whose CPU run starts each step from the card's parameters
+# (each step held on the same inputs, as phase 6 holds serving steps).
+# Going on from their own parameters, mamba2's bf16 runs drift further
+# apart than one step's rounding d allows: at step 3 the card's embedding
+# gradient lay 0.048 or 0.081 of scale from the CPU's (two versions of
+# ssd_bwd) where d was ~0.01, and bf16 rounding carried over the steps
+# moves it that far: the CPU's own run lies ~0.13 from its run one
+# precision up.  So their going-on runs are held as well, within
+# SERVE_TOL plus twice the larger of d and that carried rounding, beside a
+# witness that is recorded only: the CPU's run against itself with ddt
+# one float32 rounding off.
+TRAIN_SAME_INPUTS = ("mamba2-130m", "jamba-1.5-large-398b")
 
 
 def bwd_within(got, want, dtype) -> bool:
@@ -3231,11 +3424,12 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
     return rec
 
 
-def profiled_train_step(step_fn, state, batch):
+def profiled_train_step(step_fn, state, batch, kernels=None):
     """One train step under the profiler: ``(state, record)`` with the host
     ms (ending in a synchronize; the profiler's own host cost inside), the
     device-busy ms, the idle share, the training kernels' device ms by
-    name and the eight ops that take the most device time."""
+    name (``kernels``, by default `TRAIN_KERNELS`) and the eight ops that
+    take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3244,12 +3438,13 @@ def profiled_train_step(step_fn, state, batch):
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = TRAIN_KERNELS if kernels is None else kernels
     busy = 0.0
-    per_kernel = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    per_kernel = dict.fromkeys(kernels, 0.0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy += e.self_device_time_total
-            for name, fns in TRAIN_KERNELS.items():
+            for name, fns in kernels.items():
                 if any(fn in e.name for fn in fns):
                     per_kernel[name] += e.self_device_time_total
     ops = sorted((e for e in prof.key_averages()
@@ -3414,6 +3609,114 @@ def train_path(device):
     return rec
 
 
+def train_ssm_path(device):
+    """Phase 15, second part: mamba2-130m trained at its published widths
+    on the card.  (a) ``repro_torch.launch.train.main`` for
+    `TRAIN_SSM_STEPS` steps of batch 8 x 2048 with the launcher's AdamW
+    and cosine schedule under BSP, the launch counts set to 0 just before
+    and read just after: ``ssd`` 48 and ``ssd_bwd`` 24 a step (24 layers,
+    remat: each block's forward runs again in the backward), and no other
+    kernel; (b) the same model, optimizer and batches from the launcher's
+    pieces, each step timed (host clock ending in a synchronize; step 1,
+    the warm-up, apart), tokens/s, peak memory, one more step profiled.
+    Every loss and ``grad_norm`` finite; the last step's loss below step
+    1's (in both runs) and below the initial weights' loss on the last
+    step's batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (TokenGenConfig, token_batch,
+                                            token_batches)
+    from repro_torch.kernels import launch
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.psdist.grad_sync import GradSync
+    from repro_torch.train.state import (init_state, make_loss_fn,
+                                         make_train_step)
+    steps = TRAIN_SSM_STEPS
+    argv = ["--arch", TRAIN_SSM_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(steps), "--lr",
+            str(TRAIN_LR), "--log-every", "1"]
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    hist = launcher.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(launch.launches)
+    cfg = get_config(TRAIN_SSM_ARCH)
+    want = {k: 0 for k in launches}
+    want.update(ssd=(2 if cfg.remat else 1) * cfg.n_layers * steps,
+                ssd_bwd=cfg.n_layers * steps)
+    rec = {"phase": "train_ssm_path", "arch": TRAIN_SSM_ARCH, "argv": argv,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "consistency": "bsp",
+           "launcher_s": main_s, "launches": launches,
+           "launches_per_step": {k: v / steps
+                                 for k, v in launches.items() if v},
+           "launcher_loss": [h["loss"] for h in hist],
+           "launcher_grad_norm": [h["grad_norm"] for h in hist]}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device=device)
+    opt = adamw(cosine_schedule(TRAIN_LR, steps // 10, steps))
+    state = init_state(model, opt, GradSync())
+    step_fn = make_train_step(model, opt, GradSync())
+    dcfg = TokenGenConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, seed=0)
+    batches = list(token_batches(dcfg, steps, device=device))
+    with torch.no_grad():
+        rec["loss_last_batch_before"] = float(make_loss_fn(model)(
+            model.params, batches[-1]))
+    torch.cuda.synchronize()
+    rec.update(n_params=model.n_params, setup_s=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, gnorms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    steady = step_ms[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec.update(step_ms=step_ms, warmup_step_ms=step_ms[0],
+               ms_per_step=sum(steady) / len(steady),
+               tokens_per_step=tokens,
+               tokens_per_s=tokens * len(steady) / (sum(steady) / 1e3),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               loss=losses, grad_norm=gnorms)
+    state, rec["profiled_step"] = profiled_train_step(
+        step_fn, state, {"tokens": token_batch(dcfg, steps, device=device)},
+        kernels=TRAIN_SSM_KERNELS)
+    rec["finite"] = all(math.isfinite(x) for x in losses + gnorms
+                        + rec["launcher_loss"] + rec["launcher_grad_norm"]
+                        + [rec["loss_last_batch_before"]])
+    rec["loss_falls"] = (losses[-1] < losses[0]
+                         and rec["launcher_loss"][-1]
+                         < rec["launcher_loss"][0]
+                         and losses[-1] < rec["loss_last_batch_before"])
+    del state, step_fn, model, batches
+    torch.cuda.empty_cache()
+    emit(rec)
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if not rec["finite"]:
+        bad.append("a loss or grad_norm is not finite")
+    if not rec["loss_falls"]:
+        bad.append("the loss did not fall from step 1 to the last, or "
+                   "not below the initial weights' on the last batch")
+    if bad:
+        raise AssertionError(f"train_ssm_path: {bad}")
+    return rec
+
+
 def _flat_grads(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -3429,97 +3732,207 @@ def _share(a, b) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
 
 
+@contextlib.contextmanager
+def ssd_ddt_rounded():
+    """The CPU's ``ssd`` gradient with ddt scaled by 1 + 2^-23 (one float32
+    rounding of every element) in the block: the witness of how far bf16
+    training carries a float32-level difference of the backward."""
+    from repro_torch.kernels import ops
+    plain = ops._ssd_bwd
+
+    def rounded(*args):
+        dx, ddt, dA, dB, dC = plain(*args)
+        return dx, ddt * (1 + 2 ** -23), dA, dB, dC
+
+    ops._ssd_bwd = rounded
+    try:
+        yield
+    finally:
+        ops._ssd_bwd = plain
+
+
+def train_card_vs_cpu_arch(arch, compute, device, same: bool,
+                           witness: bool = False):
+    """One arch's smoke config trained on the card and on the CPU from the
+    same parameters and batches (`TRAIN_SMALL`: 3 SGD steps) in compute
+    dtype ``compute``; with ``same`` the CPU starts each step from the
+    card's parameters.  With ``witness`` (going on, ``same`` False) two
+    more runs on the CPU go on from their own parameters: one precision
+    up (``up``), whose distance from the CPU's run is the rounding the
+    run has carried (the limits take the larger of it and ``d``), and one
+    with its ``ssd`` gradient's ddt one float32 rounding off
+    (`ssd_ddt_rounded`; recorded only); see `train_card_vs_cpu`."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import TokenGenConfig, token_batch
+    from repro_torch.models import moe
+    from repro_torch.models.registry import Model, build_model
+    from repro_torch.optim.optimizers import sgd, tree_map
+    from repro_torch.train.state import (grad_norm, init_state,
+                                         make_loss_fn, make_train_step,
+                                         value_and_grad)
+    up = {"bfloat16": "float32", "float32": "float64"}
+    cfg = get_smoke_config(arch).replace(compute_dtype=compute)
+    card = build_model(cfg, seed=1, device=device)
+    if cfg.family in CONDITIONED:
+        condition_projections(card)
+    cpu = Model(cfg, tree_map(lambda p: p.detach().cpu().clone(),
+                              card.params))
+    twin = Model(cfg.replace(compute_dtype=up[compute]), cpu.params)
+    models = {"card": card, "cpu": cpu, "twin": twin}
+    runs = ("card", "cpu")
+    if witness:
+        models["pert"] = Model(cfg, tree_map(lambda p: p.clone(),
+                                             cpu.params))
+        models["up"] = Model(twin.cfg, tree_map(lambda p: p.clone(),
+                                                cpu.params))
+        runs += ("pert", "up")
+
+    def rounded(n):
+        return ssd_ddt_rounded() if n == "pert" else contextlib.nullcontext()
+
+    init = _flat_grads(cpu.params)
+    fns = {n: make_loss_fn(m) for n, m in models.items()}
+    steps = {n: make_train_step(models[n], sgd(TRAIN_SMALL["lr"]))
+             for n in runs}
+    states = {n: init_state(models[n], sgd(TRAIN_SMALL["lr"])) for n in runs}
+    tol = SERVE_TOL[compute]
+    worst, rows, forced = {}, [], []
+    start = init
+    for i in range(TRAIN_SMALL["steps"]):
+        if same and i:  # the CPU (and its twin) from the card's parameters
+            tree_map(lambda a, b: a.copy_(b.detach().cpu()), cpu.params,
+                     card.params)
+            start = _flat_grads(cpu.params)
+        toks = token_batch(TokenGenConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SMALL["seq"],
+            batch=TRAIN_SMALL["batch"], seed=3), i, device="cpu")
+        bat = {n: {"tokens": toks.to(device) if n == "card" else toks}
+               for n in models}
+        # the CPU's runs take the card's routing (an arch with MoE layers)
+        out = {}
+        with moe.recording() as route:
+            out["card"] = value_and_grad(fns["card"], card.params,
+                                         bat["card"])
+        forced.append(len(route))
+        for n in models:
+            if n != "card":
+                with moe.forcing(route or None), rounded(n):
+                    out[n] = value_and_grad(fns[n], models[n].params,
+                                            bat[n])
+        g = {n: _flat_grads(o[1]) for n, o in out.items()}
+        norms = {n: float(grad_norm(o[1])) for n, o in out.items()}
+        loss = {n: float(o[0]) for n, o in out.items()}
+        row = {"step": i + 1, "loss": loss, "grad_norm": norms,
+               "leaves": {}}
+        # the rounding a limit allows: the step's own, d (the CPU against
+        # its twin, one precision up, on the same parameters); with the
+        # witness, the larger of d and the rounding the run has carried
+        # (against "up", one precision up, going on from its own
+        # parameters)
+        ref_up = "up" if witness else "twin"
+        for path in g["cpu"]:
+            d = _share(g["cpu"][path], g["twin"][path])
+            r = max(d, _share(g["cpu"][path], g[ref_up][path]))
+            err = _share(g["card"][path], g["cpu"][path])
+            row["leaves"][path] = (err, d, r)
+            if err > tol + 2 * r:
+                worst[f"step{i+1}{path}"] = (err, tol + 2 * r)
+        if witness:
+            row["ddt_rounded"] = max(_share(g["pert"][k], g["cpu"][k])
+                                     for k in g["cpu"])
+        for name, vals in (("loss", loss), ("grad_norm", norms)):
+            r = max(abs(vals["cpu"] - vals[u]) / abs(vals[u])
+                    for u in {"twin", ref_up})
+            err = abs(vals["card"] - vals["cpu"]) / abs(vals["cpu"])
+            if err > tol + 2 * r:
+                worst[f"step{i+1}/{name}"] = (err, tol + 2 * r)
+        with moe.recording() as route:
+            states["card"], _ = steps["card"](states["card"], bat["card"])
+        for n in runs[1:]:
+            with moe.forcing(route or None), rounded(n):
+                states[n], _ = steps[n](states[n], bat[n])
+        moved = {n: {k: v - start[k] for k, v in _flat_grads(
+            states[n].params).items()} for n in ("card", "cpu")}
+        for path, want in moved["cpu"].items():
+            r = row["leaves"][path][2]
+            floor = (1 if same else i + 1) * 2 ** -23 * float(
+                start[path].abs().max())
+            err = float((moved["card"][path] - want).abs().max())
+            if err > (tol + 2 * r) * float(want.abs().max()) + floor:
+                worst[f"step{i+1}{path}/moved"] = (err, floor)
+        rows.append(row)
+    rec = {"phase": ("train_card_vs_cpu_going_on" if witness
+                     else "train_card_vs_cpu"),
+           "arch": arch, "compute": compute,
+           "config": TRAIN_SMALL, "tol": tol, "same_inputs": same,
+           "projections_conditioned": cfg.family in CONDITIONED,
+           "forced_moe_calls_per_step": forced,
+           "steps": [{"step": r["step"], "loss": r["loss"],
+                      "grad_norm": r["grad_norm"],
+                      "max_leaf_err": max(v[0] for v in
+                                          r["leaves"].values()),
+                      "max_leaf_d": max(v[1] for v in
+                                        r["leaves"].values()),
+                      **({"max_leaf_carried": max(
+                          v[2] for v in r["leaves"].values()),
+                          "max_leaf_ddt_rounded": r["ddt_rounded"]}
+                         if witness else {})}
+                     for r in rows],
+           "failures": worst}
+    emit(rec)
+    if cfg.moe is not None and not all(forced):
+        raise AssertionError(f"{arch}: no MoE routing was recorded under "
+                             f"autograd: {forced}")
+    if worst:
+        raise AssertionError(f"training on the card disagrees with the "
+                             f"CPU ({arch}, {compute}): {worst}")
+    return rec
+
+
 def train_card_vs_cpu(device):
-    """Phase 16: qwen3-0.6b's smoke config trained on the card and on the
-    CPU from the same parameters and batches, in bf16 and float32 compute
-    (`TRAIN_SMALL`: 3 SGD steps).  Each step holds the loss, ``grad_norm``
+    """Phase 16: the smoke configs of `TRAIN_VS_CPU_ARCHS` trained on the
+    card and on the CPU from the same parameters and batches, in bf16 and
+    float32 compute (`TRAIN_SMALL`: 3 SGD steps;
+    `train_card_vs_cpu_arch`).  Each step holds the loss, ``grad_norm``
     and every gradient leaf of the card within ``SERVE_TOL`` (of each
     leaf's largest magnitude) plus twice the step's own rounding ``d``:
     the CPU's distance from its run of the step one precision up (bf16 in
     float32, float32 in float64; the same parameters), as phase 6 holds
     the logits; then the train step on both and the moved parameters
-    likewise.  AdamW is held on identical gradients (its normalised
-    update turns a rounding difference of a near-zero gradient into a
-    step of up to lr).  Last, a gradient through ``ssd`` (mamba2-130m)
-    and through MLA attention (deepseek-v2-lite-16b) raises
+    likewise.  qwen3-0.6b's runs go on from their own parameters; the
+    archs of `TRAIN_SAME_INPUTS` start each step on the CPU from the
+    card's parameters, and their moves are held from there.  Those archs'
+    runs going on from their own parameters are then held too
+    (``train_card_vs_cpu_going_on``), with the larger of ``d`` and the
+    rounding the CPU's run has carried: its distance from its own run
+    one precision up, each going on from its own parameters (at step 1
+    it is ``d``); beside it each step records a witness, the CPU going on
+    against itself with its ``ssd`` gradient's ddt one float32 rounding
+    off.  An arch with
+    MoE layers (Jamba's) records the card's
+    routing under autograd (``moe.recording``) and runs the CPU's
+    gradients and step on it (``moe.forcing``, which fails unless every
+    forced routing was taken); the families of `CONDITIONED` have their
+    q/k/v projections scaled as in phase 6.  AdamW is held on identical
+    gradients (its normalised update turns a rounding difference of a
+    near-zero gradient into a step of up to lr).  Last, a gradient
+    through MLA attention (deepseek-v2-lite-16b) raises
     ``NotImplementedError`` on the card."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.synthetic import TokenGenConfig, token_batch
-    from repro_torch.models.registry import Model, build_model
-    from repro_torch.optim.optimizers import (adamw, cosine_schedule, sgd,
-                                              tree_map)
-    from repro_torch.train.state import (grad_norm, init_state,
-                                         make_loss_fn, make_train_step,
-                                         value_and_grad)
-    recs = []
-    up = {"bfloat16": "float32", "float32": "float64"}
-    for compute in ("bfloat16", "float32"):
-        cfg = get_smoke_config(TRAIN_ARCH).replace(compute_dtype=compute)
-        card = build_model(cfg, seed=1, device=device)
-        cpu = Model(cfg, tree_map(lambda p: p.detach().cpu().clone(),
-                                  card.params))
-        twin = Model(cfg.replace(compute_dtype=up[compute]), cpu.params)
-        init = _flat_grads(cpu.params)
-        fns = {n: make_loss_fn(m) for n, m in (("card", card), ("cpu", cpu),
-                                               ("twin", twin))}
-        steps = {n: make_train_step(m, sgd(TRAIN_SMALL["lr"]))
-                 for n, m in (("card", card), ("cpu", cpu))}
-        states = {n: init_state(m, sgd(TRAIN_SMALL["lr"]))
-                  for n, m in (("card", card), ("cpu", cpu))}
-        tol = SERVE_TOL[compute]
-        worst, rows = {}, []
-        for i in range(TRAIN_SMALL["steps"]):
-            toks = token_batch(TokenGenConfig(
-                vocab_size=cfg.vocab_size, seq_len=TRAIN_SMALL["seq"],
-                batch=TRAIN_SMALL["batch"], seed=3), i, device="cpu")
-            bat = {"card": {"tokens": toks.to(device)},
-                   "cpu": {"tokens": toks}, "twin": {"tokens": toks}}
-            out = {n: value_and_grad(fns[n], (card if n == "card" else
-                                              cpu).params, bat[n])
-                   for n in ("card", "cpu", "twin")}
-            g = {n: _flat_grads(o[1]) for n, o in out.items()}
-            norms = {n: float(grad_norm(o[1])) for n, o in out.items()}
-            loss = {n: float(o[0]) for n, o in out.items()}
-            row = {"step": i + 1, "loss": loss, "grad_norm": norms,
-                   "leaves": {}}
-            for path in g["cpu"]:
-                d = _share(g["cpu"][path], g["twin"][path])
-                err = _share(g["card"][path], g["cpu"][path])
-                row["leaves"][path] = (err, d)
-                if err > tol + 2 * d:
-                    worst[f"step{i+1}{path}"] = (err, tol + 2 * d)
-            for name, vals in (("loss", loss), ("grad_norm", norms)):
-                d = abs(vals["cpu"] - vals["twin"]) / abs(vals["twin"])
-                err = abs(vals["card"] - vals["cpu"]) / abs(vals["cpu"])
-                if err > tol + 2 * d:
-                    worst[f"step{i+1}/{name}"] = (err, tol + 2 * d)
-            for n in ("card", "cpu"):
-                states[n], _ = steps[n](states[n], bat[n])
-            moved = {n: {k: v - init[k] for k, v in _flat_grads(
-                states[n].params).items()} for n in ("card", "cpu")}
-            for path, want in moved["cpu"].items():
-                d = row["leaves"][path][1]
-                floor = (i + 1) * 2 ** -23 * float(init[path].abs().max())
-                err = float((moved["card"][path] - want).abs().max())
-                if err > (tol + 2 * d) * float(want.abs().max()) + floor:
-                    worst[f"step{i+1}{path}/moved"] = (err, floor)
-            rows.append(row)
-        rec = {"phase": "train_card_vs_cpu", "arch": TRAIN_ARCH,
-               "compute": compute, "config": TRAIN_SMALL, "tol": tol,
-               "steps": [{"step": r["step"], "loss": r["loss"],
-                          "grad_norm": r["grad_norm"],
-                          "max_leaf_err": max(e for e, _ in
-                                              r["leaves"].values()),
-                          "max_leaf_d": max(d for _, d in
-                                            r["leaves"].values())}
-                         for r in rows],
-               "failures": worst}
-        emit(rec)
-        recs.append(rec)
-        if worst:
-            raise AssertionError(f"training on the card disagrees with the "
-                                 f"CPU ({compute}): {worst}")
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule, tree_map
+    from repro_torch.train.state import make_loss_fn, value_and_grad
+    recs = [train_card_vs_cpu_arch(arch, compute, device,
+                                   same=arch in TRAIN_SAME_INPUTS)
+            for arch in TRAIN_VS_CPU_ARCHS
+            for compute in ("bfloat16", "float32")]
+    recs += [train_card_vs_cpu_arch(arch, compute, device, same=False,
+                                    witness=True)
+             for arch in TRAIN_SAME_INPUTS
+             for compute in ("bfloat16", "float32")]
     # AdamW on identical gradients: three updates of the same params
     cfg = get_smoke_config(TRAIN_ARCH).replace(compute_dtype="float32")
     cpu = build_model(cfg, seed=2, device="cpu")
@@ -3546,8 +3959,7 @@ def train_card_vs_cpu(device):
         raise AssertionError(f"AdamW on the card disagrees: {adam}")
     # kernels with no backward yet raise under a gradient on the card
     raised = {}
-    for arch, item in (("mamba2-130m", "16.4c"),
-                       ("deepseek-v2-lite-16b", "16.4d")):
+    for arch, item in (("deepseek-v2-lite-16b", "16.4d"),):
         cfg = get_smoke_config(arch)
         model = build_model(cfg, seed=1, device=device)
         toks = token_batch(TokenGenConfig(vocab_size=cfg.vocab_size,
@@ -3683,6 +4095,11 @@ def main() -> int:
     for name in SSD_SHAPES:
         if name not in SSD_TIMED:
             check_ssd(name, dev, rates, timed=False)
+    ssd_bwd_timed = {name: check_ssd_bwd(name, dev, rates, timed=True)
+                     for name in SSD_BWD_TIMED}
+    for name in SSD_BWD_SHAPES:
+        if name not in SSD_BWD_TIMED:
+            check_ssd_bwd(name, dev, rates, timed=False)
     mf_main = check_mf_sgd("main", dev, rates, timed=True)
     for name in MF_CASES:
         check_mf_sgd(name, dev, rates, timed=name == "kernels_bench")
@@ -3775,6 +4192,7 @@ def main() -> int:
 
     # --- 15. training at full width ------------------------------------------
     trained = train_path(dev)
+    trained_ssm = train_ssm_path(dev)
 
     # --- 16. training, card against CPU ------------------------------------
     train_card_vs_cpu(dev)
@@ -3860,12 +4278,15 @@ def main() -> int:
             a: served[a]["launches_per_prefill"][counter] for a in archs}
         if counter == "flash_attention":
             kernels[-1]["library_backend"] = rec["library_backend"]
+        if name == "ssd":  # mamba2-130m's training step (phase 15)
+            kernels[-1]["train_launches_per_step"] = trained_ssm[
+                "launches_per_step"]["ssd"]
     # the backward of attention: no pallas_call stands behind it (the TPU's
     # train step differentiates the blocked reference attention with XLA)
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/train/state.py:114",
+        "replaces": "src/repro/train/state.py:52",
         "replaces_what": "jax.value_and_grad through "
                          "src/repro/kernels/ref.py:52 (XLA autodiff; no "
                          "pallas_call)",
@@ -3879,6 +4300,31 @@ def main() -> int:
         "library_backend": bwd_timed["library_backend"],
         "bwd_kernels": bwd_timed["bwd_kernels"],
         "repeat_bit_equal": bwd_timed["repeat_bit_equal"]})
+    # the backward of the SSD scan: no pallas_call stands behind it either
+    # (the TPU's train step differentiates the reference scan with XLA)
+    rec = ssd_bwd_timed["main"]
+    kernels.append({
+        "name": "ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/train/state.py:52",
+        "replaces_what": "jax.value_and_grad through "
+                         "src/repro/models/mamba2.py:91, "
+                         "src/repro/kernels/ops.py:116 and "
+                         "src/repro/kernels/ref.py:247 (XLA autodiff; no "
+                         "pallas_call)",
+        "launches": trained_ssm["launches"]["ssd_bwd"],
+        "launches_per_step": trained_ssm["launches_per_step"]["ssd_bwd"],
+        "max_abs_err": rec["max_abs_err"],
+        "err_over_scale_by_output": rec["err_over_scale_by_output"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"], "variant": rec["variant"],
+        "forward_ms": rec["forward_ms"],
+        "repeat_bit_equal": rec["repeat_bit_equal"],
+        # jamba's mamba sublayers' shape (256 heads), timed in phase 2
+        "jamba": {k: ssd_bwd_timed["jamba"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "forward_ms")}})
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",
@@ -3933,6 +4379,11 @@ def main() -> int:
               "max_memory_allocated_bytes", "launches_per_step", "loss",
               "grad_norm")},
           "train_profiled_step": trained["profiled_step"],
+          "train_ssm": {k: trained_ssm[k] for k in (
+              "ms_per_step", "warmup_step_ms", "tokens_per_s",
+              "max_memory_allocated_bytes", "launches_per_step", "loss",
+              "grad_norm")},
+          "train_ssm_profiled_step": trained_ssm["profiled_step"],
           "train_ssp_apply_scale": trained["ssp"]["apply_scale"]})
     emit({"kernels": kernels})
     emit(smi)

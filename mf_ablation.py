@@ -33,12 +33,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+import ablation_kit  # noqa: E402
 import chip_smoke  # noqa: E402
 
 OUT = ROOT / "chiprun_out" / "mf_ablation.jsonl"
@@ -65,54 +65,6 @@ KERNELS = {"pack": ("mf_pack",), "transpose": ("mf_transpose",),
            "rows": ("mf_rows", "mf_pass<0", "mf_passILi0"),
            "cols": ("mf_cols", "mf_pass<1", "mf_passILi1"),
            "finalize": ("mf_finalize", "mf_loss")}
-
-
-def build_all(parent: Path | None, only):
-    """Every copy built at once; name -> (loaded library, ptxas lines)."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = (ROOT / SRC).read_text()
-    out_dir = ROOT / "build" / "mf_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for name, subs in ABLATIONS.items():
-        if only and name not in only:
-            continue
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    if parent is not None:
-        texts["parent"] = (parent / SRC).read_text()
-    procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        # the parent's entry point takes five scratch buffers and the
-        # split counts of its plan
-        n_ptr, n_int = (12, 5) if name == "parent" else (14, 3)
-        if name == "parent":
-            lib.mf_plan.argtypes = [i, i, i, vp]
-            lib.mf_plan.restype = i
-        lib.mf_sgd_block.argtypes = [vp] * n_ptr + [i] * n_int + [f, f, vp]
-        lib.mf_sgd_block.restype = i
-        ptxas = chip_smoke.ptxas_report(log)
-        libs[name] = (lib, ptxas)
-    return libs
 
 
 def make_call(torch, name, lib, L, R, D, mask, gamma, lam):
@@ -186,7 +138,21 @@ def main() -> int:
     only = {s for s in args.only.split(",") if s}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text("")
-    libs = build_all(args.parent, only)
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = {}
+    texts = ablation_kit.sources(SRC, ABLATIONS, parent=args.parent,
+                                 only=only)
+    for name, (lib, log) in ablation_kit.build("mf_ablation",
+                                               texts).items():
+        # the parent's entry point takes five scratch buffers and the
+        # split counts of its plan
+        n_ptr, n_int = (12, 5) if name == "parent" else (14, 3)
+        if name == "parent":
+            lib.mf_plan.argtypes = [i, i, i, vp]
+            lib.mf_plan.restype = i
+        lib.mf_sgd_block.argtypes = [vp] * n_ptr + [i] * n_int + [f, f, vp]
+        lib.mf_sgd_block.restype = i
+        libs[name] = (lib, chip_smoke.ptxas_report(log))
     dev = torch.device("cuda")
     for case, reps in (("main", 5), ("kernels_bench", 50)):
         (L, R, D, mask), gamma, lam = chip_smoke.mf_inputs(case, dev)
@@ -194,11 +160,8 @@ def main() -> int:
         tol = ref.mf_sgd_tolerance(L, R, D, mask, gamma, lam)
         calls = {name: make_call(torch, name, lib, L, R, D, mask, gamma,
                                  lam) for name, (lib, _) in libs.items()}
-        ms = {name: [] for name in libs}
-        for turn in range(3):
-            names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
-            for name in names:
-                ms[name].append(chip_smoke.time_ms(calls[name][0], reps))
+        ms = ablation_kit.in_turns(
+            {name: c[0] for name, c in calls.items()}, reps=reps)
         # the ptxas lines of the instance this shape runs
         used = f"ILi{(L.shape[1] + 31) // 32}E"
         for name, (_, ptxas) in libs.items():
@@ -218,10 +181,7 @@ def main() -> int:
                 if case == "main" else None})
         del calls, L, R, D, mask, want
         torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    emit(smi)
+    emit(ablation_kit.smi())
     return 0
 
 

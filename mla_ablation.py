@@ -18,8 +18,9 @@ results).  ``--parent DIR`` adds DIR's ``flash_attention.cu`` (e.g. a
 ``parent``; its kernel is called with V as a separate contiguous copy of
 K's first 512 columns, the copies of this one with V as that view of K
 (the same values).  Every copy is built with the port's ``nvcc`` flags
-into ``build/mla_ablation/`` and timed on the same inputs, in turns (all
-copies, then all in reverse, then all again), at deepseek-v2-lite's
+into ``build/mla_ablation/`` (``ablation_kit``) and timed on the same
+inputs, in turns (all copies, then all in reverse, then all again), at
+deepseek-v2-lite's
 prefill shape (B 8, S 2048, H 16, Hkv 1, Dk 576, Dv 512, bf16), causal
 and non-causal.  Each line also gives the bytes of K tiles and Q the
 kernel copies from L2 or memory (64-key tiles some pair of a 64-row item
@@ -37,13 +38,13 @@ import argparse
 import ctypes
 import json
 import math
-import subprocess
 import sys
-import threading
 from pathlib import Path
 
+import ablation_kit
+
 ROOT = Path(__file__).resolve().parent
-SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+SRC = Path("src") / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
 OUT = ROOT / "chiprun_out" / "mla_ablation.jsonl"
 SHAPE = (8, 2048, 16, 1, 576, 512)    # B, S, H, Hkv, Dk, Dv
 ROWS, TILE = 64, 64                   # the kernel's item rows and K tile
@@ -66,96 +67,6 @@ ABLATIONS = {
 ENTRIES = ("fa_mla_wgmma_kernel", "fa_mla_kernel")
 
 
-def build_all(parent: Path | None):
-    """Every copy built at once; name -> loaded library."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = SRC.read_text()
-    out_dir = ROOT / "build" / "mla_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    if parent is not None:
-        texts["parent"] = (parent / "src" / "repro_torch" / "kernels" / "csrc"
-                           / "flash_attention.cu").read_text()
-    procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, ptxas = {}, {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lines = log.splitlines()
-        at = [n for n, ln in enumerate(lines)
-              if "Compiling entry function" in ln
-              and any(e in ln for e in ENTRIES)]
-        ptxas[name] = [ln.strip() for ln in lines[at[0]:at[0] + 4]] if at \
-            else []
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.fa_forward.argtypes = [vp] * 6 + [i] * 8 + [ctypes.c_float, i, i,
-                                                        vp]
-        lib.fa_forward.restype = i
-        libs[name] = lib
-    return libs, ptxas
-
-
-class ClockSampler:
-    """``nvidia-smi``'s SM clock (MHz) and power draw (W), sampled every
-    0.2 s from a thread between ``start()`` and ``stop()``."""
-
-    def __init__(self):
-        self.samples, self._stop = [], threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-
-    def _run(self):
-        while not self._stop.wait(0.2):
-            out = subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                 "--format=csv,noheader,nounits"], capture_output=True,
-                text=True, check=True).stdout.split(",")
-            self.samples.append((float(out[0]), float(out[1])))
-
-    def start(self):
-        self._thread.start()
-
-    def stop(self) -> dict:
-        self._stop.set()
-        self._thread.join()
-        mhz = [c for c, _ in self.samples]
-        watts = [w for _, w in self.samples]
-        return {"sm_mhz": [min(mhz), max(mhz)] if mhz else None,
-                "power_w": [min(watts), max(watts)] if watts else None,
-                "samples": len(self.samples)}
-
-
-def time_ms(torch, fn, reps=10, warmup=2) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
@@ -166,7 +77,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ref
-    libs, ptxas = build_all(args.parent)
+    built = ablation_kit.build("mla_ablation", ablation_kit.sources(
+        SRC, ABLATIONS, parent=args.parent))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs, ptxas = {}, {}
+    for name, (lib, log) in built.items():
+        lib.fa_forward.argtypes = [vp] * 6 + [i] * 8 + [ctypes.c_float, i, i,
+                                                        vp]
+        lib.fa_forward.restype = i
+        libs[name] = lib
+        # the first instance of the kernel (four lines)
+        ptxas[name] = ablation_kit.entry_ptxas(log, ENTRIES)[:4]
     dev = torch.device("cuda")
     B, S, H, Hkv, Dk, Dv = SHAPE
     scale = 1.0 / math.sqrt(192)          # MLA's 128 + 64 query dims
@@ -197,13 +118,10 @@ def main() -> int:
                                          ROWS // (H // Hkv), TILE)
         stream_bytes = (int((cls != ref.TILE_SKIP).sum()) * Hkv * TILE
                         + B * S * H) * Dk * 2
-        ms = {name: [] for name in libs}
-        clocks = ClockSampler()
+        clocks = ablation_kit.ClockSampler()
         clocks.start()
-        for turn in range(3):
-            names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
-            for name in names:
-                ms[name].append(time_ms(torch, lambda n=name: call(n)))
+        ms = ablation_kit.in_turns({name: (lambda n=name: call(n))
+                                    for name in libs})
         card = clocks.stop()
         for name in libs:
             call(name)
@@ -218,9 +136,7 @@ def main() -> int:
                                 for t in ms[name]], "card": card,
                 "ptxas": ptxas[name]}))
             print(lines[-1], flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = ablation_kit.smi()
     lines.append(smi)
     print(smi)
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -11,7 +11,7 @@
 //
 // Replaces no Pallas kernel: the TPU's train step takes this gradient by
 // XLA's autodiff of the blocked reference attention
-// (src/repro/train/state.py:114, jax.value_and_grad, through
+// (src/repro/train/state.py:52, jax.value_and_grad, through
 // src/repro/kernels/ref.py:52), since the Pallas kernel defines no
 // custom_vjp.  On the card the gradient of attention is this kernel, as
 // the forward is flash_attention.cu.  Contract: `ref.attention_bwd` of

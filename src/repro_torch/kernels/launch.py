@@ -4,7 +4,8 @@
   one to its kernel's entry where it launches it, and nowhere else, so a
   run can show that its path went through the kernels (``mf_sgd_block``
   counts one per call: its two passes and the epilogue are one launch of
-  the library's entry point);
+  the library's entry point; so do ``flash_attention_bwd`` and
+  ``ssd_bwd``, three kernels each);
 - :func:`load_lib`, the built library of one ``csrc/*.cu`` source with
   its entry points' C signatures declared;
 - :func:`check`, the device, dtype, shape and (unless told otherwise)
@@ -24,7 +25,7 @@ from . import build
 # Launches per kernel since the last reset_launches().
 launches = {"ring_view": 0, "vap_suffix_norms": 0, "delta_pack": 0,
             "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0,
-            "mf_sgd_block": 0}
+            "ssd_bwd": 0, "mf_sgd_block": 0}
 
 
 def reset_launches() -> None:

@@ -13,10 +13,14 @@ each row's log-sum-exp and whose backward is ``flash_attention_bwd`` on
 the card (in bf16 two persistent ``wgmma`` kernels fed by TMA rings, one
 for dK and dV over 128-key items and one for dQ over 128-query items,
 with no atomics; ``ref.attention_lse`` / ``ref.attention_bwd`` on the
-CPU); a kernel with no backward yet (``ssd``; attention at head sizes
-outside ``flash_attention.BWD_HEAD_DIMS``) raises ``NotImplementedError``
-on the card rather than return a tensor with no gradient.  Without a gradient
-the calls are the serving path's, unchanged.
+CPU), and ``ssd`` is one whose forward is the serving call and whose
+backward is ``ssd_scan.ssd_bwd`` on the card (three kernels: the states
+entering each chunk, their gradients by a reverse walk, the in-chunk
+gradients; ``ref.ssd_bwd`` on the CPU).  Attention at head sizes outside
+``flash_attention.BWD_HEAD_DIMS`` has no backward yet and raises
+``NotImplementedError`` on the card rather than return a tensor with no
+gradient.  Without a gradient the calls are the serving path's,
+unchanged.
 """
 from __future__ import annotations
 
@@ -125,19 +129,52 @@ def attention(q, k, v, *, scale, q_pos, kv_pos, causal=True, window=None):
                          causal=causal, window=window)
 
 
-def ssd(x, dt, A, B, C, chunk=128):
-    """Mamba-2 SSD chunked scan; see `ref.ssd_chunked` for the contract.
-    On the card it has no backward kernel yet: under autograd it raises
-    (on the CPU, autograd differentiates the plain version)."""
+def _ssd_fwd(x, dt, A, B, C, chunk):
     if _on_cuda(x):
-        if _needs_grad(x, dt, A, B, C):
-            raise NotImplementedError(
-                f"no backward kernel for ssd on the card (x "
-                f"{tuple(x.shape)}, d_state {B.shape[-1]}, chunk {chunk}); "
-                f"ROADMAP 16.4c (the ssd backward)")
         from . import ssd_scan
         return ssd_scan.ssd(x, dt, A, B, C, chunk=chunk)
     return ref.ssd_chunked(x, dt, A, B, C, chunk)
+
+
+def _ssd_bwd(x, dt, A, B, C, dy, dstate, chunk):
+    """``(dx, ddt, dA, dB, dC)`` of the SSD scan for the cotangents of
+    ``y`` and of the final state (None: none)."""
+    if _on_cuda(x):
+        from . import ssd_scan
+        return ssd_scan.ssd_bwd(x, dt, A, B, C, dy, dstate, chunk)
+    return ref.ssd_bwd(x, dt, A, B, C, dy, dstate, chunk)
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD scan with its gradient: the forward is the serving call;
+    the backward recomputes the chunk states from the saved inputs
+    (``ssd_scan.ssd_bwd`` on the card, ``ref.ssd_bwd`` on the CPU).  The
+    final state's cotangent is None when nothing used it (training: the
+    mamba block drops the state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _ssd_fwd(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        return (*_ssd_bwd(x, dt, A, B, C, dy, dstate, ctx.chunk), None)
+
+
+def ssd(x, dt, A, B, C, chunk=128):
+    """Mamba-2 SSD chunked scan; see `ref.ssd_chunked` for the contract.
+    Under autograd, `_SSD` (its gradient through ``ssd_bwd`` on the
+    card)."""
+    if _needs_grad(x, dt, A, B, C):
+        return _SSD.apply(x, dt, A, B, C, chunk)
+    return _ssd_fwd(x, dt, A, B, C, chunk)
 
 
 def ssd_decode(x, dt, A, B, C, state):

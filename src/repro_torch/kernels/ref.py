@@ -569,9 +569,12 @@ def _ssd_parts(x, dt, A, B, C, chunk):
 
     cum = torch.cumsum(dac, dim=2)                          # [b,nc,l,h]
     scores = torch.einsum("bclhn,bcmhn->bclmh", Ch, Bh)     # l=query m=key
-    # the exponent is clamped at 0: the upper triangle is masked below
-    decay = torch.exp(torch.clamp(
-        cum[:, :, :, None, :] - cum[:, :, None, :, :], max=0.0))
+    # the exponent is clamped at 0: the upper triangle is masked below.
+    # torch.minimum, as JAX's jnp.minimum: at a tie (an exact 0, i > j)
+    # it passes half the gradient, torch.clamp all of it
+    d = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.exp(torch.minimum(
+        d, torch.zeros((), dtype=d.dtype, device=d.device)))
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
     w = torch.where(causal[None, None, :, :, None], scores * decay, 0.0)
@@ -597,6 +600,152 @@ def _ssd_output(x, y_intra, c_decayed, prev_states):
     y_inter = torch.einsum("bclhn,bchpn->bclhp", c_decayed, prev_states)
     y = (y_intra + y_inter).reshape(b, -1, h, p).to(x.dtype)
     return y[:, :s]
+
+
+SSD_BWD_FAULTS = ("state_late", "no_tie_rule", "head_missing")
+
+
+def ssd_bwd(x, dt, A, B, C, dy, dstate, chunk):
+    """The gradient of `ssd_chunked` for the cotangents ``dy [b,s,h,p]``
+    of ``y`` and ``dstate [b,h,p,n]`` of the final state (None: the final
+    state takes no gradient), computed from the chunked decomposition
+    itself, not by autograd.  Per (b, h) and chunk c of length L, with
+    ``x̄ = dt·x``, ``cum = cumsum(dt·A)`` inside the chunk, ``S_c`` the
+    state entering chunk c and ``G_c`` the gradient of the state leaving
+    it (``G_{nc-1} = dstate``, ``G_{c-1} = e^{cum_{L-1}} G_c + Σ_i
+    e^{cum_i} dy_i ⊗ C_i``):
+
+        dx̄_j = Σ_{i≥j} (C_i·B_j) e^{cum_i−cum_j} dy_i
+               + e^{cum_{L−1}−cum_j} G_c B_j
+        dC_i = Σ_{j≤i} e^{cum_i−cum_j} (dy_i·x̄_j) B_j + e^{cum_i} S_cᵀ dy_i
+        dB_j = Σ_{i≥j} e^{cum_i−cum_j} (dy_i·x̄_j) C_i
+               + e^{cum_{L−1}−cum_j} G_cᵀ x̄_j
+        dcum_i = Σ_{j<i} t_ij − Σ_{k>i} t_ki + dy_i·y_inter_i − u_i,
+                 t_ij = (C_i·B_j) e^{cum_i−cum_j} (dy_i·x̄_j),
+                 u_j = x̄_j · e^{cum_{L−1}−cum_j} G_c B_j,
+        dcum_{L−1} += Σ_j u_j + e^{cum_{L−1}} ⟨S_c, G_c⟩
+
+    ``t_ij`` is halved where ``cum_i == cum_j`` exactly (i > j) and taken
+    as 0 where ``cum_i > cum_j``: the gradient of ``minimum(cum_i − cum_j,
+    0)``, JAX's rule.  Then ``d(da)`` is the reverse cumsum of ``dcum``,
+    ``ddt = d(da)·A + Σ_p dx̄·x``, ``dx = dx̄·dt``, ``dA = Σ d(da)·dt``,
+    and dB, dC sum the ``h/g`` heads of each group.  Returns ``(dx, ddt,
+    dA, dB, dC)`` in the dtypes of the inputs.  The contract of the CUDA
+    ``ssd_bwd``: everything in ``acc_dtype`` (float32, or float64 for
+    float64 inputs) from the inputs as given, the scores ``C·B`` included
+    (the forward's plain version rounds them to bf16 on the bf16 path;
+    the kernel accumulates them in float32, as the forward kernel does).
+    One chunk at a time (``[b, L, L, h]`` pair tensors)."""
+    return _ssd_bwd(x, dt, A, B, C, dy, dstate, chunk, None)
+
+
+def ssd_bwd_fault(x, dt, A, B, C, dy, dstate, chunk, fault: str):
+    """`ssd_bwd` with a planted fault (`SSD_BWD_FAULTS`), which the card's
+    limit must fail: ``"state_late"`` gives chunk c the gradient of the
+    state leaving chunk c + 1 (zero for the last chunk), as a reverse walk
+    one chunk late would; ``"no_tie_rule"`` passes the whole ``t_ij`` at
+    a tie ``cum_i == cum_j`` (torch.clamp's gradient), which shows only
+    where ties occur; ``"head_missing"`` leaves the first head of each
+    group out of dB."""
+    if fault not in SSD_BWD_FAULTS:
+        raise ValueError(f"unknown SSD backward fault {fault!r}")
+    return _ssd_bwd(x, dt, A, B, C, dy, dstate, chunk, fault)
+
+
+def _ssd_bwd(x, dt, A, B, C, dy, dstate, chunk, fault):
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x, dy, B, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                       for t in (x, dy, B, C))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        s = s + pad
+    nc, L, rep = s // chunk, chunk, h // g
+    ft = acc_dtype(x.dtype)
+    xf = x.to(ft).reshape(b, nc, L, h, p)
+    dyf = dy.to(ft).reshape(b, nc, L, h, p)
+    dtf = dt.to(ft).reshape(b, nc, L, h)
+    Af = A.to(ft)
+    Bh = torch.repeat_interleave(B.to(ft).reshape(b, nc, L, g, n), rep,
+                                 dim=3)                     # [b,nc,L,h,n]
+    Ch = torch.repeat_interleave(C.to(ft).reshape(b, nc, L, g, n), rep,
+                                 dim=3)
+    xbar = xf * dtf[..., None]
+    cum = torch.cumsum(dtf * Af, dim=2)                     # [b,nc,L,h]
+    ecum = torch.exp(cum)
+    dte = torch.exp(cum[:, :, -1:, :] - cum)
+    ecl = torch.exp(cum[:, :, -1, :])                       # [b,nc,h]
+
+    # S_c, the state entering each chunk, and G_c, the gradient of the
+    # state leaving it
+    st_c = torch.einsum("bclhn,bclhp->bchpn", Bh * dte[..., None], xbar)
+    dy_c = torch.einsum("bclhp,bclhn->bchpn", dyf * ecum[..., None], Ch)
+    S = torch.zeros((b, h, p, n), dtype=ft, device=x.device)
+    Ss = []
+    for c in range(nc):
+        Ss.append(S)
+        S = S * ecl[:, c, :, None, None] + st_c[:, c]
+    G = (torch.zeros_like(S) if dstate is None else dstate.to(ft))
+    Gs = [None] * nc
+    for c in reversed(range(nc)):
+        Gs[c] = G
+        G = G * ecl[:, c, :, None, None] + dy_c[:, c]
+    if fault == "state_late":
+        Gs = Gs[1:] + [torch.zeros_like(S)]
+    del st_c, dy_c
+
+    lower = torch.ones((L, L), dtype=torch.bool,
+                       device=x.device).tril()[None, :, :, None]
+    strict = torch.ones((L, L), dtype=torch.bool,
+                        device=x.device).tril(-1)[None, :, :, None]
+    zero = torch.zeros((), dtype=ft, device=x.device)
+    # the share of t_ij a tie cum_i == cum_j takes (JAX's minimum: half)
+    half = torch.full((), 1.0 if fault == "no_tie_rule" else 0.5,
+                      dtype=ft, device=x.device)
+    dx, ddt, dB, dC = [], [], [], []
+    dA = torch.zeros((h,), dtype=ft, device=x.device)
+    for c in range(nc):
+        cc, Bc, Cc = cum[:, c], Bh[:, c], Ch[:, c]
+        xc, xbc, dyc = xf[:, c], xbar[:, c], dyf[:, c]
+        Gc, Sc = Gs[c], Ss[c]
+        d = cc[:, :, None, :] - cc[:, None, :, :]            # [b,i,j,h]
+        E = torch.exp(torch.minimum(d, zero))
+        W = torch.where(lower, torch.einsum("bihn,bjhn->bijh", Cc, Bc) * E,
+                        zero)
+        DW = torch.einsum("bihp,bjhp->bijh", dyc, xbc)
+        DS = torch.where(lower, DW * E, zero)
+        f = torch.where(d < 0, 1.0, torch.where(d == 0, half, zero))
+        t = torch.where(strict, DW * W * f, zero)
+        del d, E, DW, f
+        gb = torch.einsum("bjhn,bhpn->bjhp", Bc, Gc) * dte[:, c, :, :, None]
+        dxb = torch.einsum("bijh,bihp->bjhp", W, dyc) + gb
+        c_inter = (torch.einsum("bihp,bhpn->bihn", dyc, Sc)
+                   * ecum[:, c, :, :, None])
+        dC.append(torch.einsum("bijh,bjhn->bihn", DS, Bc) + c_inter)
+        dB.append(torch.einsum("bijh,bihn->bjhn", DS, Cc)
+                  + torch.einsum("bjhp,bhpn->bjhn", xbc, Gc)
+                  * dte[:, c, :, :, None])
+        del W, DS
+        u = (xbc * gb).sum(-1)                               # [b,L,h]
+        dcum = t.sum(2) - t.sum(1) + (Cc * c_inter).sum(-1) - u
+        dcum[:, -1] += u.sum(1) + ecl[:, c] * (Sc * Gc).sum((-1, -2))
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        ddt.append(dda * Af + (dxb * xc).sum(-1))
+        dx.append(dxb * dtf[:, c, :, :, None])
+        dA = dA + (dda * dtf[:, c]).sum((0, 1))
+
+    def whole(parts):
+        return torch.stack(parts, 1).reshape(b, s, *parts[0].shape[2:])[
+            :, :s_orig]
+
+    dBh = whole(dB).reshape(b, s_orig, g, rep, n)
+    if fault == "head_missing":
+        dBh = dBh[:, :, :, 1:]
+    return (whole(dx).to(x.dtype), whole(ddt).to(dt.dtype), dA.to(A.dtype),
+            dBh.sum(3).to(B.dtype),
+            whole(dC).reshape(b, s_orig, g, rep, n).sum(3).to(C.dtype))
 
 
 def ssd_recurrent(x, dt, A, B, C, state):
@@ -638,6 +787,34 @@ def ssd_state_tolerance(state_ref) -> float:
     sound reading (4.2e-6 of scale, the in-chunk cumsum taken in other
     orders) and a hundredth of one bfloat16 rounding of the state."""
     return 2e-5 * max(1.0, float(state_ref.abs().max()))
+
+
+def ssd_bwd_tolerance(dtype) -> tuple[float, float]:
+    """``(atol, rtol)`` between the CUDA ``ssd_bwd`` and `ssd_bwd` on the
+    same inputs, for each gradient in its own dtype (dx, dB, dC in x's;
+    ddt and dA float32): ``atol`` a share of the gradient's largest
+    magnitude, ``rtol`` of each entry's.  Both take the same float32 sums
+    in other orders (the pair sums over a chunk, the reductions over p
+    and n, the walks over the chunks, the group's heads, dA over b and the
+    chunks).  float32: 1e-4 and 1e-4, the forward's limit.  bfloat16
+    gradients: 1e-4 of scale and 1e-2 of each entry, which covers one
+    bfloat16 rounding of float32 values that differ in their last bits
+    (at most 2^-7 of the entry).  A chunk given the state gradient of the
+    next, the tie rule dropped or a head left out of dB moves a gradient
+    by tens of percent of its scale."""
+    return (1e-4, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+
+
+def ssd_bwd_within(got, want) -> bool:
+    """Each of the five gradients ``got`` within `ssd_bwd_tolerance` of
+    ``want``."""
+    for g, w in zip(got, want, strict=True):
+        atol, rtol = ssd_bwd_tolerance(w.dtype)
+        g, w = g.float(), w.float()
+        if not bool(((g - w).abs() <= atol * w.abs().max()
+                     + rtol * w.abs()).all()):
+            return False
+    return True
 
 
 def attention_tolerance(dtype) -> tuple[float, float]:

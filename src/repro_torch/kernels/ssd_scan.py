@@ -23,6 +23,19 @@ launch in ``launch.launches``.  The plain version is
 ``ref.ssd_chunked``; ``ops.ssd`` picks between the two by the tensor's
 device.
 
+:func:`ssd_bwd` is the gradient, the three kernels of
+``csrc/ssd_scan_bwd.cu`` (one count a call in ``launch.launches["ssd_bwd"]``):
+``ssd_bwd_states`` and ``ssd_bwd_dstates`` walk the chunks of each (b, h)
+and 32-wide slice of p, forward and in reverse, writing the state entering
+each chunk and its gradient (float32 ``[b, h, nc, p, n]`` each);
+``ssd_bwd_chunk`` computes the in-chunk gradients per (b, h, chunk), dB
+and dC per head as float32 ``[b, s, h, n]``, which the wrapper sums over
+each group's heads.  Its plain version is ``ref.ssd_bwd``.  Its limits add
+``chunk``, ``n`` and ``p`` at most 128 and the chunk kernel's shared
+memory (:func:`bwd_smem_bytes`: 199,696 bytes at bf16, ``p = 64``,
+``n = chunk = 128``; float32 at ``n = chunk = 128`` does not fit and
+raises).
+
 Limits: ``p % 4 == 0``, ``n % 16 == 0``, ``chunk % 16 == 0``, ``g | h``,
 16-byte aligned ``x``, B and C, and for ``"per_head"`` a chunk whose
 tiles fit in a CTA's shared memory (at ``p = 64``, ``n = 128``, ``chunk =
@@ -42,6 +55,10 @@ from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 
 DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("p_split", "per_head")
+# The backward's chunk kernel instances: the dx̄ tiles a thread keeps in
+# registers (4 x 4 each), by `ssd_bwd_instance`.
+BWD_VARIANTS = {1: "bwd_xt1", 2: "bwd_xt2", 4: "bwd_xt4"}
+BWD_MAX = 128       # the backward's largest chunk, n and p
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -50,14 +67,26 @@ _ARGTYPES = {
     "ssd_max_smem": [_i],
     "ssd_variant": [_i, _i, _i],
 }
+_BWD_ARGTYPES = {
+    "ssd_backward": [_vp] * 14 + [_i] * 8 + [_vp],
+    "ssd_bwd_smem_bytes": [_i, _i, _i, _i],
+    "ssd_bwd_instance": [_i, _i],
+}
 
-# The kernel the last call launched (one of VARIANTS).
+# The kernel the last call launched (one of VARIANTS, or of BWD_VARIANTS's
+# values after `ssd_bwd`).
 last_variant = None
 
 
 def _lib():
     lib = load_lib("ssd_scan", _ARGTYPES, "ssd_error_string")
     lib.ssd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _bwd_lib():
+    lib = load_lib("ssd_scan_bwd", _BWD_ARGTYPES, "ssd_bwd_error_string")
+    lib.ssd_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -88,17 +117,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     """``(y [b,s,h,p], state [b,h,p,n])`` of the SSD scan on the card;
     contract of ``ref.ssd_chunked``."""
     require_cuda(x)
-    if x.dim() != 4 or B.dim() != 4:
-        raise ValueError("x must be [b, s, h, p] and B, C [b, s, g, n]")
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if not (s >= 1 and g >= 1 and h % g == 0 and p % 4 == 0 and p >= 4
-            and n % 16 == 0 and n >= 16 and chunk % 16 == 0 and chunk >= 16):
-        raise ValueError(f"x {tuple(x.shape)}, B {tuple(B.shape)}, chunk "
-                         f"{chunk} is outside the kernel's limits (g | h, "
-                         f"p % 4 == 0, n % 16 == 0, chunk % 16 == 0)")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"x has dtype {x.dtype}, expected one of {DTYPES}")
+    b, s, h, p, g, n = _check_dims(x, B, chunk)
     dev = x.device
     check("x", x, x.dtype, (b, s, h, p), dev)
     check("dt", dt, torch.float32, (b, s, h), dev)
@@ -124,3 +143,85 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     last_variant = kind
     launches["ssd"] += 1
     return y, state
+
+
+def bwd_smem_bytes(p: int, n: int, chunk: int, bf16: bool) -> int:
+    """Shared memory of one CTA of the backward's chunk kernel, as the
+    library computes it."""
+    return int(_bwd_lib().ssd_bwd_smem_bytes(p, n, chunk, int(bf16)))
+
+
+def _check_dims(x, B, chunk):
+    """The kernels' limits on the shapes and the dtype; returns ``(b, s,
+    h, p, g, n)``."""
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError("x must be [b, s, h, p] and B, C [b, s, g, n]")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if not (s >= 1 and g >= 1 and h % g == 0 and p % 4 == 0 and p >= 4
+            and n % 16 == 0 and n >= 16 and chunk % 16 == 0 and chunk >= 16):
+        raise ValueError(f"x {tuple(x.shape)}, B {tuple(B.shape)}, chunk "
+                         f"{chunk} is outside the kernel's limits (g | h, "
+                         f"p % 4 == 0, n % 16 == 0, chunk % 16 == 0)")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}, expected one of {DTYPES}")
+    return b, s, h, p, g, n
+
+
+def ssd_bwd(x, dt, A, B, C, dy, dstate, chunk: int = 128):
+    """``(dx, ddt, dA, dB, dC)``, the gradient of `ssd` for the cotangents
+    ``dy [b,s,h,p]`` (x's dtype) and ``dstate [b,h,p,n]`` (float32, or
+    None: the final state takes no gradient), on the card; contract of
+    ``ref.ssd_bwd``.  Each gradient in its input's dtype."""
+    require_cuda(x)
+    b, s, h, p, g, n = _check_dims(x, B, chunk)
+    if max(chunk, n, p) > BWD_MAX:
+        raise ValueError(f"chunk {chunk}, n {n}, p {p}: the backward takes "
+                         f"each up to {BWD_MAX}")
+    dev = x.device
+    check("x", x, x.dtype, (b, s, h, p), dev)
+    check("dt", dt, torch.float32, (b, s, h), dev)
+    check("A", A, torch.float32, (h,), dev)
+    check("B", B, x.dtype, (b, s, g, n), dev)
+    check("C", C, x.dtype, (b, s, g, n), dev)
+    check("dy", dy, x.dtype, (b, s, h, p), dev)
+    if dstate is not None:
+        check("dstate", dstate, torch.float32, (b, h, p, n), dev)
+    for name, t in (("x", x), ("B", B), ("C", C), ("dy", dy)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    global last_variant
+    bf16 = x.dtype == torch.bfloat16
+    lib = _bwd_lib()
+    limit = _lib().ssd_max_smem(dev.index if dev.index is not None
+                                else torch.cuda.current_device())
+    need = lib.ssd_bwd_smem_bytes(p, n, chunk, int(bf16))
+    if need > limit:
+        raise ValueError(f"the SSD backward at p={p}, n={n}, chunk={chunk} "
+                         f"in {x.dtype} needs {need} bytes of shared memory "
+                         f"a CTA, more than the {limit} there are")
+    nc = -(-s // chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, nc, p, n), **f32)
+    gstates = torch.empty((b, h, nc, p, n), **f32)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, s, h), **f32)
+    dBp = torch.empty((b, s, h, n), **f32)
+    dCp = torch.empty((b, s, h, n), **f32)
+    dAp = torch.empty((b, nc, h), **f32)
+    with torch.cuda.device(dev):
+        err = lib.ssd_backward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(),
+            states.data_ptr(), gstates.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+            b, s, h, p, g, n, chunk, int(bf16), stream(dev))
+    raise_on(lib, err, "ssd_bwd")
+    last_variant = BWD_VARIANTS[lib.ssd_bwd_instance(chunk, p)]
+    launches["ssd_bwd"] += 1
+    del states, gstates     # scratch (1.07 GB each at jamba's shape)
+    rep = h // g
+    dB = dBp.view(b, s, g, rep, n).sum(3).to(x.dtype)
+    dC = dCp.view(b, s, g, rep, n).sum(3).to(x.dtype)
+    return dx, ddt, dAp.sum((0, 1)), dB, dC

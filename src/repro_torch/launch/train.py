@@ -7,11 +7,17 @@ technique as ``--consistency bsp|ssp|essp`` with ``--staleness`` and
 ``--buckets`` (`psdist.grad_sync.GradSync`); batches from
 ``data.synthetic.token_batches`` (and the family's modality stub);
 weights drawn from ``--seed``.  It runs on ``cuda`` unless ``--device
-cpu`` is given; without a GPU the default raises.  On the card, a family
-whose kernels have no backward yet (ssm and hybrid: ``ssd``; deepseek's
-MLA) raises ``NotImplementedError``.
+cpu`` is given; without a GPU the default raises.  On the card the dense
+family trains through ``flash_attention`` and its backward, the ssm family
+(mamba2-130m, full or smoke) and the hybrid one (Jamba's smoke config:
+its published widths do not fit one card) through ``ssd`` and
+``ssd_bwd``; an arch whose attention has no backward kernel yet
+(deepseek's MLA, 16.4d; the ``mma.sync`` head sizes, 16.4e) raises
+``NotImplementedError``.
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
+        --batch 8 --seq 2048 --steps 6
+    python -m repro_torch.launch.train --arch mamba2-130m --full \\
         --batch 8 --seq 2048 --steps 6
 """
 from __future__ import annotations

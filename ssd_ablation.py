@@ -14,7 +14,8 @@ state update run after C state^T instead of interleaved with it
 the compile-time one (``generic``).  With ``--parent DIR``, the
 ``ssd_scan.cu`` of the checkout at DIR (for example a ``git archive`` of
 the parent commit) is built too, as ``parent``.  Every copy is built
-with the port's ``nvcc`` flags into ``build/ssd_ablation/`` and called
+with the port's ``nvcc`` flags into ``build/ssd_ablation/``
+(``ablation_kit``) and called
 through the same C entry point on the same inputs, at mamba2-130m's
 prefill shape (b 8, s 2048, h 24, p 64, g 3, n 128, chunk 128, bf16), in
 turns (all copies, then all in reverse, then all again).  One JSON line
@@ -27,9 +28,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import ablation_kit
 
 ROOT = Path(__file__).resolve().parent
 SRC = Path("src") / "repro_torch" / "kernels" / "csrc" / "ssd_scan.cu"
@@ -50,61 +52,6 @@ ABLATIONS = {
 }
 
 
-def build_all(parent: Path | None):
-    """Every copy built at once; name -> (loaded library, ptxas lines)."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = (ROOT / SRC).read_text()
-    out_dir = ROOT / "build" / "ssd_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    if parent is not None:
-        texts["parent"] = (parent / SRC).read_text()
-    procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.ssd_forward.argtypes = [vp] * 7 + [i] * 9 + [vp]
-        lib.ssd_forward.restype = i
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        libs[name] = (lib, ptxas)
-    return libs
-
-
-def time_ms(torch, fn, reps=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -116,7 +63,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ref
-    libs = build_all(args.parent)
+    libs = ablation_kit.build("ssd_ablation", ablation_kit.sources(
+        SRC, ABLATIONS, parent=args.parent))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for lib, _ in libs.values():
+        lib.ssd_forward.argtypes = [vp] * 7 + [i] * 9 + [vp]
+        lib.ssd_forward.restype = i
     dev = torch.device("cuda")
     b, s, h, p, g, n, chunk = SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -140,12 +92,10 @@ def main() -> int:
             raise RuntimeError(f"ssd_forward: cudaError {err}")
 
     y_want, st_want = ref.ssd_chunked(x, dt, A, B, C, chunk)
-    ms = {name: [] for name in libs}
-    for turn in range(3):
-        names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
-        for name in names:
-            ms[name].append(time_ms(torch, lambda n=name: call(libs[n][0])))
-    for name, (lib, ptxas) in libs.items():
+    ms = ablation_kit.in_turns(
+        {name: (lambda lib=lib: call(lib)) for name, (lib, _) in
+         libs.items()}, reps=20, warmup=3)
+    for name, (lib, log) in libs.items():
         call(lib)
         torch.cuda.synchronize()
         print(json.dumps({
@@ -156,11 +106,9 @@ def main() -> int:
             "tol_y": ref.ssd_tolerance(y_want, x.dtype),
             "max_abs_err_state": (st - st_want).abs().max().item(),
             "tol_state": ref.ssd_state_tolerance(st_want),
-            "ptxas": ptxas}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi)
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]}), flush=True)
+    print(ablation_kit.smi())
     return 0
 
 

@@ -12,10 +12,12 @@
   (``delta_pack`` bit for bit, at the edge cases of :func:`pack_case`;
   ``flash_attention`` within ``ref.attention_tolerance``; ``ssd``'s
   output within ``ref.ssd_tolerance`` and its state within
-  ``ref.ssd_state_tolerance``; ``mf_sgd_block`` within
-  ``ref.mf_sgd_tolerance`` and bit-equal across two calls).  The plain
-  versions of the last three are held against the JAX package in
-  ``test_torch_attention.py``, ``test_torch_ssd.py`` and
+  ``ref.ssd_state_tolerance``; its backward ``ssd_bwd`` within
+  ``ref.ssd_bwd_tolerance`` of ``ref.ssd_bwd`` and bit-equal across two
+  calls; ``mf_sgd_block`` within ``ref.mf_sgd_tolerance`` and bit-equal
+  across two calls).  The plain versions of the last four are held
+  against the JAX package in ``test_torch_attention.py``,
+  ``test_torch_ssd.py``, ``test_torch_ssd_bwd.py`` and
   ``test_torch_mf_sgd.py``.
 - The port's boundaries: no module imports ``jax`` or ``repro``, the
   default device is the card, and a CUDA tensor never reaches a plain
@@ -319,7 +321,7 @@ def test_cuda_kernels_match_plain_versions(cuda, W, P, d, n_empty):
     assert ps_view.launches == {"ring_view": 1, "vap_suffix_norms": 1,
                                 "delta_pack": 0, "flash_attention": 0,
                                 "flash_attention_bwd": 0, "ssd": 0,
-                                "mf_sgd_block": 0}
+                                "ssd_bwd": 0, "mf_sgd_block": 0}
     want = ref.ring_view(b, u, uc, cv)
     assert (got - want).abs().max().item() <= ref.ring_view_tolerance(b, u)
     torch.testing.assert_close(norms, ref.vap_suffix_norms(u, uc, c),
@@ -502,7 +504,7 @@ def test_cuda_clock_loop_does_not_sync(cuda, model):
         assert launch.launches == {"ring_view": 12, "vap_suffix_norms": 6,
                                    "delta_pack": 3, "flash_attention": 0,
                                    "flash_attention_bwd": 0, "ssd": 0,
-                                   "mf_sgd_block": 0}
+                                   "ssd_bwd": 0, "mf_sgd_block": 0}
 
 
 # flash_attention's cases on the card: (B, Sq, Sk, H, Hkv, Dk, Dv, causal,
@@ -814,6 +816,133 @@ def test_cuda_ssd_checks_its_inputs(cuda):
         ssd_scan.ssd(x, dt, A, shifted.view(B.shape).copy_(B), C, chunk=32)
 
 
+# ssd_bwd's cases on the card: SSD_CASES's names, each with the final
+# state's cotangent or without it.  The bf16 chunk kernel's instances
+# (p 32, 64 and 96: 1, 2 and 4 dx̄ tiles a thread), ragged s and s below
+# a chunk, p 36, chunk 16 and 80, g | h at 1 and 8 heads a group, the
+# models' widths and jamba's 256 heads; then ties (dt = 0 on spans of
+# rows, where cum_i == cum_j).
+SSD_BWD_CASES = ["f32", "f32_p64", "bf16", "bf16_ragged", "bf16_full_width",
+                 "bf16_full_width_carry", "bf16_p36", "bf16_p48_carry",
+                 "bf16_one_head_per_group", "bf16_eight_heads_per_group",
+                 "bf16_s_below_chunk", "bf16_chunk16_n16",
+                 "bf16_chunk80_n112", "bf16_jamba_h256"]
+SSD_BWD_EXTRA = {"bf16_p96_n32": (1, 300, 4, 96, 2, 32, 128, "bf16"),
+                 "bf16_p128": (1, 300, 4, 128, 2, 128, 128, "bf16"),
+                 "f32_n64_chunk128": (1, 200, 4, 64, 2, 64, 128, "f32")}
+SSD_TIE_CASES = {"bf16_ties": (2, 300, 4, 64, 2, 128, 128, "bf16"),
+                 "f32_ties": (1, 100, 4, 32, 2, 32, 32, "f32")}
+
+
+def ssd_bwd_tensors(case, device, seed=0):
+    """``(x, dt, A, B, C, dy, dstate, chunk)`` of an ssd_bwd case on
+    ``device``; a tie case zeroes dt on rows 3-6, 40-47 and the last
+    chunk's first 20 rows."""
+    spec = {**SSD_CASES, **SSD_BWD_EXTRA, **SSD_TIE_CASES}[case]
+    b, s, h, p, g, n, chunk, dt_ = spec
+    x, dt, A, B, C = ssd_case(b, s, h, p, g, n, seed=seed,
+                              mamba_dt=case.endswith("_carry"))
+    if case in SSD_TIE_CASES:
+        last = (s - 1) // chunk * chunk
+        for lo, hi in ((3, 7), (40, 48), (last, last + 20)):
+            dt[:, lo:min(hi, s)] = 0
+    r = np.random.default_rng(seed + 1)
+    dy = r.standard_normal((b, s, h, p)).astype(np.float32)
+    ds = r.standard_normal((b, h, p, n)).astype(np.float32)
+    x, dt, A, B, C, dy, ds = _t(x, dt, A, B, C, dy, ds, device=device)
+    x, B, C, dy = (t.to(DTYPES[dt_]) for t in (x, B, C, dy))
+    return x, dt, A, B, C, dy, ds, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dstate", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_CASES + ["bf16_p96_n32",
+                                                  "f32_n64_chunk128"]
+                         + list(SSD_TIE_CASES))
+def test_cuda_ssd_bwd_matches_plain_version(cuda, case, dstate):
+    x, dt, A, B, C, dy, ds, chunk = ssd_bwd_tensors(case, cuda)
+    ds = ds if dstate else None
+    launch.reset_launches()
+    got = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    torch.cuda.synchronize()
+    assert launch.launches["ssd_bwd"] == 1
+    assert ssd_scan.last_variant in ssd_scan.BWD_VARIANTS.values()
+    want = ref.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    for g, w, t in zip(got, want, (x, dt, A, B, C), strict=True):
+        assert g.dtype == w.dtype == t.dtype and g.shape == t.shape
+        assert torch.isfinite(g).all()
+    assert ref.ssd_bwd_within(got, want), [
+        ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        for g, w in zip(got, want, strict=True)]
+    if case in SSD_TIE_CASES:
+        bad = ref.ssd_bwd_fault(x, dt, A, B, C, dy, ds, chunk, "no_tie_rule")
+        assert not ref.ssd_bwd_within(bad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16_full_width_carry", "bf16_p36",
+                                  "f32", "bf16_ties"])
+def test_cuda_ssd_bwd_is_deterministic(cuda, case):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics, a fixed order of sums)."""
+    x, dt, A, B, C, dy, ds, chunk = ssd_bwd_tensors(case, cuda)
+    a = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    b = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b, strict=True):
+        bits = torch.int16 if u.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(u.view(bits), v.view(bits))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_checks_its_inputs(cuda):
+    x, dt, A, B, C, dy, ds, _ = ssd_bwd_tensors("f32", cuda)
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, 24)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C, dy.bfloat16(), ds, 32)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds[..., :16], 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C,
+                         dy.transpose(1, 2).contiguous().transpose(1, 2),
+                         ds, 32)
+    with pytest.raises(ValueError, match="up to 128"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, 256)
+    shifted = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan.ssd_bwd(x, dt, A, B, C, shifted.view(dy.shape).copy_(dy),
+                         ds, 32)
+    # float32 at n = chunk = 128, and p = 128 there, do not fit a CTA's
+    # shared memory
+    for case in ("f32_full_width_ragged", "bf16_p128"):
+        x, dt, A, B, C, dy, ds, chunk = ssd_bwd_tensors(case, cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16_full_width", "f32_ties"])
+def test_cuda_ssd_under_grad_goes_through_the_kernels(cuda, case):
+    """``ops.ssd`` under autograd launches the forward kernel and the
+    backward; the gradient (of y alone, and of y and the final state)
+    equals the wrappers'."""
+    x, dt, A, B, C, dy, ds, chunk = ssd_bwd_tensors(case, cuda)
+    for dstate in (None, ds):
+        ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+        launch.reset_launches()
+        y, st = ops.ssd(*ins, chunk=chunk)
+        outs, cots = ((y,), (dy,)) if dstate is None else ((y, st),
+                                                          (dy, dstate))
+        got = torch.autograd.grad(outs, ins, cots)
+        torch.cuda.synchronize()
+        assert launch.launches["ssd"] == 1
+        assert launch.launches["ssd_bwd"] == 1
+        want = ssd_scan.ssd_bwd(x, dt, A, B, C, dy, dstate, chunk)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+
+
 # mf_sgd_block's cases on the card: (N, M, K, density[, pattern]).  The
 # JAX kernel test's shapes, kernels_bench's, ragged N and M, the smallest
 # block, K past 128 and K = 256, an empty and a full block; then the
@@ -1034,14 +1163,18 @@ def test_cuda_attention_under_grad_goes_through_the_kernels(cuda):
 
 @pytest.mark.cuda
 def test_cuda_kernels_without_backward_raise_under_grad(cuda):
-    """On the card a gradient through ``ssd`` or through attention at a
-    head size with no backward kernel (MLA's (576, 512), the mma.sync
-    sizes) raises ``NotImplementedError`` naming its ROADMAP item; without
-    a gradient the same calls run."""
+    """On the card a gradient through attention at a head size with no
+    backward kernel (MLA's (576, 512), the mma.sync sizes) raises
+    ``NotImplementedError`` naming its ROADMAP item; without a gradient
+    the same calls run.  A gradient through ``ssd`` (ROADMAP 16.4c, done)
+    runs and matches its plain version."""
     x, dt, A, Bm, C = _t(*ssd_case(1, 64, 2, 32, 1, 32), device=cuda)
     x = x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="16.4c"):
-        ops.ssd(x, dt, A, Bm, C, chunk=32)
+    y, _ = ops.ssd(x, dt, A, Bm, C, chunk=32)
+    (g,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    want = ref.ssd_bwd(x.detach(), dt, A, Bm, C, torch.ones_like(y), None,
+                       32)[0]
+    assert ref.ssd_bwd_within([g], [want])
     with torch.no_grad():
         ops.ssd(x, dt, A, Bm, C, chunk=32)
     for (Dk, Dv), item in (((576, 512), "16.4d"), ((80, 80), "16.4e")):

@@ -39,7 +39,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_memory_models import CPU_DRAW_CHUNK, jax_init
+from torch_memory_models import CPU_DRAW_CHUNK, jax_init, jax_params
+from torch_routing import RoutingTap, jax_routing_tap  # noqa: F401
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.kernels import ref as jref
@@ -55,6 +56,7 @@ from repro_torch.convert import model_params_from_jax, train_state_from_jax
 from repro_torch.data.synthetic import TokenGenConfig, token_batch
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as tlaunch
+from repro_torch.models import moe
 from repro_torch.optim import optimizers as topt
 from repro_torch.psdist import grad_sync as tgs
 from repro_torch.train import state as tstate
@@ -204,18 +206,26 @@ def test_planted_backward_faults_move_the_gradient():
 
 
 def test_ssd_under_grad_on_the_cpu_differentiates_the_plain_version():
-    """On the CPU ``ops.ssd`` is the plain version, which autograd
-    differentiates (the card raises: ``test_torch_kernels.py``)."""
+    """On the CPU ``ops.ssd`` under autograd goes through ``ops._SSD``,
+    whose backward is the plain ``ref.ssd_bwd`` (the card's is the CUDA
+    ``ssd_bwd``: ``test_torch_kernels.py``); its gradient is autograd's
+    of the port's ``ref.ssd_chunked``.  B and C are one tensor here, so
+    its gradient is the sum of both."""
     r = np.random.default_rng(0)
     x = torch.from_numpy(r.standard_normal((1, 16, 2, 4)).astype(
         np.float32)).requires_grad_()
     dt = torch.full((1, 16, 2), 0.1)
     A = -torch.ones(2)
     Bm = torch.from_numpy(r.standard_normal((1, 16, 1, 8)).astype(
-        np.float32))
+        np.float32)).requires_grad_()
     y, _ = ops.ssd(x, dt, A, Bm, Bm, chunk=8)
-    (g,) = torch.autograd.grad(y.sum(), x)
-    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    assert y.grad_fn.name() == "_SSDBackward"
+    g = torch.autograd.grad(y.sum(), (x, Bm))
+    w = torch.autograd.grad(ref.ssd_chunked(x, dt, A, Bm, Bm, 8)[0].sum(),
+                            (x, Bm))
+    for a, b in zip(g, w, strict=True):
+        assert torch.isfinite(a).all() and a.abs().sum() > 0
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -489,3 +499,110 @@ def test_launcher_matches_jax(tmp_path, monkeypatch):
     back = ckpt.restore(str(tmp_path / "final.npz"), model.params)
     assert set(_flat(back)) == set(_flat(model.params))
     assert (tmp_path / "history.json").is_file()
+
+
+# ---------------------------------------------------------------------------
+# mamba2-130m's and Jamba's smoke configs: the gradient through the SSD
+# scan (`ops._SSD`, ``ref.ssd_bwd`` on the CPU) against JAX's autodiff
+# ---------------------------------------------------------------------------
+SSM_ARCH, HYBRID_ARCH = "mamba2-130m", "jamba-1.5-large-398b"
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_params(arch):
+    """JAX's init of ``arch``'s smoke config: mamba2's as drawn, Jamba's
+    with its q/k/v projections at ``1/sqrt(d)`` (`jax_params`), whose
+    attention at JAX's init is near one-hot."""
+    return jax_init(arch, 1) if arch == SSM_ARCH else jax_params(arch, 1)
+
+
+def _arch_batch(arch, step=0):
+    return token_batch(TokenGenConfig(
+        vocab_size=get_smoke_config(arch).vocab_size, seq_len=S, batch=B,
+        seed=3), step, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_value_and_grad(arch, compute):
+    """JAX's loss and gradient (numpy) of ``arch``'s smoke config in
+    ``compute``, and the routing its MoE layers took (``RoutingTap``)."""
+    model = jax_build_model(jax_smoke_config(arch).replace(
+        compute_dtype=compute))
+    fn = jax.jit(jax.value_and_grad(jstate.make_loss_fn(model)))
+    with RoutingTap(B) as tap:
+        loss, grads = fn(jax.tree.map(jnp.asarray, _arch_params(arch)),
+                         {"tokens": jnp.asarray(_arch_batch(arch).numpy())})
+        loss = float(loss)
+    return loss, _flat(jax.tree.map(np.asarray, grads)), tap.jax
+
+
+def _arch_port(arch, compute):
+    cfg = get_smoke_config(arch).replace(compute_dtype=compute)
+    return model_params_from_jax(cfg, _arch_params(arch), device="cpu")
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", [SSM_ARCH, HYBRID_ARCH])
+def test_ssd_archs_loss_and_every_gradient_leaf_match_jax(arch, compute):
+    """The loss and every gradient leaf of mamba2-130m's and Jamba's smoke
+    configs (the mamba sublayers' through `ops._SSD`) against JAX's; the
+    port's MoE layers take JAX's routing (``moe.forcing``), a router near
+    tie being a rounding decision."""
+    jl, jg, route = _arch_value_and_grad(arch, compute)
+    jl32, jg32, _ = _arch_value_and_grad(arch, "float32")
+    model = _arch_port(arch, compute)
+    with moe.forcing(route or None):
+        tl, tg = tstate.value_and_grad(tstate.make_loss_fn(model),
+                                       model.params,
+                                       {"tokens": _arch_batch(arch)})
+    assert bool(route) == (arch == HYBRID_ARCH)
+    ltol = F32_TOL if compute == "float32" else BF16_TOL + 2 * abs(
+        jl - jl32) / abs(jl32)
+    assert abs(float(tl) - jl) <= ltol * abs(jl)
+    _hold(_flat(tg), jg, compute, want32=jg32)
+
+
+@functools.lru_cache(maxsize=None)
+def _ssm_jax_sgd(compute, steps=3):
+    """JAX's SGD steps of mamba2-130m's smoke config: per step the
+    metrics and the params (numpy)."""
+    model = jax_build_model(jax_smoke_config(SSM_ARCH).replace(
+        compute_dtype=compute))
+    opt, sync = jopt.sgd(0.05), jgs.GradSync("bsp", 0)
+    fn = jax.jit(jstate.make_train_step(model, opt, sync))
+    params = jax.tree.map(jnp.asarray, _arch_params(SSM_ARCH))
+    state = jstate.TrainState(params=params, opt_state=opt.init(params),
+                              fifo=jgs.init_fifo(sync, params),
+                              step=jnp.zeros((), jnp.int32))
+    out = []
+    for i in range(steps):
+        state, m = fn(state, {"tokens": jnp.asarray(
+            _arch_batch(SSM_ARCH, i).numpy())})
+        out.append(({k: float(v) for k, v in m.items()},
+                    _flat(jax.tree.map(np.asarray, state.params))))
+    return out
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_ssm_sgd_steps_match_jax_in_every_parameter(compute):
+    """3 SGD steps of mamba2-130m's smoke config: the loss, ``grad_norm``
+    and how far each parameter moved, as `test_sgd_steps_match_jax_in_
+    every_parameter` holds qwen3's."""
+    want, want32 = _ssm_jax_sgd(compute), _ssm_jax_sgd("float32")
+    model = _arch_port(SSM_ARCH, compute)
+    opt = topt.sgd(0.05)
+    step_fn = tstate.make_train_step(model, opt, tgs.GradSync())
+    state = tstate.init_state(model, opt, tgs.GradSync())
+    init = _flat(_arch_params(SSM_ARCH))
+    for i, ((wm, wp), (wm32, wp32)) in enumerate(zip(want, want32,
+                                                     strict=True)):
+        state, m = step_fn(state, {"tokens": _arch_batch(SSM_ARCH, i)})
+        for name in ("loss", "grad_norm"):
+            tol = _metric_tol(compute, wm[name], wm32[name])
+            assert abs(float(m[name]) - wm[name]) <= tol * abs(wm[name])
+        floor = {k: (i + 1) * np.finfo(np.float32).eps
+                 * float(np.abs(v).max()) for k, v in init.items()}
+        _hold({k: v - init[k] for k, v in _flat(state.params).items()},
+              {k: v - init[k] for k, v in wp.items()}, compute,
+              {k: v - init[k] for k, v in wp32.items()}, floor, MOVE_TOL)
+

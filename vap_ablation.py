@@ -34,12 +34,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+import ablation_kit  # noqa: E402
 import chip_smoke  # noqa: E402
 
 OUT = ROOT / "chiprun_out" / "vap_ablation.jsonl"
@@ -73,49 +73,6 @@ D_MF = (chip_smoke.FULL_MF["n_rows"] + chip_smoke.FULL_MF["n_cols"]) \
     * chip_smoke.FULL_MF["rank"]
 D_LDA = chip_smoke.FULL_LDA["n_topics"] * chip_smoke.FULL_LDA["vocab"]
 SHAPES = ((22, D_MF), (5, D_MF), (11, D_MF), (5, D_LDA))
-
-
-def build_all(parent: Path | None, only):
-    """Every copy built at once; name -> (loaded library, ptxas lines)."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    src = (ROOT / SRC).read_text()
-    out_dir = ROOT / "build" / "vap_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for name, subs in ABLATIONS.items():
-        if only and name not in only:
-            continue
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    if parent is not None:
-        texts["parent"] = (parent / SRC).read_text()
-    procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.ps_vap_suffix_norms.argtypes = [vp, vp, i, vp, i, i,
-                                            ctypes.c_longlong, vp]
-        lib.ps_vap_suffix_norms.restype = i
-        libs[name] = (lib, [ln for ln in chip_smoke.ptxas_report(log)
-                            if "vap" in ln])
-    return libs
 
 
 def make_call(torch, name, lib, uring, uclock, c):
@@ -159,7 +116,17 @@ def main() -> int:
     only = {s for s in args.only.split(",") if s}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text("")
-    libs = build_all(args.parent, only)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    texts = ablation_kit.sources(SRC, ABLATIONS, parent=args.parent,
+                                 only=only)
+    for name, (lib, log) in ablation_kit.build("vap_ablation",
+                                               texts).items():
+        lib.ps_vap_suffix_norms.argtypes = [vp, vp, i, vp, i, i,
+                                            ctypes.c_longlong, vp]
+        lib.ps_vap_suffix_norms.restype = i
+        libs[name] = (lib, [ln for ln in chip_smoke.ptxas_report(log)
+                            if "vap" in ln])
     dev = torch.device("cuda")
     for n, (W, d) in enumerate(SHAPES):
         _, uring, uclock, cview, c = chip_smoke.ring_inputs(
@@ -169,11 +136,8 @@ def main() -> int:
                                          rates)["vap_suffix_norms"]
         calls = {name: make_call(torch, name, lib, uring, uclock, c)
                  for name, (lib, _) in libs.items()}
-        ms = {name: [] for name in libs}
-        for turn in range(3):
-            names = list(libs) if turn % 2 == 0 else list(libs)[::-1]
-            for name in names:
-                ms[name].append(chip_smoke.time_ms(calls[name][0], 20))
+        ms = ablation_kit.in_turns(
+            {name: c[0] for name, c in calls.items()}, reps=20)
         for name, (_, ptxas) in libs.items():
             call, out = calls[name]
             call()
@@ -184,7 +148,7 @@ def main() -> int:
                   "ptxas": ptxas if n == 0 else None})
         del calls, uring, want
         torch.cuda.empty_cache()
-    emit(chip_smoke.nvidia_smi())
+    emit(ablation_kit.smi())
     return 0
 
 
