@@ -47,8 +47,11 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    y at ``main``, ``carry`` and ``jamba``, two for its
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ssd_bwd`` (``check_ssd_bwd``: at mamba2-130m's and jamba's training
-   shapes, timed beside its plain version and its bound, with its
-   kernels' ptxas lines, no spills; at the smoke configs' shape in bf16
+   shapes, timed beside its plain version and its bound (the products
+   with a float32 operand at three bf16 tensor-core passes, and beside
+   it the CUDA-core figure of earlier records), each of its kernels'
+   device ms, with its kernels' ptxas lines, no spills, the bf16 kernels
+   on the tensor cores among them; at the smoke configs' shape in bf16
    and float32, a ragged s, dt in mamba2's range and ties, with and
    without a cotangent of the final state) within
    ``ref.ssd_bwd_tolerance`` of ``ref.ssd_bwd``, two calls bit-equal,
@@ -108,10 +111,13 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    bf16 compute, 1500 stub frames, a 416-token prompt: with 32 new tokens
    its 448-token text context) and llama-3.2-vision-11b (8 groups of 4
    self blocks and a gated cross block over 1601 stub image tokens, bf16
-   weights, gates at ``VLM_GATE``), all at their published depth, and
-   jamba-1.5-large-398b at its published widths cut to fit one card
-   (``SERVE_CUTS``: 2 of its 9 groups, each expert's hidden size 4096 in
-   place of 24576; the record lists the cut under ``"reduced"``), with
+   weights, gates at ``VLM_GATE``), at their published widths and depth
+   but for two cuts of depth (``SERVE_CUTS``: qwen3-moe-30b-a3b at 8 of
+   48 layers, deepseek-v2-lite-16b at 6 of 27, so that the script keeps
+   within its time limit), and jamba-1.5-large-398b at its published
+   widths cut to fit one card (1 of its 9 groups, each expert's hidden
+   size 4096 in place of 24576); the record lists each cut under
+   ``"reduced"``, with
    random weights from a seed, batch 8, a 2048-token prompt (but
    whisper's) from ``token_batch`` and 32 new tokens, through
    ``repro_torch.launch.serve``, one model freed before the next is
@@ -119,8 +125,8 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    decode times and rates, peak memory, the kernels' launches per
    prefill (``flash_attention`` once per attention layer: whisper's
    encoder layers and its decoder's self and cross, 72; llama-vision's
-   32 self and 8 cross, 40; ``ssd`` once per mamba2 layer; jamba's 14
-   ``ssd`` and 2 ``flash_attention``), no host sync
+   32 self and 8 cross, 40; ``ssd`` once per mamba2 layer; jamba's 7
+   ``ssd`` and 1 ``flash_attention``), no host sync
    in the decode loop, and the device's idle share and each kernel's
    device ms per prefill from profiled runs;
 6. every served arch's smoke config (the seven above and llama3-8b,
@@ -490,8 +496,20 @@ SSD_BWD_SHAPES = {
     "ties_f32": ((2, 300, 8, 64, 2, 64, 128, "f32", "ties"), True),
 }
 SSD_BWD_TIMED = ("main", "jamba")
-# the backward's kernels (csrc/ssd_scan_bwd.cu), for ptxas and the profiler
+# the backward's kernels (csrc/ssd_scan_bwd.cu), for ptxas and the profiler:
+# each name is the float32 kernel's and, with "_tc", the bf16 kernel's (both
+# match it as a substring)
 SSD_BWD_KERNELS = ("ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk")
+# The split's diagnostic at these cases: ddt's error over its scale
+# against ``ref.ssd_bwd`` (float32, its cumsum rounded as the kernel's).
+# ``ref.ssd_bwd_tolerance`` (1e-4 of scale) also passes the kernel with
+# the lo pass of every split product dropped (``ssd_bwd_ablation.py``'s
+# ``no_lo``); this limit, between the sound kernel's readings and that
+# copy's, does not.  Against the float64 gradient the two read alike:
+# the float32 cumsum, which the contract fixes, dominates there; dA, a
+# float32 sum over every row, does not tell them apart either.
+SSD_BWD_SPLIT_CASES = ("main",)
+SSD_BWD_SPLIT_LIMIT = 1e-6
 # mf_sgd_block's phase cases: (N, M, K, density, gamma, lam, pattern),
 # inputs N(0, 1) from a seed with NaN at every unobserved rating.  "main"
 # is the dense block of the full-width MF data (FULL_MF, built by
@@ -535,16 +553,27 @@ SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "llama3-8b", "qwen3-4b",
                "jamba-1.5-large-398b")
 # jamba-1.5-large-398b has 401.8 B parameters; one group of its 8
 # sublayers holds ~44.6 B, ~89 GB in bf16, more than the card's 80 GB, so
-# no cut of depth alone fits one card.  Phase 5 serves 2 of its 9 groups
-# (16 layers) with each expert's hidden size cut from 24576 to 4096: 25.7 B
-# parameters, 51.4 GB in bf16.  Every width the kernels see (d_model, the
-# heads, the mamba sublayers), the dense MLP, the router, the 16 experts
-# and top-2 stay published.  A key "a.b" is field b of the config's
-# sub-config a.
-SERVE_CUTS = {"jamba-1.5-large-398b": {"n_layers": 16,
-                                       "moe.d_ff_expert": 4096}}
-SERVE_CUT_WHY = ("one group of 8 sublayers is ~89 GB in bf16 against one "
-                 "80 GB card; no expert-parallel layer on one card")
+# no cut of depth alone fits one card.  Phase 5 serves 1 of its 9 groups
+# (8 layers) with each expert's hidden size cut from 24576 to 4096.  Every
+# width the kernels see (d_model, the heads, the mamba sublayers), the
+# dense MLP, the router, the 16 experts and top-2 stay published.  The
+# MoE archs whose weights' draw cost most of the script's time limit
+# (qwen3-moe-30b-a3b 70.9 s at 48 layers, jamba 59.8 s at 2 groups,
+# deepseek-v2-lite 38.5 s at 27 layers) are served at a cut depth, every
+# width kept: their kernels run the same shapes once a layer.  A key "a.b"
+# is field b of the config's sub-config a.
+SERVE_CUTS = {"jamba-1.5-large-398b": {"n_layers": 8,
+                                       "moe.d_ff_expert": 4096},
+              "qwen3-moe-30b-a3b": {"n_layers": 8},
+              "deepseek-v2-lite-16b": {"n_layers": 6}}
+_DEPTH_WHY = ("the script's time limit: the weights' draw of every "
+              "layer dominated phase 5; a layer's kernels and shapes do "
+              "not change with depth")
+SERVE_CUT_WHY = {
+    "jamba-1.5-large-398b": "one group of 8 sublayers is ~89 GB in bf16 "
+                            "against one 80 GB card; no expert-parallel "
+                            "layer on one card; one group: " + _DEPTH_WHY,
+    "qwen3-moe-30b-a3b": _DEPTH_WHY, "deepseek-v2-lite-16b": _DEPTH_WHY}
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 # whisper's text context is 448 tokens (arXiv:2212.04356): a 416-token
 # prompt and 32 new tokens fill it
@@ -2154,27 +2183,44 @@ def ssd_inputs(shape, seed, device):
     return x, dt, A, B, C
 
 
-def ssd_bound(shape, rates):
+def ssd_bound(shape, rates, cuda_cores=False):
     """Least time (ms) for the SSD scan: per chunk of length L, the causal
-    scores 2·n·L(L+1)/2 (bf16 on the tensor cores for bf16 inputs), then in
-    float32 the causal w·x̄ 2·p·L(L+1)/2, C·stateᵀ 2·L·p·n and the state
-    update 2·L·p·n, per (b, h); against x, dt, A, B, C, y and the state
-    read or written once.  Tensor cores and CUDA cores may overlap, so the
-    operation time is the larger of the bf16 and the float32 time (their
-    sum in float32 inputs, which run both on the CUDA cores)."""
+    scores 2·n·L(L+1)/2, then the causal w·x̄ 2·p·L(L+1)/2, C·stateᵀ
+    2·L·p·n and the state update 2·L·p·n, per (b, h); against x, dt, A,
+    B, C, y and the state read or written once.  For bf16 inputs the
+    scores take one bf16 pass on the tensor cores and each of the other
+    three products three: each has an operand that is exactly bf16 (x̄ =
+    dt·x with w's columns scaled by dt, C, B), and its float32 operand
+    splits exactly into three bf16 pieces (hi, mid, lo: 24 significand
+    bits in three of 8, ``ref.bf16_split3``), each partial product exact.
+    For float32 inputs every product runs on the CUDA cores.  With
+    ``cuda_cores`` the bf16 figure of earlier records: the three products
+    in float32 on the CUDA cores beside the scores on the tensor cores,
+    the larger of the two times."""
     b, s, h, p, g, n, chunk, dt_, _ = shape
-    bw, f32, bf16 = rates
     elem = 2 if dt_ == "bf16" else 4
     tri = sum(L * (L + 1) // 2
               for L in (min(chunk, s - c) for c in range(0, s, chunk)))
     score_ops = 2 * n * tri * b * h
     f32_ops = (2 * p * tri + 4 * p * n * s) * b * h
-    if elem == 2:
+    return _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores,
+                      (2 * b * s * h * p + 2 * b * s * g * n) * elem
+                      + 4 * (b * s * h + h + b * h * p * n))
+
+
+def _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores, nbytes):
+    """``(ms, "bytes" or "operations")`` of `ssd_bound` and
+    `ssd_bwd_bound`: bf16 scores one pass and the products with a float32
+    operand three passes on the tensor cores (or, with ``cuda_cores``,
+    those on the CUDA cores, overlapping the scores), float32 inputs all
+    on the CUDA cores; against ``nbytes`` at the memory rate."""
+    bw, f32, bf16 = rates
+    if elem == 4:
+        t_o = (score_ops + f32_ops) / f32 * 1e3
+    elif cuda_cores:
         t_o = max(score_ops / bf16, f32_ops / f32) * 1e3
     else:
-        t_o = (score_ops + f32_ops) / f32 * 1e3
-    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * elem \
-        + 4 * (b * s * h + h + b * h * p * n)
+        t_o = (score_ops + 3 * f32_ops) / bf16 * 1e3
     t_b = nbytes / bw * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
@@ -2244,6 +2290,7 @@ def check_ssd(name, device, rates, timed: bool):
             plain_ms=time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, chunk),
                              3),
             library_ms=None, bound_ms=bound, bound_by=by,
+            bound_cuda_core_ms=ssd_bound(shape, rates, cuda_cores=True)[0],
             ptxas=kernel_ptxas("ssd_scan", "split_kernel"))
         if not rec["ptxas"] or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
@@ -2255,32 +2302,30 @@ def check_ssd(name, device, rates, timed: bool):
     return rec
 
 
-def ssd_bwd_bound(shape, rates):
+def ssd_bwd_bound(shape, rates, cuda_cores=False):
     """Least time (ms) for the SSD backward: per chunk of length L and
     (b, h), the causal scores C·Bᵀ 2·n·L(L+1)/2 and the causal dy·xᵀ
     2·p·L(L+1)/2 (dy·x̄ᵀ with column j scaled by dt_j afterwards: both
-    operands are inputs, so bf16 on the tensor cores for bf16 inputs),
-    then in float32 Wᵀ·dy 2·p·L(L+1)/2, DS·B and DSᵀ·C 2·n·L(L+1)/2 each,
-    and five [L, p, n] products of 2·L·p·n each (the states entering
-    each chunk, their gradients, and the state terms of dx̄, dB and dC);
-    against x, dy, dt, A, B, C read and dx, ddt, dA, dB, dC written once.
-    As in `ssd_bound`, the operation time is the larger of the bf16 and
-    the float32 time (their sum in float32 inputs)."""
+    operands are inputs), then Wᵀ·dy 2·p·L(L+1)/2, DS·B and DSᵀ·C
+    2·n·L(L+1)/2 each, and five [L, p, n] products of 2·L·p·n each (the
+    states entering each chunk, their gradients, and the state terms of
+    dx̄, dB and dC); against x, dy, dt, A, B, C read and dx, ddt, dA, dB,
+    dC written once.  Each of those products has an operand that is
+    exactly bf16 for bf16 inputs (dy, B, C, x, B, dy, B, C), so as in
+    `ssd_bound` the scores take one bf16 pass on the tensor cores and the
+    products three (the exact split of the float32 operand); float32
+    inputs run everything on the CUDA cores, and ``cuda_cores`` gives
+    the bf16 figure of earlier records (the products on the CUDA
+    cores)."""
     b, s, h, p, g, n, chunk, dt_, _ = shape
-    bw, f32, bf16 = rates
     elem = 2 if dt_ == "bf16" else 4
     tri = sum(L * (L + 1) // 2
               for L in (min(chunk, s - c) for c in range(0, s, chunk)))
     score_ops = (2 * n + 2 * p) * tri * b * h
     f32_ops = (2 * p * tri + 4 * n * tri + 10 * p * n * s) * b * h
-    if elem == 2:
-        t_o = max(score_ops / bf16, f32_ops / f32) * 1e3
-    else:
-        t_o = (score_ops + f32_ops) / f32 * 1e3
-    nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * elem \
-        + 4 * (2 * b * s * h + 2 * h)
-    t_b = nbytes / bw * 1e3
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores,
+                      (3 * b * s * h * p + 4 * b * s * g * n) * elem
+                      + 4 * (2 * b * s * h + 2 * h))
 
 
 def check_ssd_bwd(name, device, rates, timed: bool):
@@ -2289,10 +2334,12 @@ def check_ssd_bwd(name, device, rates, timed: bool):
     which must fail the planted faults (``ref.ssd_bwd_fault``: a chunk
     given the state gradient of the next, a head of each group left out
     of dB, and at the "ties" cases the tie rule dropped); two calls
-    bit-equal (no atomics).  Timed at the training shapes (`SSD_BWD_TIMED`)
-    beside the plain version and the bound, with the kernels' ptxas lines
-    (no spills); no PyTorch call computes this gradient (``library_ms``
-    None)."""
+    bit-equal (no atomics).  At `SSD_BWD_SPLIT_CASES` ddt within
+    `SSD_BWD_SPLIT_LIMIT` of its scale, which a kernel whose split lost
+    its lo piece misses.  Timed at the training shapes
+    (`SSD_BWD_TIMED`) beside the plain version and the bound, with the
+    kernels' ptxas lines (no spills); no PyTorch call computes this
+    gradient (``library_ms`` None)."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
     shape, with_ds = SSD_BWD_SHAPES[name]
@@ -2333,6 +2380,8 @@ def check_ssd_bwd(name, device, rates, timed: bool):
                    for t in (x.dtype, torch.float32)},
            "within": ref.ssd_bwd_within(got, want)}
     del again
+    if name in SSD_BWD_SPLIT_CASES:
+        rec["split_limit_ddt"] = SSD_BWD_SPLIT_LIMIT
     faults = [f for f in ref.SSD_BWD_FAULTS
               if f != "no_tie_rule" or shape[8] == "ties"]
     missed = []
@@ -2353,9 +2402,16 @@ def check_ssd_bwd(name, device, rates, timed: bool):
         emit(rec)
         raise AssertionError(f"ssd_bwd's limit passes planted faults "
                              f"{missed} ({name}): {rec}")
+    if (name in SSD_BWD_SPLIT_CASES and rec["err_over_scale_by_output"][
+            "ddt"] > SSD_BWD_SPLIT_LIMIT):
+        emit(rec)
+        raise AssertionError(f"ssd_bwd's ddt is past the split's limit "
+                             f"({name}): {rec}")
     if timed:
         bound, by = ssd_bwd_bound(shape, rates)
         rec.update(
+            bound_cuda_core_ms=ssd_bwd_bound(shape, rates,
+                                             cuda_cores=True)[0],
             ms=time_ms(lambda: ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds,
                                                 chunk), 10),
             forward_ms=time_ms(lambda: ssd_scan.ssd(x, dt, A, B, C,
@@ -2369,12 +2425,13 @@ def check_ssd_bwd(name, device, rates, timed: bool):
             # wrapper's sums over the groups' heads and casts
             kernel_ms=mf_kernel_ms(
                 lambda: ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds, chunk),
-                {k: (k + "<", k + "I") for k in SSD_BWD_KERNELS}
+                {k: (k,) for k in SSD_BWD_KERNELS}
                 | {"sums_and_casts": ("reduce_kernel",
                                       "elementwise_kernel")}),
             ptxas=[ln for e in SSD_BWD_KERNELS
                    for ln in kernel_ptxas("ssd_scan_bwd", e)])
-        if len(rec["ptxas"]) < 10 or any(
+        if len(rec["ptxas"]) < 8 or any(k + "_tc" not in "".join(rec["ptxas"])
+                                         for k in SSD_BWD_KERNELS) or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
                 for ln in rec["ptxas"]):
             emit(rec)
@@ -2865,7 +2922,7 @@ def serve_config(arch):
         reduced[key] = {"published": getattr(part, field), "served": value}
         part = dataclasses.replace(part, **{field: value})
         cfg = cfg.replace(**{sub: part}) if sub else part
-    reduced["why"] = SERVE_CUT_WHY
+    reduced["why"] = SERVE_CUT_WHY[arch]
     return cfg, reduced
 
 
@@ -4319,12 +4376,12 @@ def main() -> int:
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "variant": rec["variant"],
-        "forward_ms": rec["forward_ms"],
+        "forward_ms": rec["forward_ms"], "kernel_ms": rec["kernel_ms"],
         "repeat_bit_equal": rec["repeat_bit_equal"],
         # jamba's mamba sublayers' shape (256 heads), timed in phase 2
         "jamba": {k: ssd_bwd_timed["jamba"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "forward_ms")}})
+            "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "forward_ms", "kernel_ms")}})
     kernels.append({
         "name": "mf_sgd_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mf_sgd.cu",

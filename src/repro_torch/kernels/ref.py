@@ -605,6 +605,23 @@ def _ssd_output(x, y_intra, c_decayed, prev_states):
 SSD_BWD_FAULTS = ("state_late", "no_tie_rule", "head_missing")
 
 
+def bf16_split3(v):
+    """``(hi, mid, lo)``, bf16 pieces of float32 ``v`` that sum to it
+    exactly: ``hi = bf16(v)``, ``mid = bf16(v − hi)``, ``lo = bf16(v − hi
+    − mid)``, each difference exact in float32, so 24 significand bits go
+    into three of 8.  Exact for ``|v| ≥ 2^-110`` (``lo``'s last bit,
+    2^-23 of ``v``'s exponent, is then at least bf16's 2^-133); below, off
+    by at most 2^-133.  A product of a bf16 operand with ``v`` is then
+    three bf16 products, each exact in float32: how the CUDA ``ssd_bwd``
+    runs its float32 operands on the tensor cores (``split2`` in
+    ``csrc/ssd_scan_bwd.cu``)."""
+    v = v.to(torch.float32)
+    hi = v.to(torch.bfloat16)
+    r = v - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def ssd_bwd(x, dt, A, B, C, dy, dstate, chunk):
     """The gradient of `ssd_chunked` for the cotangents ``dy [b,s,h,p]``
     of ``y`` and ``dstate [b,h,p,n]`` of the final state (None: the final

@@ -24,17 +24,23 @@ launch in ``launch.launches``.  The plain version is
 device.
 
 :func:`ssd_bwd` is the gradient, the three kernels of
-``csrc/ssd_scan_bwd.cu`` (one count a call in ``launch.launches["ssd_bwd"]``):
-``ssd_bwd_states`` and ``ssd_bwd_dstates`` walk the chunks of each (b, h)
-and 32-wide slice of p, forward and in reverse, writing the state entering
-each chunk and its gradient (float32 ``[b, h, nc, p, n]`` each);
-``ssd_bwd_chunk`` computes the in-chunk gradients per (b, h, chunk), dB
-and dC per head as float32 ``[b, s, h, n]``, which the wrapper sums over
-each group's heads.  Its plain version is ``ref.ssd_bwd``.  Its limits add
-``chunk``, ``n`` and ``p`` at most 128 and the chunk kernel's shared
-memory (:func:`bwd_smem_bytes`: 199,696 bytes at bf16, ``p = 64``,
-``n = chunk = 128``; float32 at ``n = chunk = 128`` does not fit and
-raises).
+``csrc/ssd_scan_bwd.cu`` (one count a call in ``launch.launches["ssd_bwd"]``).
+In bf16 (``"bwd_tc"``) every product runs on the tensor cores, each float32
+operand split exactly into three bf16 pieces (`ref.bf16_split3`):
+``ssd_bwd_states_tc`` and ``ssd_bwd_dstates_tc`` walk the chunks of each
+(b, h) and 32-wide slice of p, forward and in reverse, writing the state
+entering each chunk and its gradient as three bf16 planes (``[b, h, nc, 3,
+p, n]`` each); ``ssd_bwd_chunk_tc`` computes the in-chunk gradients per
+(b, group, chunk), the group's heads in order, adding each head's dB and
+dC into the group's float32 sums ``[b, s, g, n]``, which the wrapper casts
+to bf16.  In float32 (``"bwd_xt*"``) the same three steps run on the CUDA
+cores, the states float32 ``[b, h, nc, p, n]``, dB and dC per head
+``[b, s, h, n]``, summed over each group's heads by the wrapper.  Its
+plain version is ``ref.ssd_bwd``.  Its limits add ``chunk``, ``n`` and
+``p`` at most 128 and the chunk kernel's shared memory
+(:func:`bwd_smem_bytes`: 217,624 bytes at bf16, ``p = 64``,
+``n = chunk = 128``; float32 at ``n = chunk = 128``, and bf16 at ``p = n =
+chunk = 128``, do not fit and raise).
 
 Limits: ``p % 4 == 0``, ``n % 16 == 0``, ``chunk % 16 == 0``, ``g | h``,
 16-byte aligned ``x``, B and C, and for ``"per_head"`` a chunk whose
@@ -55,9 +61,10 @@ from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 
 DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("p_split", "per_head")
-# The backward's chunk kernel instances: the dx̄ tiles a thread keeps in
-# registers (4 x 4 each), by `ssd_bwd_instance`.
-BWD_VARIANTS = {1: "bwd_xt1", 2: "bwd_xt2", 4: "bwd_xt4"}
+# The backward's chunk kernel instances, by `ssd_bwd_instance`: the bf16
+# kernel on the tensor cores (0), or the float32 one by the dx̄ tiles a
+# thread keeps in registers (4 x 4 each).
+BWD_VARIANTS = {0: "bwd_tc", 1: "bwd_xt1", 2: "bwd_xt2", 4: "bwd_xt4"}
 BWD_MAX = 128       # the backward's largest chunk, n and p
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
@@ -70,7 +77,7 @@ _ARGTYPES = {
 _BWD_ARGTYPES = {
     "ssd_backward": [_vp] * 14 + [_i] * 8 + [_vp],
     "ssd_bwd_smem_bytes": [_i, _i, _i, _i],
-    "ssd_bwd_instance": [_i, _i],
+    "ssd_bwd_instance": [_i, _i, _i],
 }
 
 # The kernel the last call launched (one of VARIANTS, or of BWD_VARIANTS's
@@ -202,12 +209,15 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate, chunk: int = 128):
                          f"a CTA, more than the {limit} there are")
     nc = -(-s // chunk)
     f32 = dict(dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, nc, p, n), **f32)
-    gstates = torch.empty((b, h, nc, p, n), **f32)
+    planes = (b, h, nc, 3, p, n) if bf16 else (b, h, nc, p, n)
+    states = torch.empty(planes, dtype=x.dtype, device=dev)
+    gstates = torch.empty(planes, dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
     ddt = torch.empty((b, s, h), **f32)
-    dBp = torch.empty((b, s, h, n), **f32)
-    dCp = torch.empty((b, s, h, n), **f32)
+    # bf16: the group sums the kernel adds each head into; float32: per head
+    sums = (b, s, g, n) if bf16 else (b, s, h, n)
+    dBp = torch.empty(sums, **f32)
+    dCp = torch.empty(sums, **f32)
     dAp = torch.empty((b, nc, h), **f32)
     with torch.cuda.device(dev):
         err = lib.ssd_backward(
@@ -218,10 +228,10 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate, chunk: int = 128):
             ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
             b, s, h, p, g, n, chunk, int(bf16), stream(dev))
     raise_on(lib, err, "ssd_bwd")
-    last_variant = BWD_VARIANTS[lib.ssd_bwd_instance(chunk, p)]
+    last_variant = BWD_VARIANTS[lib.ssd_bwd_instance(chunk, p, int(bf16))]
     launches["ssd_bwd"] += 1
-    del states, gstates     # scratch (1.07 GB each at jamba's shape)
-    rep = h // g
-    dB = dBp.view(b, s, g, rep, n).sum(3).to(x.dtype)
-    dC = dCp.view(b, s, g, rep, n).sum(3).to(x.dtype)
-    return dx, ddt, dAp.sum((0, 1)), dB, dC
+    del states, gstates     # scratch (1.61 GB each at jamba's shape)
+    if not bf16:
+        dBp = dBp.view(b, s, g, h // g, n).sum(3)
+        dCp = dCp.view(b, s, g, h // g, n).sum(3)
+    return dx, ddt, dAp.sum((0, 1)), dBp.to(x.dtype), dCp.to(x.dtype)

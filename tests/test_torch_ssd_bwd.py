@@ -20,7 +20,18 @@ made with numpy from a seed.
   and the float32 limit for ddt and dA; and to JAX's own bf16 ``vjp``
   within ``BF16_TOL`` plus twice JAX's distance between its bf16 and
   float32 runs, as the training tests hold bf16.
+
+Then what the card's bf16 kernels rest on: ``ref.bf16_split3``, the
+exact three-way bf16 split of a float32 operand that they mirror; their
+chunk kernel's pair blocks, parsed from its source; and the bounds of
+``chip_smoke.py`` (``ssd_bwd_bound``, ``ssd_bound``), which charge each
+split product at three bf16 tensor-core passes.
 """
+import importlib.util
+import re
+from fractions import Fraction
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -200,3 +211,164 @@ def test_planted_faults_fail_the_tolerance(ties):
         assert caught == (fault != "no_tie_rule" or ties), fault
     with pytest.raises(ValueError, match="unknown SSD backward fault"):
         ref.ssd_bwd_fault(*t, 32, "no_such_fault")
+
+
+# ---- the bf16 kernel's exact split, work order and bound ---------------------
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _split_sum(v):
+    return sum(q.double() for q in ref.bf16_split3(v))
+
+
+def test_bf16_split3_is_exact():
+    """hi + mid + lo == v in float64, each a bf16 value, for float32 values
+    of every exponent from 2^-110 up and for values at and beside bf16's
+    rounding ties (a bf16 value plus half its ulp, and one float32 ulp
+    either side)."""
+    r = np.random.default_rng(5)
+    v = (r.standard_normal(200_000) * np.exp2(
+        r.integers(-109, 120, 200_000))).astype(np.float32)
+    v = v[np.abs(v) >= 2.0 ** -110]
+    base = r.standard_normal(20_000).astype(np.float32)
+    base = torch.from_numpy(base).bfloat16().float()
+    half = torch.from_numpy(np.exp2(np.floor(np.log2(
+        np.abs(base.numpy()))) - 8).astype(np.float32))
+    tie = base + half
+    ulp = torch.from_numpy(np.spacing(np.abs(tie.numpy())).astype(np.float32))
+    for t in (torch.from_numpy(v), tie, tie + ulp, tie - ulp,
+              torch.tensor([2.0 ** -110, -(2.0 ** -110), 3.3e38, 0.0])):
+        parts = ref.bf16_split3(t)
+        assert all(q.dtype == torch.bfloat16 for q in parts)
+        assert torch.equal(_split_sum(t), t.double())
+    # the pieces step down by 8 bits: |mid| <= ulp_bf16(v) / 2, and so on
+    hi, mid, lo = ref.bf16_split3(torch.from_numpy(v))
+    assert bool((mid.double().abs() <= hi.double().abs() * 2.0 ** -8).all())
+    assert bool((lo.double().abs() <= mid.double().abs() * 2.0 ** -8).all())
+
+
+def test_bf16_split3_below_its_range():
+    """Below 2^-110, down to e^-80 (the decays' range over a chunk), the
+    split is off by at most 2^-133, bf16's least step."""
+    r = np.random.default_rng(6)
+    v = torch.from_numpy(np.exp(r.uniform(-80, -110 * np.log(2), 100_000))
+                         .astype(np.float32))
+    assert bool((v.double() < 2.0 ** -110).all())
+    err = (_split_sum(v) - v.double()).abs().max().item()
+    assert err <= 2.0 ** -133
+
+
+def test_bf16_split3_products_are_exact():
+    """A bf16 matrix times a float32 one is three bf16 products whose
+    entries are exact in float32 and whose sum is the exact product (held
+    in rationals)."""
+    r = np.random.default_rng(7)
+    a = torch.from_numpy(r.standard_normal((6, 16)).astype(np.float32))
+    a = a.bfloat16()
+    v = torch.from_numpy((r.standard_normal((16, 5))
+                          * np.exp2(r.integers(-40, 40, (16, 5))))
+                         .astype(np.float32))
+    parts = ref.bf16_split3(v)
+    for q in parts:    # each partial product exact in float32
+        prod = a.float()[:, :, None] * q.float()[None]
+        assert torch.equal(prod.double(),
+                           a.double()[:, :, None] * q.double()[None])
+    fa = [[Fraction(float(e)) for e in row] for row in a.float().tolist()]
+    fv = [[Fraction(float(e)) for e in row] for row in v.tolist()]
+    fq = [[[Fraction(float(e)) for e in row] for row in q.float().tolist()]
+          for q in parts]
+    for i in range(6):
+        for j in range(5):
+            want = sum(fa[i][k] * fv[k][j] for k in range(16))
+            got = sum(fa[i][k] * q[k][j] for q in fq for k in range(16))
+            assert got == want
+
+
+def _passes(src):
+    """The chunk kernel's three pair loops as ``(pass, lo, hi)`` bounds in
+    row blocks, parsed from the source."""
+    body = src.split("__global__ void __launch_bounds__(THREADS, 1) "
+                     "ssd_bwd_chunk_tc(", 1)[1].split("\ncudaError_t", 1)[0]
+    assert "const int rb = warp, r0 = 16 * rb;" in body
+    loops = re.findall(r"for \(int (jb|ib) = (0|rb); (?:jb <= rb|16 \* ib < L)"
+                       r"; \+\+(?:jb|ib)\)", body)
+    return loops
+
+
+@pytest.mark.parametrize("L", [16, 32, 48, 80, 128])
+def test_chunk_kernel_takes_every_pair_block_once(L):
+    """A CPU mirror of ``ssd_bwd_chunk_tc``'s work, parsed from its
+    source: warp w owns row block w; the dC pass takes key blocks 0..w,
+    the dx̄ and dB passes query blocks w..; so each block of the causal
+    lower triangle is taken exactly once by each pass, in a fixed order,
+    and every row block has its warp (chunk <= 128: 8 blocks, 8 warps)."""
+    src = (CSRC / "ssd_scan_bwd.cu").read_text()
+    loops = _passes(src)
+    assert loops == [("jb", "0"), ("ib", "rb"), ("ib", "rb")]
+    warps = int(re.search(r"constexpr int THREADS = (\d+);", src)
+                .group(1)) // 32
+    nb = L // 16
+    assert nb <= warps
+    want = sorted((i, j) for i in range(nb) for j in range(i + 1))
+    for kind, start in loops:
+        got = []
+        for rb in range(min(warps, nb)):
+            if kind == "jb":
+                got += [(rb, jb) for jb in range(0, rb + 1)]
+            else:
+                got += [(ib, rb) for ib in range(rb, nb)]
+        assert sorted(got) == want
+
+
+def _f32_bound(score_ops, f32_ops, nbytes, rates):
+    bw, f32, _ = rates
+    t_o, t_b = (score_ops + f32_ops) / f32 * 1e3, nbytes / bw * 1e3
+    return max(t_o, t_b)
+
+
+def test_ssd_bounds_charge_split_products_at_three_passes():
+    """``ssd_bwd_bound`` and ``ssd_bound`` on the H100's data-sheet rates:
+    bf16 inputs take the scores at one bf16 pass and every product with a
+    float32 operand at three (the exact split), so the backward at
+    mamba2-130m's training shape is (9.739 + 3 x 48.44) GFLOP / 989
+    TFLOP/s = 0.1568 ms and at jamba's 1.672 ms, the forward at
+    mamba2-130m's 0.0555 ms; the CUDA-core figures of earlier records
+    stay 0.7231 and 0.241 ms; float32 inputs are charged as before (every
+    product on the CUDA cores)."""
+    rates = chip_smoke.card_rates(chip_smoke.CARD[0])
+    bwd = chip_smoke.SSD_BWD_SHAPES
+    main, jamba = bwd["main"][0], bwd["jamba"][0]
+    assert chip_smoke.ssd_bwd_bound(main, rates) == (
+        pytest.approx(0.1568, abs=5e-5), "operations")
+    assert chip_smoke.ssd_bwd_bound(jamba, rates)[0] == pytest.approx(
+        1.672, abs=5e-4)
+    assert chip_smoke.ssd_bwd_bound(main, rates, cuda_cores=True)[
+        0] == pytest.approx(0.7231, abs=1e-4)
+    fwd = chip_smoke.SSD_SHAPES["main"]
+    assert chip_smoke.ssd_bound(fwd, rates) == (
+        pytest.approx(0.0555, abs=5e-5), "operations")
+    assert chip_smoke.ssd_bound(fwd, rates, cuda_cores=True)[
+        0] == pytest.approx(0.241, abs=5e-4)
+    for shape in (bwd["smoke_f32"][0], bwd["ties_f32"][0],
+                  chip_smoke.SSD_SHAPES["f32_ragged"]):
+        b, s, h, p, g, n, chunk = shape[:7]
+        tri = sum(L * (L + 1) // 2
+                  for L in (min(chunk, s - c) for c in range(0, s, chunk)))
+        want = _f32_bound(
+            (2 * n + 2 * p) * tri * b * h,
+            (2 * p * tri + 4 * n * tri + 10 * p * n * s) * b * h,
+            (3 * b * s * h * p + 4 * b * s * g * n) * 4
+            + 4 * (2 * b * s * h + 2 * h), rates)
+        assert chip_smoke.ssd_bwd_bound(shape, rates)[0] == pytest.approx(
+            want, rel=1e-12)
+        want = _f32_bound(
+            2 * n * tri * b * h, (2 * p * tri + 4 * p * n * s) * b * h,
+            (2 * b * s * h * p + 2 * b * s * g * n) * 4
+            + 4 * (b * s * h + h + b * h * p * n), rates)
+        assert chip_smoke.ssd_bound(shape, rates)[0] == pytest.approx(
+            want, rel=1e-12)
