@@ -16,15 +16,19 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    bit-equal for f32, bf16 and int8; the comm substrate's threshold
    selection is timed beside the other exact selections;
    ``flash_attention_bwd`` (``check_flash_attention_bwd``, `BWD_SHAPES`:
-   qwen3-0.6b's training step ``train_main``, timed beside its bound, its
-   plain version and the backward of one ``scaled_dot_product_attention``
-   call, with its kernels' ptxas lines, no spills, and the bf16 wgmma
-   kernels' ring stages, shared bytes and registers; head size 64,
-   float32, rep 1, 4 and 8, a window, masked keys, ragged Sq and Sk, rows
-   that see no key) within ``ref.attention_bwd_tolerance`` of its plain
-   version, where D taken as 0 and a dropped key tile must fail, two calls
-   bit-equal, and the forward with ``lse`` bit-equal to the forward
-   without;
+   qwen3-0.6b's training step ``train_main``, deepseek-v2-lite's
+   ``mla_train`` (Dk 576, Dv 512, V K's prefix) and stablelm-3b's
+   ``stablelm_train`` (80, 80), each timed beside its bound, its plain
+   version and the backward of one ``scaled_dot_product_attention``
+   call, with its kernels' ptxas lines, no spills, and the bf16 kernels'
+   stages, shared bytes and registers; head size 64, float32, rep 1, 4
+   and 8, a window, masked keys, ragged Sq and Sk, rows that see no key;
+   MLA's edge cases; deepseek's smoke config's (80, 64); (32, 16) and
+   (32, 32), bf16 and float32) within ``ref.attention_bwd_tolerance`` of
+   its plain version (with V as K's prefix, dK holding dV), where D taken
+   as 0, a dropped key tile and, with V as K's prefix, dV left out of dK
+   must fail, two calls bit-equal, and the forward with ``lse``
+   bit-equal to the forward without;
    ``flash_attention`` (at the models' prefill shape, at MLA's,
    ``mla_main``: deepseek-v2-lite's Dk 576, Dv 512, one KV head, at
    whisper-medium's encoder, ``whisper_enc``, at llama-3.2-vision's
@@ -48,10 +52,10 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    state), and at the shapes of the JAX package's ``kernels`` suite;
    ``ssd_bwd`` (``check_ssd_bwd``: at mamba2-130m's and jamba's training
    shapes, timed beside its plain version and its bound (the products
-   with a float32 operand at three bf16 tensor-core passes, and beside
-   it the CUDA-core figure of earlier records), each of its kernels'
-   device ms, with its kernels' ptxas lines, no spills, the bf16 kernels
-   on the tensor cores among them; at the smoke configs' shape in bf16
+   with a float32 operand at three bf16 tensor-core passes), each of its
+   kernels' device ms, with its kernels' ptxas lines, no spills, the bf16
+   kernels on the tensor cores among them; at the smoke configs' shape in
+   bf16
    and float32, a ragged s, dt in mamba2's range and ties, with and
    without a cotangent of the final state) within
    ``ref.ssd_bwd_tolerance`` of ``ref.ssd_bwd``, two calls bit-equal,
@@ -220,21 +224,26 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    finite and the last step's loss below step 1's and below the initial
    weights' loss on the same batch (each step draws a new batch, whose
    losses at the initial weights differ by ~10 %); SSP with a FIFO of
-   2 for 4 steps: ``apply_scale`` 0, 0, 1, 1; then mamba2-130m the same
-   way (``train_ssm_path``: ``--arch mamba2-130m --full --batch 8 --seq
-   2048 --steps 6``): ``ssd`` 48 and ``ssd_bwd`` 24 launches a step and
-   no other kernel, ms a step, tokens/s, peak memory, a profiled step, a
-   finite loss that falls;
+   2 for 4 steps: ``apply_scale`` 0, 0, 1, 1; then mamba2-130m and
+   deepseek-v2-lite-16b the same way (``train_arch_path``: ``--arch
+   mamba2-130m --full --batch 8 --seq 2048 --steps 6``: ``ssd`` 48 and
+   ``ssd_bwd`` 24 launches a step; ``--arch deepseek-v2-lite-16b --full
+   --layers 4``, its `TRAIN_CUTS` depth: ``flash_attention`` 8 (MLA's,
+   with ``lse``) and ``flash_attention_bwd`` 4 (the ``mma.sync``
+   template at (576, 512)); no other kernel), ms a step, tokens/s, peak
+   memory, a profiled step, a finite loss that falls;
 16. training on the card against the CPU (``train_card_vs_cpu``): the
-   smoke configs of qwen3-0.6b, mamba2-130m and jamba-1.5-large-398b in
-   bf16 and float32, 3 SGD steps from the same parameters and batches
-   (mamba2's and Jamba's CPU steps from the card's parameters, Jamba's on
-   the card's MoE routing, recorded and forced under autograd): the
-   loss, ``grad_norm``, every gradient leaf and every moved
-   parameter within ``SERVE_TOL`` plus twice the step's own rounding (the
-   CPU's run one precision up); AdamW's updates on identical gradients;
-   a gradient through MLA (deepseek-v2-lite-16b's smoke config) raises
-   ``NotImplementedError`` on the card.
+   smoke configs of qwen3-0.6b, mamba2-130m, jamba-1.5-large-398b and
+   deepseek-v2-lite-16b (MLA at (80, 64), V K's prefix) in bf16 and
+   float32, 3 SGD steps from the same parameters and batches (mamba2's,
+   Jamba's and deepseek's CPU steps from the card's parameters, then
+   going on from their own; Jamba's and deepseek's on the card's MoE
+   routing, recorded and forced under autograd): the loss,
+   ``grad_norm``, every gradient leaf and every moved parameter within
+   ``SERVE_TOL`` plus twice the step's own rounding (the CPU's run one
+   precision up); AdamW's updates on identical gradients; a float32
+   gradient through attention at (576, 512), which has no kernel yet,
+   raises ``NotImplementedError`` naming ROADMAP 16.4f on the card.
 
 Then the ``kernels`` summary line (the ``ps_view`` and ``delta_pack``
 rows carry the runtime's launches too, the ``ps_view`` rows phase 14's), the card's ``nvidia-smi`` line,
@@ -541,9 +550,10 @@ MF_CASES = {
 }
 MF_TILE = 128       # the columns planted fault (b) leaves out
 
-# The serving path: the dense, ssm, moe, audio and vlm families at full
-# width and depth, the hybrid family at full width cut to fit one card
-# (SERVE_CUTS); phase 6 runs the smoke config of every served arch.
+# The serving path: the dense, ssm, audio and vlm families at full width
+# and depth, the moe family at full width and a cut depth (the script's
+# time), the hybrid family cut to fit one card (SERVE_CUTS); phase 6 runs
+# the smoke config of every served arch.
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "deepseek-v2-lite-16b",
                "qwen3-moe-30b-a3b", "whisper-medium", "llama-3.2-vision-11b",
                "jamba-1.5-large-398b")
@@ -1953,17 +1963,18 @@ def sharded_sweep_phase(device):
     return rec
 
 
-def attn_inputs(shape, seed, device):
+def attn_inputs(shape, seed, device, v_prefix=False):
     """``(q, k, v, q_pos, kv_pos)`` on the card for one attention shape,
     made from a seed; positions as `ATTN_SHAPES` names them.  At MLA's
-    (576, 512) ``v`` is ``k[..., :512]``, as the model passes it."""
+    (576, 512), and with ``v_prefix``, ``v`` is ``k[..., :Dv]``, as the
+    model passes it."""
     import torch
     B, Sq, Sk, H, Hkv, Dk, Dv, _, _, dt, kind = shape
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gd = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(s, generator=gd, device=device).to(dtype)
                for s in ((B, Sq, H, Dk), (B, Sk, Hkv, Dk), (B, Sk, Hkv, Dv)))
-    if (Dk, Dv) == (576, 512):
+    if (Dk, Dv) == (576, 512) or v_prefix:
         v = k[..., :Dv]
     qp = (torch.arange(Sq, dtype=torch.int32, device=device)
           + (Sk - Sq)).expand(B, Sq).contiguous()
@@ -2183,7 +2194,7 @@ def ssd_inputs(shape, seed, device):
     return x, dt, A, B, C
 
 
-def ssd_bound(shape, rates, cuda_cores=False):
+def ssd_bound(shape, rates):
     """Least time (ms) for the SSD scan: per chunk of length L, the causal
     scores 2·n·L(L+1)/2, then the causal w·x̄ 2·p·L(L+1)/2, C·stateᵀ
     2·L·p·n and the state update 2·L·p·n, per (b, h); against x, dt, A,
@@ -2193,32 +2204,26 @@ def ssd_bound(shape, rates, cuda_cores=False):
     dt·x with w's columns scaled by dt, C, B), and its float32 operand
     splits exactly into three bf16 pieces (hi, mid, lo: 24 significand
     bits in three of 8, ``ref.bf16_split3``), each partial product exact.
-    For float32 inputs every product runs on the CUDA cores.  With
-    ``cuda_cores`` the bf16 figure of earlier records: the three products
-    in float32 on the CUDA cores beside the scores on the tensor cores,
-    the larger of the two times."""
+    For float32 inputs every product runs on the CUDA cores."""
     b, s, h, p, g, n, chunk, dt_, _ = shape
     elem = 2 if dt_ == "bf16" else 4
     tri = sum(L * (L + 1) // 2
               for L in (min(chunk, s - c) for c in range(0, s, chunk)))
     score_ops = 2 * n * tri * b * h
     f32_ops = (2 * p * tri + 4 * p * n * s) * b * h
-    return _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores,
+    return _ops_bound(score_ops, f32_ops, elem, rates,
                       (2 * b * s * h * p + 2 * b * s * g * n) * elem
                       + 4 * (b * s * h + h + b * h * p * n))
 
 
-def _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores, nbytes):
+def _ops_bound(score_ops, f32_ops, elem, rates, nbytes):
     """``(ms, "bytes" or "operations")`` of `ssd_bound` and
     `ssd_bwd_bound`: bf16 scores one pass and the products with a float32
-    operand three passes on the tensor cores (or, with ``cuda_cores``,
-    those on the CUDA cores, overlapping the scores), float32 inputs all
-    on the CUDA cores; against ``nbytes`` at the memory rate."""
+    operand three passes on the tensor cores, float32 inputs all on the
+    CUDA cores; against ``nbytes`` at the memory rate."""
     bw, f32, bf16 = rates
     if elem == 4:
         t_o = (score_ops + f32_ops) / f32 * 1e3
-    elif cuda_cores:
-        t_o = max(score_ops / bf16, f32_ops / f32) * 1e3
     else:
         t_o = (score_ops + 3 * f32_ops) / bf16 * 1e3
     t_b = nbytes / bw * 1e3
@@ -2290,7 +2295,6 @@ def check_ssd(name, device, rates, timed: bool):
             plain_ms=time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, chunk),
                              3),
             library_ms=None, bound_ms=bound, bound_by=by,
-            bound_cuda_core_ms=ssd_bound(shape, rates, cuda_cores=True)[0],
             ptxas=kernel_ptxas("ssd_scan", "split_kernel"))
         if not rec["ptxas"] or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
@@ -2302,7 +2306,7 @@ def check_ssd(name, device, rates, timed: bool):
     return rec
 
 
-def ssd_bwd_bound(shape, rates, cuda_cores=False):
+def ssd_bwd_bound(shape, rates):
     """Least time (ms) for the SSD backward: per chunk of length L and
     (b, h), the causal scores C·Bᵀ 2·n·L(L+1)/2 and the causal dy·xᵀ
     2·p·L(L+1)/2 (dy·x̄ᵀ with column j scaled by dt_j afterwards: both
@@ -2314,16 +2318,14 @@ def ssd_bwd_bound(shape, rates, cuda_cores=False):
     exactly bf16 for bf16 inputs (dy, B, C, x, B, dy, B, C), so as in
     `ssd_bound` the scores take one bf16 pass on the tensor cores and the
     products three (the exact split of the float32 operand); float32
-    inputs run everything on the CUDA cores, and ``cuda_cores`` gives
-    the bf16 figure of earlier records (the products on the CUDA
-    cores)."""
+    inputs run everything on the CUDA cores."""
     b, s, h, p, g, n, chunk, dt_, _ = shape
     elem = 2 if dt_ == "bf16" else 4
     tri = sum(L * (L + 1) // 2
               for L in (min(chunk, s - c) for c in range(0, s, chunk)))
     score_ops = (2 * n + 2 * p) * tri * b * h
     f32_ops = (2 * p * tri + 4 * n * tri + 10 * p * n * s) * b * h
-    return _ops_bound(score_ops, f32_ops, elem, rates, cuda_cores,
+    return _ops_bound(score_ops, f32_ops, elem, rates,
                       (3 * b * s * h * p + 4 * b * s * g * n) * elem
                       + 4 * (2 * b * s * h + 2 * h))
 
@@ -2410,8 +2412,6 @@ def check_ssd_bwd(name, device, rates, timed: bool):
     if timed:
         bound, by = ssd_bwd_bound(shape, rates)
         rec.update(
-            bound_cuda_core_ms=ssd_bwd_bound(shape, rates,
-                                             cuda_cores=True)[0],
             ms=time_ms(lambda: ssd_scan.ssd_bwd(x, dt, A, B, C, dy, ds,
                                                 chunk), 10),
             forward_ms=time_ms(lambda: ssd_scan.ssd(x, dt, A, B, C,
@@ -2905,24 +2905,25 @@ def prefill_launches(cfg) -> dict:
     return {"flash_attention": cfg.n_layers}
 
 
-def serve_config(arch):
+def serve_config(arch, cuts=None, why=None, used="served"):
     """``(config, reduced)``: the published config of ``arch`` with its
-    `SERVE_CUTS` applied, and the record of each key cut (its published
-    and served values, and why), ``None`` for an arch served whole."""
+    `SERVE_CUTS` (or ``cuts``) applied, and the record of each key cut
+    (its published and ``used`` values, and why: `SERVE_CUT_WHY` or
+    ``why``), ``None`` for an arch run whole."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    cuts = SERVE_CUTS.get(arch)
+    cuts = (SERVE_CUTS if cuts is None else cuts).get(arch)
     if not cuts:
         return cfg, None
     reduced = {}
     for key, value in cuts.items():
         sub, _, field = key.rpartition(".")
         part = getattr(cfg, sub) if sub else cfg
-        reduced[key] = {"published": getattr(part, field), "served": value}
+        reduced[key] = {"published": getattr(part, field), used: value}
         part = dataclasses.replace(part, **{field: value})
         cfg = cfg.replace(**{sub: part}) if sub else part
-    reduced["why"] = SERVE_CUT_WHY[arch]
+    reduced["why"] = (SERVE_CUT_WHY if why is None else why)[arch]
     return cfg, reduced
 
 
@@ -3266,11 +3267,62 @@ BWD_SHAPES = {
                             "arange"),
     "bf16_late_keys": (2, 200, 200, 4, 2, 128, 128, True, None, "bf16",
                        "late_keys"),
+    # MLA's latent heads, V the first 512 columns of K (the gradient folds
+    # dV into dK): "mla_train" is deepseek-v2-lite's training step (batch
+    # 8 x 2048, 16 heads over one KV head), timed; then the forward's MLA
+    # cases: ragged 333, windows of 50 and 80 cutting through the 64-key
+    # resident tiles and 32-row units, masked keys, rows that see no key,
+    # non-causal Sq != Sk, 4 heads a KV head at Hkv 2, 3 heads a KV head
+    "mla_train": (8, 2048, 2048, 16, 1, 576, 512, True, None, "bf16",
+                  "arange"),
+    "mla_ragged333": (1, 333, 333, 16, 1, 576, 512, True, None, "bf16",
+                      "arange"),
+    "mla_window50": (1, 384, 384, 16, 1, 576, 512, True, 50, "bf16",
+                     "arange"),
+    "mla_window80": (2, 200, 200, 16, 1, 576, 512, True, 80, "bf16",
+                     "shuffled"),
+    "mla_holes": (2, 256, 256, 16, 1, 576, 512, True, None, "bf16",
+                  "holes"),
+    "mla_late_keys": (2, 200, 200, 16, 1, 576, 512, True, None, "bf16",
+                      "late_keys"),
+    "mla_noncausal": (2, 200, 300, 16, 1, 576, 512, False, None, "bf16",
+                      "arange"),
+    "mla_rep4": (2, 300, 300, 8, 2, 576, 512, True, None, "bf16",
+                 "shuffled"),
+    "mla_rep3": (2, 250, 250, 6, 2, 576, 512, True, None, "bf16", "holes"),
+    # deepseek's smoke config (Dk 80 = 64 + 16, Dv 64, V K's prefix, 4
+    # heads over one KV head) at phase 16's batch 4 x 64, bf16 and float32,
+    # and (80, 64) with a separate V
+    "mla_smoke_bf16": (4, 64, 64, 4, 1, 80, 64, True, None, "bf16",
+                       "arange"),
+    "mla_smoke_f32": (4, 64, 64, 4, 1, 80, 64, True, None, "f32", "arange"),
+    "bf16_d80_64": (2, 150, 170, 8, 2, 80, 64, True, None, "bf16", "holes"),
+    # stablelm-3b's training step (batch 8 x 2048, 32 heads of 80, MHA),
+    # timed; (80, 80) in float32
+    "stablelm_train": (8, 2048, 2048, 32, 32, 80, 80, True, None, "bf16",
+                       "arange"),
+    "f32_d80_80": (1, 200, 200, 4, 2, 80, 80, True, 60, "f32", "arange"),
+    # the narrow test sizes, bf16 and float32, (32, 16) also with V as K's
+    # prefix
+    "bf16_d32_16": (2, 100, 130, 4, 2, 32, 16, True, None, "bf16", "holes"),
+    "f32_d32_16": (2, 100, 130, 4, 2, 32, 16, True, None, "f32", "holes"),
+    "bf16_d32_16_prefix": (2, 96, 96, 4, 1, 32, 16, False, None, "bf16",
+                           "arange"),
+    "f32_d32_16_prefix": (2, 96, 96, 4, 1, 32, 16, True, 40, "f32",
+                          "arange"),
+    "bf16_d32_32": (2, 77, 77, 8, 4, 32, 32, True, 30, "bf16", "arange"),
+    "f32_d32_32": (2, 77, 77, 8, 4, 32, 32, True, None, "f32", "late_keys"),
 }
+# the timed cases, and those whose V is K's prefix below (576, 512)
+BWD_TIMED = ("train_main", "mla_train", "stablelm_train")
+BWD_V_PREFIX = ("mla_smoke_bf16", "mla_smoke_f32", "bf16_d32_16_prefix",
+                "f32_d32_16_prefix")
 # the backward's kernels (csrc/flash_attention_bwd.cu), for the ptxas lines
-# and the profiler: D, the bf16 wgmma kernels, the float32 ones
+# and the profiler: D, the bf16 wgmma kernels, the bf16 mma.sync ones (the
+# narrow sizes and MLA's), the float32 ones
 BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma",
-               "fa_bwd_dkdv_f32", "fa_bwd_dq_f32")
+               "fa_bwd_dkdv_mma", "fa_bwd_dq_mma", "fa_bwd_dkdv_f32",
+               "fa_bwd_dq_f32")
 # Training at full width (phase 15): qwen3-0.6b through
 # repro_torch.launch.train at the serving cells' batch, 8 x 2048 tokens,
 # with the launcher's AdamW and cosine schedule, BSP; step 1 is the
@@ -3281,18 +3333,52 @@ SSP_STEPS = 4
 # the kernels of a training step, by profiler name
 TRAIN_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
                  "flash_attention_bwd": BWD_KERNELS}
-# Then mamba2-130m at its published widths through the same launcher
-# (`train_ssm_path`): batch 8 x 2048, AdamW and the cosine schedule, BSP;
-# its kernels a step are ssd (twice a layer: remat) and ssd_bwd.
+# Then mamba2-130m and deepseek-v2-lite-16b at their published widths
+# through the same launcher (`train_arch_path`): batch 8 x 2048, AdamW and
+# the cosine schedule, BSP; the kernels of a step are the forward's (twice
+# a layer: remat) and its gradient's, by profiler name, the forward's
+# counter first.
+TRAIN_ARCH_STEPS = 6
 TRAIN_SSM_ARCH = "mamba2-130m"
-TRAIN_SSM_STEPS = 6
 TRAIN_SSM_KERNELS = {"ssd": ("split::split_kernel", "5split12split_kernel",
                              "ssd_kernel"),
                      "ssd_bwd": SSD_BWD_KERNELS}
+TRAIN_MLA_ARCH = "deepseek-v2-lite-16b"
+TRAIN_MLA_KERNELS = {"flash_attention": ("fa_mla_wgmma_kernel",),
+                     "flash_attention_bwd": ("fa_bwd_delta",
+                                             "fa_bwd_dkdv_mma",
+                                             "fa_bwd_dq_mma")}
+# deepseek-v2-lite-16b's training state does not fit one card at 27
+# layers: bf16 parameters and gradients, AdamW's float32 m and v (updated
+# in place) and its float32 updates are 16 bytes a parameter, ~0.585 B
+# parameters a layer (64 experts of 3 x 2048 x 1408, 2 shared, MLA) and
+# ~0.42 B of embeddings: 259.5 GB at 27 layers.  At L layers the state is
+# (0.585 L + 0.42) x 16 GB, beside the float32 logits [8, 2048, 102400]
+# (6.7 GB) and their gradient, one layer's activations under remat and
+# AdamW's float32 temporaries of the largest leaf (the experts' [L, 64,
+# 2048, 1408], 3.7 GB a copy at L = 5).  Phase 15 trains the largest
+# depth up to SERVE_CUTS' 6 whose peak stays under ~70 GB in this script,
+# every width kept.  On an H100, 5 layers peaked at 67.7 GB in a process
+# of their own, but ran out of memory after the earlier phases (55.7 GB
+# allocated, 21.3 GB cached in blocks too small for a 3.4 GB leaf); 4
+# layers hold ~9.4 GB less.  A key "a.b" is field b of the config's
+# sub-config a.
+TRAIN_CUTS = {"deepseek-v2-lite-16b": {"n_layers": 4}}
+TRAIN_CUT_WHY = {
+    "deepseek-v2-lite-16b": "bf16 parameters and gradients, AdamW's "
+                            "float32 m and v and its float32 updates of "
+                            "27 layers are ~260 GB against one 80 GB "
+                            "card; the largest depth up to the served 6 "
+                            "whose peak stays under ~70 GB after the "
+                            "script's earlier phases (5 layers peaked at "
+                            "67.7 GB alone on an H100 but ran out of "
+                            "memory here); a layer's kernels and shapes "
+                            "do not change with depth"}
 # Phase 16 (training, card against CPU): the smoke configs of these archs,
 # batch 4 x 64, 3 SGD steps at this rate.
 TRAIN_SMALL = dict(batch=4, seq=64, steps=3, lr=0.05)
-TRAIN_VS_CPU_ARCHS = ("qwen3-0.6b", "mamba2-130m", "jamba-1.5-large-398b")
+TRAIN_VS_CPU_ARCHS = ("qwen3-0.6b", "mamba2-130m", "jamba-1.5-large-398b",
+                      "deepseek-v2-lite-16b")
 # The archs whose CPU run starts each step from the card's parameters
 # (each step held on the same inputs, as phase 6 holds serving steps).
 # Going on from their own parameters, mamba2's bf16 runs drift further
@@ -3304,7 +3390,8 @@ TRAIN_VS_CPU_ARCHS = ("qwen3-0.6b", "mamba2-130m", "jamba-1.5-large-398b")
 # SERVE_TOL plus twice the larger of d and that carried rounding, beside a
 # witness that is recorded only: the CPU's run against itself with ddt
 # one float32 rounding off.
-TRAIN_SAME_INPUTS = ("mamba2-130m", "jamba-1.5-large-398b")
+TRAIN_SAME_INPUTS = ("mamba2-130m", "jamba-1.5-large-398b",
+                     "deepseek-v2-lite-16b")
 
 
 def bwd_within(got, want, dtype) -> bool:
@@ -3330,7 +3417,9 @@ def attention_bwd_bound(q, k, v, qp, kp, causal, window, rates):
         qp.shape[0], qp.shape[1], kp.shape[1]).sum().item())
     ops = 2 * (3 * Dk + 2 * Dv) * H * pairs
     rows = q.numel() // Dk                      # (batch, query, head) rows
-    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+    # v and dv not again where v is K's prefix (dK holds dV)
+    v_elems = 0 if ref.v_is_k_prefix(k, v) else v.numel()
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v_elems
               + 2 * rows * Dv) * q.element_size() + 4 * rows \
         + 4 * (qp.numel() + kp.numel())
     t_b = nbytes / bw * 1e3
@@ -3339,52 +3428,63 @@ def attention_bwd_bound(q, k, v, qp, kp, causal, window, rates):
 
 
 def sdpa_bwd_call(q, k, v, dout, causal, scale):
-    """The backward of one ``scaled_dot_product_attention`` call (K and V
-    at their heads, ``enable_gqa``) on the port's inputs, the library
-    yardstick: a closure that takes the gradient of a kept forward, and
-    the backend PyTorch's dispatch picks (``(None, "none")`` if none takes
-    the inputs)."""
+    """The backward of one ``scaled_dot_product_attention`` call on the
+    port's inputs, the library yardstick (K and V at their heads with
+    ``enable_gqa`` where they share q's head size, else expanded to q's
+    heads, as `sdpa_call`): a closure that takes the gradient of a kept
+    forward, and the backend PyTorch's dispatch picks (``(None, "none")``
+    if none takes the inputs)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     gt = dout.transpose(1, 2).contiguous()
+    gqa = q.shape[-1] == v.shape[-1]
+    ke, ve = kt, vt
+    if not gqa:
+        H = q.shape[2]
+        ke, ve = kt.expand(-1, H, -1, -1), vt.expand(-1, H, -1, -1)
     try:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             scale=scale, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, ke, ve, is_causal=causal,
+                                             scale=scale, enable_gqa=gqa)
     except RuntimeError:
         return None, "none"
 
     def call():
         return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
     call()
-    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal,
-                                     scale=scale, enable_gqa=True)
+    choice = torch._fused_sdp_choice(qt, ke, ve, None, 0.0, causal,
+                                     scale=scale, enable_gqa=gqa)
     return call, SDPBackend(choice).name.lower()
 
 
 def check_flash_attention_bwd(name, device, rates, timed: bool):
     """``flash_attention_bwd`` against ``ref.attention_bwd`` on one shape
     of `BWD_SHAPES`, within ``ref.attention_bwd_tolerance`` (each of dq,
-    dk and dv), where both planted faults (D taken as 0, a key tile
-    dropped for the later half of the queries) must fail; two calls
-    bit-equal (no atomics); the forward with ``lse`` bit-equal to
-    ``flash_attention``'s output and its ``lse`` against
-    ``ref.attention_lse``'s.  Timed at ``train_main`` beside the plain
-    version, the backward of one ``scaled_dot_product_attention`` call
-    (and its backend) and the bound, with the kernels' ptxas lines (no
-    spills) and the bf16 wgmma kernels' ring stages, shared bytes and
-    registers (``flash_attention.bwd_kernel_info``)."""
+    dk and dv; with V as K's prefix, dq and the folded dk), where the
+    planted faults (D taken as 0, a key tile dropped for the later half
+    of the queries, and with V as K's prefix dV left out of dK) must
+    fail; two calls bit-equal (no atomics); the forward with ``lse``
+    bit-equal to ``flash_attention``'s output and its ``lse`` against
+    ``ref.attention_lse``'s; the kernel that ran (``bwd_variant``).  Timed
+    at `BWD_TIMED` beside the plain version, the backward of one
+    ``scaled_dot_product_attention`` call (and its backend) and the
+    bound, with the kernels' ptxas lines (no spills) and the bf16
+    kernels' stages, shared bytes and registers
+    (``flash_attention.bwd_kernel_info``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     shape = BWD_SHAPES[name]
     causal, window, dt, kind = shape[7:]
     q, k, v, qp, kp = attn_inputs(shape, seed=sum(shape[:7]) + 1,
-                                  device=device)
+                                  device=device,
+                                  v_prefix=name in BWD_V_PREFIX)
+    fold = ref.v_is_k_prefix(k, v)
     gd = torch.Generator(device=device).manual_seed(sum(shape[:7]) + 2)
-    dout = torch.randn(q.shape, generator=gd, device=device).to(q.dtype)
+    dout = torch.randn((*q.shape[:3], v.shape[-1]), generator=gd,
+                       device=device).to(q.dtype)
     scale = 1.0 / math.sqrt(q.shape[-1])
     kw = dict(scale=scale, q_pos=qp, kv_pos=kp, causal=causal, window=window)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
@@ -3397,49 +3497,61 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
     seen = torch.isfinite(want_lse)
     lse_err = (lse[seen] - want_lse[seen]).abs()
     want = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+    names = ("dq", "dk") if fold else ("dq", "dk", "dv")
     atol, rtol = ref.attention_bwd_tolerance(q.dtype)
     rec = {"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
            "shape": dict(zip(("B", "Sq", "Sk", "H", "Hkv", "Dk", "Dv"),
                              shape[:7], strict=True)),
            "causal": causal, "window": window, "dtype": dt,
+           "v_is_k_prefix": fold, "variant": fa.last_bwd_variant,
+           "forward_variant": fa.last_variant,
            "forward_bit_equal_with_lse": torch.equal(out.view(bits),
                                                      served.view(bits)),
+           "no_dv_where_folded": (got[2] is None) == fold == (want[2] is None),
            "repeat_bit_equal": all(
                torch.equal(a.view(bits), b.view(bits))
-               for a, b in zip(got, again, strict=True)),
+               for a, b in zip(got[:len(names)], again[:len(names)],
+                               strict=True)),
            "lse_unseeing_rows_equal": torch.equal(seen, torch.isfinite(lse)),
            "lse_max_abs_err": lse_err.max().item(),
            "max_abs_err": max((g.float() - w.float()).abs().max().item()
-                              for g, w in zip(got, want, strict=True)),
+                              for g, w in zip(got[:len(names)],
+                                              want[:len(names)],
+                                              strict=True)),
            "max_abs_err_by_output": {
                n: (g.float() - w.float()).abs().max().item()
-               for n, g, w in zip(("dq", "dk", "dv"), got, want,
-                                  strict=True)},
+               for n, g, w in zip(names, got, want, strict=False)},
            "scale_by_output": {n: w.float().abs().max().item() for n, w in
-                               zip(("dq", "dk", "dv"), want, strict=True)},
+                               zip(names, want, strict=False)},
            "atol_of_scale": atol, "rtol": rtol}
     del again
     bad = not (rec["forward_bit_equal_with_lse"]
+               and rec["no_dv_where_folded"]
                and rec["repeat_bit_equal"]
                and rec["lse_unseeing_rows_equal"]
                and bool((lse_err <= 1e-4 + 1e-5 * want_lse[seen].abs()
                          ).all())
                and all(bwd_within(g, w, q.dtype)
-                       for g, w in zip(got, want, strict=True)))
+                       for g, w in zip(got[:len(names)], want[:len(names)],
+                                       strict=True)))
     if kind == "late_keys":
         rec["unseeing_rows_zero_grad"] = not bool(got[0][:, :5].any())
         bad = bad or not rec["unseeing_rows_zero_grad"]
     del served, lse_err
     if not bad:
         missed = []
-        for fault in ("d_zero", "dropped_tile"):
+        faults = ("d_zero", "dropped_tile") + (("unfolded_dv",) if fold
+                                               else ())
+        for fault in faults:
             wrong = ref.attention_bwd_fault(q, k, v, out, lse, dout,
                                             fault=fault, **kw)
             rec[f"planted_fault_{fault}_err"] = max(
                 (b.float() - w.float()).abs().max().item()
-                for b, w in zip(wrong, want, strict=True))
+                for b, w in zip(wrong[:len(names)], want[:len(names)],
+                                strict=True))
             if all(bwd_within(b, w, q.dtype)
-                   for b, w in zip(wrong, want, strict=True)):
+                   for b, w in zip(wrong[:len(names)], want[:len(names)],
+                                   strict=True)):
                 missed.append(fault)
             del wrong
         if missed:
@@ -3464,13 +3576,14 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
                                20),
             plain_ms=time_ms(lambda: ref.attention_bwd(
                 q, k, v, out, lse, dout, **kw), 2, warmup=1),
-            library_ms=None if library is None else time_ms(library, 20),
+            library_ms=None if library is None else time_ms(
+                library, 3 if backend == "math" else 20),
             library_backend=backend, bound_ms=bound, bound_by=by,
             visible_triples=triples)
         del library
         rec["ptxas"] = [ln for entry in BWD_KERNELS
                         for ln in kernel_ptxas("flash_attention_bwd", entry)]
-        rec["bwd_kernels"] = fa.bwd_kernel_info(q.shape[-1])
+        rec["bwd_kernels"] = fa.bwd_kernel_info(q.shape[-1], v.shape[-1])
         if len(rec["ptxas"]) < 2 * len(BWD_KERNELS) or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
                 for ln in rec["ptxas"]):
@@ -3666,21 +3779,23 @@ def train_path(device):
     return rec
 
 
-def train_ssm_path(device):
-    """Phase 15, second part: mamba2-130m trained at its published widths
-    on the card.  (a) ``repro_torch.launch.train.main`` for
-    `TRAIN_SSM_STEPS` steps of batch 8 x 2048 with the launcher's AdamW
+def train_arch_path(device, arch, kernels, cut=False):
+    """Phase 15, after qwen3-0.6b: ``arch`` trained at its published
+    widths on the card, with its `TRAIN_CUTS` depth where ``cut`` (every
+    width kept).  (a) ``repro_torch.launch.train.main`` for
+    `TRAIN_ARCH_STEPS` steps of batch 8 x 2048 with the launcher's AdamW
     and cosine schedule under BSP, the launch counts set to 0 just before
-    and read just after: ``ssd`` 48 and ``ssd_bwd`` 24 a step (24 layers,
-    remat: each block's forward runs again in the backward), and no other
+    and read just after: the forward's kernel (``kernels``' first
+    counter) twice a layer (remat: each block's forward runs again in the
+    backward) and its gradient's once a layer a step, and no other
     kernel; (b) the same model, optimizer and batches from the launcher's
     pieces, each step timed (host clock ending in a synchronize; step 1,
-    the warm-up, apart), tokens/s, peak memory, one more step profiled.
-    Every loss and ``grad_norm`` finite; the last step's loss below step
-    1's (in both runs) and below the initial weights' loss on the last
-    step's batch."""
+    the warm-up, apart), tokens/s, peak memory, one more step profiled
+    (``kernels``: the device ms of each counter's kernels by profiler
+    name).  Every loss and ``grad_norm`` finite; the last step's loss
+    below step 1's (in both runs) and below the initial weights' loss on
+    the last step's batch."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.synthetic import (TokenGenConfig, token_batch,
                                             token_batches)
     from repro_torch.kernels import launch
@@ -3690,10 +3805,15 @@ def train_ssm_path(device):
     from repro_torch.psdist.grad_sync import GradSync
     from repro_torch.train.state import (init_state, make_loss_fn,
                                          make_train_step)
-    steps = TRAIN_SSM_STEPS
-    argv = ["--arch", TRAIN_SSM_ARCH, "--full", "--batch", str(TRAIN_BATCH),
-            "--seq", str(TRAIN_SEQ), "--steps", str(steps), "--lr",
-            str(TRAIN_LR), "--log-every", "1"]
+    steps = TRAIN_ARCH_STEPS
+    fwd, bwd = kernels
+    cfg, reduced = (serve_config(arch, TRAIN_CUTS, TRAIN_CUT_WHY, "trained")
+                    if cut else serve_config(arch, {}))
+    argv = ["--arch", arch, "--full", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(steps), "--lr", str(TRAIN_LR),
+            "--log-every", "1"]
+    if cut:
+        argv += ["--layers", str(cfg.n_layers)]
     torch.cuda.synchronize()
     launch.reset_launches()
     t0 = time.perf_counter()
@@ -3701,14 +3821,13 @@ def train_ssm_path(device):
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = dict(launch.launches)
-    cfg = get_config(TRAIN_SSM_ARCH)
     want = {k: 0 for k in launches}
-    want.update(ssd=(2 if cfg.remat else 1) * cfg.n_layers * steps,
-                ssd_bwd=cfg.n_layers * steps)
-    rec = {"phase": "train_ssm_path", "arch": TRAIN_SSM_ARCH, "argv": argv,
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "remat": cfg.remat,
-           "param_dtype": cfg.param_dtype,
+    want.update({fwd: (2 if cfg.remat else 1) * cfg.n_layers * steps,
+                 bwd: cfg.n_layers * steps})
+    rec = {"phase": "train_arch_path", "arch": arch, "argv": argv,
+           "layers": cfg.n_layers, "reduced": reduced,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "remat": cfg.remat, "param_dtype": cfg.param_dtype,
            "compute_dtype": cfg.compute_dtype, "consistency": "bsp",
            "launcher_s": main_s, "launches": launches,
            "launches_per_step": {k: v / steps
@@ -3750,7 +3869,7 @@ def train_ssm_path(device):
                loss=losses, grad_norm=gnorms)
     state, rec["profiled_step"] = profiled_train_step(
         step_fn, state, {"tokens": token_batch(dcfg, steps, device=device)},
-        kernels=TRAIN_SSM_KERNELS)
+        kernels=kernels)
     rec["finite"] = all(math.isfinite(x) for x in losses + gnorms
                         + rec["launcher_loss"] + rec["launcher_grad_norm"]
                         + [rec["loss_last_batch_before"]])
@@ -3770,7 +3889,7 @@ def train_ssm_path(device):
         bad.append("the loss did not fall from step 1 to the last, or "
                    "not below the initial weights' on the last batch")
     if bad:
-        raise AssertionError(f"train_ssm_path: {bad}")
+        raise AssertionError(f"train_arch_path ({arch}): {bad}")
     return rec
 
 
@@ -3967,21 +4086,21 @@ def train_card_vs_cpu(device):
     it is ``d``); beside it each step records a witness, the CPU going on
     against itself with its ``ssd`` gradient's ddt one float32 rounding
     off.  An arch with
-    MoE layers (Jamba's) records the card's
+    MoE layers (Jamba's, deepseek-v2-lite-16b's) records the card's
     routing under autograd (``moe.recording``) and runs the CPU's
     gradients and step on it (``moe.forcing``, which fails unless every
     forced routing was taken); the families of `CONDITIONED` have their
     q/k/v projections scaled as in phase 6.  AdamW is held on identical
     gradients (its normalised update turns a rounding difference of a
-    near-zero gradient into a step of up to lr).  Last, a gradient
-    through MLA attention (deepseek-v2-lite-16b) raises
-    ``NotImplementedError`` on the card."""
+    near-zero gradient into a step of up to lr).  Last, a float32
+    gradient through attention at MLA's (576, 512), which has no kernel
+    yet, raises ``NotImplementedError`` naming ROADMAP 16.4f on the
+    card."""
     import torch
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data.synthetic import TokenGenConfig, token_batch
+    from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
     from repro_torch.optim.optimizers import adamw, cosine_schedule, tree_map
-    from repro_torch.train.state import make_loss_fn, value_and_grad
     recs = [train_card_vs_cpu_arch(arch, compute, device,
                                    same=arch in TRAIN_SAME_INPUTS)
             for arch in TRAIN_VS_CPU_ARCHS
@@ -4014,24 +4133,25 @@ def train_card_vs_cpu(device):
     emit(adam)
     if adam_err > SERVE_TOL["float32"]:
         raise AssertionError(f"AdamW on the card disagrees: {adam}")
-    # kernels with no backward yet raise under a gradient on the card
+    # a float32 gradient through attention at MLA's (576, 512) has no
+    # kernel yet and raises on the card; without a gradient it runs
+    gd = torch.Generator(device=device).manual_seed(6)
+    q = torch.randn((1, 64, 4, 576), generator=gd, device=device)
+    k = torch.randn((1, 64, 1, 576), generator=gd, device=device)
+    pos = torch.arange(64, dtype=torch.int32, device=device)[None]
+    kw = dict(scale=1 / math.sqrt(192), q_pos=pos, kv_pos=pos)
     raised = {}
-    for arch, item in (("deepseek-v2-lite-16b", "16.4d"),):
-        cfg = get_smoke_config(arch)
-        model = build_model(cfg, seed=1, device=device)
-        toks = token_batch(TokenGenConfig(vocab_size=cfg.vocab_size,
-                                          seq_len=64, batch=2, seed=3), 0,
-                           device=device)
-        try:
-            value_and_grad(make_loss_fn(model), model.params,
-                           {"tokens": toks})
-        except NotImplementedError as e:
-            raised[arch] = str(e)
-            if item not in str(e):
-                raise AssertionError(f"{arch}: {e} names no {item}") from e
-        else:
-            raise AssertionError(f"{arch}: a gradient through a kernel "
-                                 f"with no backward ran on the card")
+    try:
+        ops.attention(q.requires_grad_(), k, k[..., :512], **kw)
+    except NotImplementedError as e:
+        raised["float32 (576, 512)"] = str(e)
+        if "16.4f" not in str(e):
+            raise AssertionError(f"{e} names no 16.4f") from e
+    else:
+        raise AssertionError("a float32 gradient at (576, 512) ran on the "
+                             "card")
+    with torch.no_grad():
+        ops.attention(q, k, k[..., :512], **kw)
     emit({"phase": "train_no_backward_raises", "raised": raised})
     return recs
 
@@ -4142,10 +4262,11 @@ def main() -> int:
     for name in ATTN_SHAPES:
         if name not in ATTN_TIMED:
             check_flash_attention(name, dev, rates, timed=False)
-    bwd_timed = check_flash_attention_bwd("train_main", dev, rates,
-                                          timed=True)
+    bwd_timed = {name: check_flash_attention_bwd(name, dev, rates,
+                                                 timed=True)
+                 for name in BWD_TIMED}
     for name in BWD_SHAPES:
-        if name != "train_main":
+        if name not in BWD_TIMED:
             check_flash_attention_bwd(name, dev, rates, timed=False)
     ssd_timed = {name: check_ssd(name, dev, rates, timed=True)
                  for name in SSD_TIMED}
@@ -4249,7 +4370,9 @@ def main() -> int:
 
     # --- 15. training at full width ------------------------------------------
     trained = train_path(dev)
-    trained_ssm = train_ssm_path(dev)
+    trained_ssm = train_arch_path(dev, TRAIN_SSM_ARCH, TRAIN_SSM_KERNELS)
+    trained_mla = train_arch_path(dev, TRAIN_MLA_ARCH, TRAIN_MLA_KERNELS,
+                                  cut=True)
 
     # --- 16. training, card against CPU ------------------------------------
     train_card_vs_cpu(dev)
@@ -4338,25 +4461,41 @@ def main() -> int:
         if name == "ssd":  # mamba2-130m's training step (phase 15)
             kernels[-1]["train_launches_per_step"] = trained_ssm[
                 "launches_per_step"]["ssd"]
+        if archs == (TRAIN_MLA_ARCH,):  # and deepseek-v2-lite's, with lse
+            kernels[-1]["train_launches_per_step"] = trained_mla[
+                "launches_per_step"]["flash_attention"]
     # the backward of attention: no pallas_call stands behind it (the TPU's
     # train step differentiates the blocked reference attention with XLA)
-    kernels.append({
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/train/state.py:52",
-        "replaces_what": "jax.value_and_grad through "
-                         "src/repro/kernels/ref.py:52 (XLA autodiff; no "
-                         "pallas_call)",
-        "launches": trained["launches"]["flash_attention_bwd"],
-        "launches_per_step": trained["launches_per_step"][
-            "flash_attention_bwd"],
-        "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
-        "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
-        "bound_by": bwd_timed["bound_by"],
-        "library_ms": bwd_timed["library_ms"],
-        "library_backend": bwd_timed["library_backend"],
-        "bwd_kernels": bwd_timed["bwd_kernels"],
-        "repeat_bit_equal": bwd_timed["repeat_bit_equal"]})
+    # qwen3-0.6b's step through the wgmma kernels, deepseek-v2-lite's
+    # through the mma.sync template at (576, 512); stablelm-3b's training
+    # shape (80, 80), which no phase trains, beside the latter
+    for name, rec, run in (("flash_attention_bwd", bwd_timed["train_main"],
+                            trained),
+                           ("flash_attention_bwd[mla]",
+                            bwd_timed["mla_train"], trained_mla)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/train/state.py:52",
+            "replaces_what": "jax.value_and_grad through "
+                             "src/repro/kernels/ref.py:52 (XLA autodiff; no "
+                             "pallas_call)",
+            "launches": run["launches"]["flash_attention_bwd"],
+            "launches_per_step": run["launches_per_step"][
+                "flash_attention_bwd"],
+            "train_arch": run["arch"], "variant": rec["variant"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_backend": rec["library_backend"],
+            "forward_lse_ms": rec["forward_lse_ms"],
+            "forward_ms": rec["forward_ms"],
+            "bwd_kernels": rec["bwd_kernels"],
+            "repeat_bit_equal": rec["repeat_bit_equal"]})
+    kernels[-1]["stablelm_train"] = {
+        k: bwd_timed["stablelm_train"][k] for k in (
+            "variant", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "max_abs_err", "bwd_kernels")}
     # the backward of the SSD scan: no pallas_call stands behind it either
     # (the TPU's train step differentiates the reference scan with XLA)
     rec = ssd_bwd_timed["main"]
@@ -4441,6 +4580,11 @@ def main() -> int:
               "max_memory_allocated_bytes", "launches_per_step", "loss",
               "grad_norm")},
           "train_ssm_profiled_step": trained_ssm["profiled_step"],
+          "train_mla": {k: trained_mla[k] for k in (
+              "layers", "ms_per_step", "warmup_step_ms", "tokens_per_s",
+              "max_memory_allocated_bytes", "launches_per_step", "loss",
+              "grad_norm")},
+          "train_mla_profiled_step": trained_mla["profiled_step"],
           "train_ssp_apply_scale": trained["ssp"]["apply_scale"]})
     emit({"kernels": kernels})
     emit(smi)

@@ -68,6 +68,9 @@
 // :105-112).  None of the four needs the wrapper to copy anything: where
 // v == k, V is K's first Dv columns (its rows Dk apart), as MLA passes it.
 //
+// Every kernel also writes each row's log-sum-exp when training asks for
+// it (fa_forward_lse), the output unchanged.
+//
 // Plain C interface, loaded with ctypes: fa_forward returns a cudaError_t,
 // fa_variant names the kernel it runs.
 
@@ -89,8 +92,9 @@ template <int DK, int DV>
 __global__ void __launch_bounds__(128) fa_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int Sq,
-    int Sk, int H, int Hkv, float scale, int causal, int window, int ldv) {
+    const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, float scale,
+    int causal, int window, int ldv) {
   constexpr int BQ = 64, BK = 64;
   constexpr int KS = DK + 8;  // row stride of the K tile (bf16)
   constexpr int VS = BK + 8;  // row stride of the transposed V tile
@@ -266,6 +270,12 @@ __global__ void __launch_bounds__(128) fa_bf16_kernel(
 
   const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
   const bool in0 = q0 + r0 < Sq, in1 = q0 + r1 < Sq;
+  // training's log-sum-exp, natural units (+inf: the row sees no key)
+  if (lse != nullptr && tq == 0) {
+    float* lrow = lse + ((long long)b * H + h) * Sq + q0;
+    if (in0) lrow[r0] = l[0] > 0.f ? m[0] + logf(l[0]) : pos_inf();
+    if (in1) lrow[r1] = l[1] > 0.f ? m[1] + logf(l[1]) : pos_inf();
+  }
   __nv_bfloat16* o0 = out + (((long long)b * Sq + q0 + r0) * H + h) * DV;
   __nv_bfloat16* o1 = out + (((long long)b * Sq + q0 + r1) * H + h) * DV;
 #pragma unroll
@@ -1177,9 +1187,9 @@ __global__ void __launch_bounds__(384, 1) fa_mla_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_o,
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    const int* __restrict__ qpos, const int* __restrict__ kpos, int Sq,
-    int Sk, int H, int Hkv, int B, float scale, int causal, int window,
-    int q_tma) {
+    float* __restrict__ lse, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, int Sq, int Sk, int H, int Hkv, int B,
+    float scale, int causal, int window, int q_tma) {
   using L = MlaLayout;
   constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES, BOX = L::BOX;
   extern __shared__ uint8_t smem_mla[];
@@ -1527,6 +1537,20 @@ __global__ void __launch_bounds__(384, 1) fa_mla_wgmma_kernel(
         if (tq == 0) {
           lx[r0] = 1.f / fmaxf(l0, 1e-30f);
           lx[r1] = 1.f / fmaxf(l1, 1e-30f);
+          // training's log-sum-exp in natural units, from m (log2 units,
+          // the scale folded in) and l; +inf where the row sees no key
+          if (lse != nullptr) {
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int rr = rr0 + (x ? r1 : r0);
+              const float lx_ = x ? l1 : l0, mx_ = x ? m1 : m0;
+              if (rr < rows)
+                lse[((long long)it.b * H + it.hk * rep + rr % rep) * Sq +
+                    rr / rep] = lx_ > 0.f
+                                    ? (mx_ + log2f(lx_)) * 0.6931471805599453f
+                                    : pos_inf();
+            }
+          }
         }
       }
       mla_bar_sync(MLA_BAR_ITEM);
@@ -1619,25 +1643,26 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 template <int DK, int DV>
 cudaError_t launch_mma_sync(const void* q, const void* k, const void* v,
                             const int* qpos, const int* kpos, void* out,
-                            int B, int Sq, int Sk, int H, int Hkv,
-                            float scale, int causal, int window, int ldv,
-                            cudaStream_t stream) {
+                            float* lse, int B, int Sq, int Sk, int H,
+                            int Hkv, float scale, int causal, int window,
+                            int ldv, cudaStream_t stream) {
   const dim3 grid((Sq + 63) / 64, H, B);
   fa_bf16_kernel<DK, DV><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qpos, kpos,
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, scale, causal, window,
-      ldv);
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H, Hkv, scale, causal,
+      window, ldv);
   return cudaGetLastError();
 }
 
 // V must be K's first 512 columns (v == k, K's strides): the kernel reads
 // it from the K tiles.
 cudaError_t launch_mla(const void* q, const void* k, const void* v,
-                       const int* qpos, const int* kpos, void* out, int B,
-                       int Sq, int Sk, int H, int Hkv, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       const int* qpos, const int* kpos, void* out,
+                       float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
   using L = MlaLayout;
   if (v != k) return cudaErrorInvalidValue;
   const int rep = H / Hkv;
@@ -1669,8 +1694,8 @@ cudaError_t launch_mla(const void* q, const void* k, const void* v,
   const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
   fa_mla_wgmma_kernel<<<grid, 384, L::BYTES, stream>>>(
       tq, tk, to, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), qpos, kpos, Sq, Sk, H, Hkv, B, scale,
-      causal, window, q_tma);
+      static_cast<__nv_bfloat16*>(out), lse, qpos, kpos, Sq, Sk, H, Hkv, B,
+      scale, causal, window, q_tma);
   return cudaGetLastError();
 }
 
@@ -1721,9 +1746,8 @@ int fa_variant(int bf16, int dk, int dv) { return variant_of(bf16, dk, dv); }
 
 namespace {
 
-// The launch of the variant's kernel; `lse` (float32 [B, H, Sq], or null)
-// is written by the wgmma and CUDA-core kernels only: the mma.sync and
-// MLA kernels refuse it (cudaErrorNotSupported).
+// The launch of the variant's kernel; every kernel writes `lse` (float32
+// [B, H, Sq]) unless it is null, and computes the same output either way.
 cudaError_t forward(const void* q, const void* k, const void* v,
                     const void* qpos, const void* kpos, void* out, float* lse,
                     int B, int Sq, int Sk, int H, int Hkv, int dk, int dv,
@@ -1734,24 +1758,20 @@ cudaError_t forward(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // v == k: V is K's first dv columns, rows dk apart (MLA's latent values)
   const int ldv = v == k ? dk : dv;
-#define FA_ARGS q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, scale, causal, window
 #define FA_LSE_ARGS q, k, v, qp, kp, out, lse, B, Sq, Sk, H, Hkv, scale, \
     causal, window
-  const int var = variant_of(bf16, dk, dv);
-  if (lse != nullptr && (var == V_MMA_SYNC || var == V_MLA))
-    return cudaErrorNotSupported;
-  switch (var) {
+  switch (variant_of(bf16, dk, dv)) {
     case V_WGMMA:
       return dk == 64 ? launch_wgmma<64>(FA_LSE_ARGS, st)
                       : launch_wgmma<128>(FA_LSE_ARGS, st);
     case V_MMA_SYNC:
       if (dk == 80)
-        return dv == 64 ? launch_mma_sync<80, 64>(FA_ARGS, ldv, st)
-                        : launch_mma_sync<80, 80>(FA_ARGS, ldv, st);
-      return dv == 16 ? launch_mma_sync<32, 16>(FA_ARGS, ldv, st)
-                      : launch_mma_sync<32, 32>(FA_ARGS, ldv, st);
+        return dv == 64 ? launch_mma_sync<80, 64>(FA_LSE_ARGS, ldv, st)
+                        : launch_mma_sync<80, 80>(FA_LSE_ARGS, ldv, st);
+      return dv == 16 ? launch_mma_sync<32, 16>(FA_LSE_ARGS, ldv, st)
+                      : launch_mma_sync<32, 32>(FA_LSE_ARGS, ldv, st);
     case V_MLA:
-      return launch_mla(FA_ARGS, st);
+      return launch_mla(FA_LSE_ARGS, st);
     case V_F32:
       if (dk == 32)
         return dv == 16 ? launch_f32<32, 16>(FA_LSE_ARGS, ldv, st)
@@ -1765,7 +1785,6 @@ cudaError_t forward(const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
-#undef FA_ARGS
 #undef FA_LSE_ARGS
 }
 

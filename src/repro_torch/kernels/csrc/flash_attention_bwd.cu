@@ -15,10 +15,14 @@
 // src/repro/kernels/ref.py:52), since the Pallas kernel defines no
 // custom_vjp.  On the card the gradient of attention is this kernel, as
 // the forward is flash_attention.cu.  Contract: `ref.attention_bwd` of
-// the port (q [B,Sq,H,D], k and v [B,Sk,Hkv,D], out and dout [B,Sq,H,D],
-// lse float32 [B,H,Sq] in natural units, +inf for a row that sees no key;
-// dq, dk, dv in the inputs' dtype; for bf16, P and dS are rounded to bf16
-// before the products that take them).
+// the port (q [B,Sq,H,Dk], k [B,Sk,Hkv,Dk], v [B,Sk,Hkv,Dv], out and
+// dout [B,Sq,H,Dv], lse float32 [B,H,Sq] in natural units, +inf for a row
+// that sees no key; dq, dk, dv in the inputs' dtype; for bf16, P and dS
+// are rounded to bf16 before the products that take them).  Where V is
+// K's first Dv < Dk columns (MLA's latent values, v == k with rows Dk
+// apart), dK takes dV in its first Dv columns and dv is not written: the
+// gradient of the storage both share (`ref.attention_bwd`'s folded
+// contract, dS scaled before its rounding).
 //
 // What bounds it: at qwen3-0.6b's training shape (B 8, S 2048, H 16, Hkv
 // 8, D 128, causal) the 268.6 M visible (query, key, head) triples need
@@ -28,7 +32,8 @@
 // wgmma, fed by TMA, with the elementwise work (an exp2 and a handful of
 // FFMAs a score) beside them and not between them.
 //
-// Three kernels, launched in turn on the caller's stream:
+// Three kernels, launched in turn on the caller's stream (bf16 at (64,
+// 64) and (128, 128)):
 //
 // - `fa_bwd_delta`: D = rowsum(dO * O) in float32, a warp a row;
 // - `fa_bwd_dkdv_wgmma` (bf16): dK and dV.  A persistent grid (one CTA an
@@ -97,13 +102,23 @@
 // past Sk has position -1, so it is masked), and the TMA stores write no
 // row past the end.
 //
-// float32 at D = 64 and 128: CUDA cores, full float32 products (no TF32),
-// 32 x 32 tiles, four threads a row (`fa_bwd_dkdv_f32`, `fa_bwd_dq_f32`).
+// bf16 at (32, 16), (32, 32), (80, 64), (80, 80) and MLA's (576, 512):
+// `fa_bwd_dkdv_mma` and `fa_bwd_dq_mma`, one mma.sync template (its
+// section below): a resident 64-row tile (keys, or (query, head) rows)
+// and 32-row units streamed past it through a cp.async double buffer, S
+// and dP for the pairs, then the output tile's products, its columns
+// split across 8 warps (at 576 columns, 144 float32 registers a
+// thread).  Like the wgmma kernels they skip a unit with no visible pair
+// before loading it and mask only partial ones, with no atomics.
+//
+// float32 at every size but (576, 512): CUDA cores, full float32 products
+// (no TF32), 32 x 32 tiles, four threads a row (`fa_bwd_dkdv_f32`,
+// `fa_bwd_dq_f32`).
 //
 // Plain C interface, loaded with ctypes: fa_backward returns a
-// cudaError_t, fa_bwd_supported says which (dtype, Dk, Dv) it takes,
-// fa_bwd_kernel_info gives a bf16 kernel's ring stages, shared memory and
-// registers.
+// cudaError_t, fa_bwd_variant names the kernels it runs for a (dtype, Dk,
+// Dv) (-1: none), fa_bwd_kernel_info gives a bf16 kernel's stages,
+// shared memory and registers.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -859,31 +874,36 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dq_wgmma(
 // ---------------------------------------------------------------------------
 constexpr int F_B = 32, F_PS = F_B + 1;
 
-template <int D>
+template <int DK, int DV>
 constexpr int f32_dkdv_smem() {
-  return (4 * F_B * (D + 1) + 2 * F_B * F_PS + 4 * F_B) * 4;
+  return (2 * F_B * (DK + 1) + 2 * F_B * (DV + 1) + 2 * F_B * F_PS +
+          4 * F_B) * 4;
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr int f32_dq_smem() {
-  return (4 * F_B * (D + 1) + F_B * F_PS + 2 * F_B) * 4;
+  return (2 * F_B * (DK + 1) + 2 * F_B * (DV + 1) + F_B * F_PS + 2 * F_B) *
+         4;
 }
 
-template <int D>
+// dK and dV of 32 keys of a KV head.  V's rows are `ldv` apart (DK where V
+// is K's first DV columns).  FOLD (V is K's prefix): dV is added into
+// dK's first DV columns and dv is not written.
+template <int DK, int DV, bool FOLD>
 __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ qpos, const int* __restrict__ kpos,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
-    int Hkv, float scale, int causal, int window) {
-  constexpr int RS = D + 1;
+    int Hkv, float scale, int causal, int window, int ldv) {
+  constexpr int RK = DK + 1, RV = DV + 1;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
-  float* k_s = reinterpret_cast<float*>(bwd_smem);  // [32][D+1]
-  float* v_s = k_s + F_B * RS;
-  float* q_s = v_s + F_B * RS;
-  float* do_s = q_s + F_B * RS;
-  float* p_s = do_s + F_B * RS;  // [key][query]
+  float* k_s = reinterpret_cast<float*>(bwd_smem);  // [32][DK+1]
+  float* q_s = k_s + F_B * RK;                       // [32][DK+1]
+  float* v_s = q_s + F_B * RK;                       // [32][DV+1]
+  float* do_s = v_s + F_B * RV;                      // [32][DV+1]
+  float* p_s = do_s + F_B * RV;  // [key][query]
   float* ds_s = p_s + F_B * F_PS;
   float* lse_s = ds_s + F_B * F_PS;
   float* dd_s = lse_s + F_B;
@@ -899,12 +919,17 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
     const int j = k0 + tid;
     kp_s[tid] = j < Sk ? kpos[(long long)b * Sk + j] : -1;
   }
-  for (int e = tid; e < F_B * D; e += 128) {
-    const int j = e / D, d = e % D;
-    const bool in = k0 + j < Sk;
-    const long long off = (((long long)b * Sk + k0 + j) * Hkv + hk) * D + d;
-    k_s[j * RS + d] = in ? k[off] : 0.f;
-    v_s[j * RS + d] = in ? v[off] : 0.f;
+  for (int e = tid; e < F_B * DK; e += 128) {
+    const int j = e / DK, d = e % DK;
+    k_s[j * RK + d] =
+        k0 + j < Sk ? k[(((long long)b * Sk + k0 + j) * Hkv + hk) * DK + d]
+                    : 0.f;
+  }
+  for (int e = tid; e < F_B * DV; e += 128) {
+    const int j = e / DV, d = e % DV;
+    v_s[j * RV + d] =
+        k0 + j < Sk ? v[(((long long)b * Sk + k0 + j) * Hkv + hk) * ldv + d]
+                    : 0.f;
   }
   __syncthreads();
   int kmin = INT_HI, kmax = INT_LO;
@@ -920,9 +945,11 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
   }
   const int kp = kp_s[r];
 
-  float dka[D / 4], dva[D / 4];
+  float dka[DK / 4], dva[DV / 4];
 #pragma unroll
-  for (int t = 0; t < D / 4; ++t) dka[t] = dva[t] = 0.f;
+  for (int t = 0; t < DK / 4; ++t) dka[t] = 0.f;
+#pragma unroll
+  for (int t = 0; t < DV / 4; ++t) dva[t] = 0.f;
 
   const int n_qb = (Sq + F_B - 1) / F_B;
   for (int hh = 0; hh < rep && kmin <= kmax; ++hh) {
@@ -948,12 +975,18 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
           tile_class(kmin, kmax, neg, qmin, qmax, causal, window);
       if (cls == TILE_SKIP) continue;
       const bool partial = cls == TILE_PARTIAL;
-      for (int e = tid; e < F_B * D; e += 128) {
-        const int i = e / D, d = e % D;
-        const bool in = q0 + i < Sq;
-        const long long off = (((long long)b * Sq + q0 + i) * H + h) * D + d;
-        q_s[i * RS + d] = in ? q[off] : 0.f;
-        do_s[i * RS + d] = in ? dout[off] : 0.f;
+      for (int e = tid; e < F_B * DK; e += 128) {
+        const int i = e / DK, d = e % DK;
+        q_s[i * RK + d] =
+            q0 + i < Sq ? q[(((long long)b * Sq + q0 + i) * H + h) * DK + d]
+                        : 0.f;
+      }
+      for (int e = tid; e < F_B * DV; e += 128) {
+        const int i = e / DV, d = e % DV;
+        do_s[i * RV + d] =
+            q0 + i < Sq
+                ? dout[(((long long)b * Sq + q0 + i) * H + h) * DV + d]
+                : 0.f;
       }
       __syncthreads();
       // P^T and dS^T for key r and queries c, c + 4, ..., c + 28
@@ -962,10 +995,11 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
         const int i = c + 4 * ii;
         float sd = 0.f, gd = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          sd = fmaf(k_s[r * RS + d], q_s[i * RS + d], sd);
-          gd = fmaf(v_s[r * RS + d], do_s[i * RS + d], gd);
-        }
+        for (int d = 0; d < DK; ++d)
+          sd = fmaf(k_s[r * RK + d], q_s[i * RK + d], sd);
+#pragma unroll 8
+        for (int d = 0; d < DV; ++d)
+          gd = fmaf(v_s[r * RV + d], do_s[i * RV + d], gd);
         const bool vis = !partial || visible(qp_s[i], kp, causal, window);
         const float p = vis ? expf(sd * scale - lse_s[i]) : 0.f;
         p_s[r * F_PS + i] = p;
@@ -973,46 +1007,59 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dkdv_f32(
       }
       __syncwarp();  // the row's P and dS (written by its quad) are visible
 #pragma unroll
-      for (int t = 0; t < D / 4; ++t) {
+      for (int t = 0; t < DK / 4; ++t) {
         const int d = c + 4 * t;
-        float pv = 0.f, sq = 0.f;
+        float sq = 0.f;
 #pragma unroll 8
-        for (int i = 0; i < F_B; ++i) {
-          pv = fmaf(p_s[r * F_PS + i], do_s[i * RS + d], pv);
-          sq = fmaf(ds_s[r * F_PS + i], q_s[i * RS + d], sq);
-        }
-        dva[t] += pv;
+        for (int i = 0; i < F_B; ++i)
+          sq = fmaf(ds_s[r * F_PS + i], q_s[i * RK + d], sq);
         dka[t] += sq;
+      }
+#pragma unroll
+      for (int t = 0; t < DV / 4; ++t) {
+        const int d = c + 4 * t;
+        float pv = 0.f;
+#pragma unroll 8
+        for (int i = 0; i < F_B; ++i)
+          pv = fmaf(p_s[r * F_PS + i], do_s[i * RV + d], pv);
+        dva[t] += pv;
       }
       __syncwarp();
     }
   }
 
   if (k0 + r < Sk) {
-    const long long row = (((long long)b * Sk + k0 + r) * Hkv + hk) * D;
+    const long long row = ((long long)b * Sk + k0 + r) * Hkv + hk;
 #pragma unroll
-    for (int t = 0; t < D / 4; ++t) {
-      dk[row + c + 4 * t] = dka[t] * scale;
-      dv[row + c + 4 * t] = dva[t];
+    for (int t = 0; t < DK / 4; ++t) {
+      float x = dka[t] * scale;
+      if constexpr (FOLD) {
+        if (t < DV / 4) x += dva[t];
+      }
+      dk[row * DK + c + 4 * t] = x;
+    }
+    if constexpr (!FOLD) {
+#pragma unroll
+      for (int t = 0; t < DV / 4; ++t) dv[row * DV + c + 4 * t] = dva[t];
     }
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ qpos, const int* __restrict__ kpos,
     float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, float scale,
-    int causal, int window) {
-  constexpr int RS = D + 1;
+    int causal, int window, int ldv) {
+  constexpr int RK = DK + 1, RV = DV + 1;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
-  float* q_s = reinterpret_cast<float*>(bwd_smem);  // [32][D+1]
-  float* do_s = q_s + F_B * RS;
-  float* k_s = do_s + F_B * RS;
-  float* v_s = k_s + F_B * RS;
-  float* ds_s = v_s + F_B * RS;  // [query][key]
+  float* q_s = reinterpret_cast<float*>(bwd_smem);  // [32][DK+1]
+  float* k_s = q_s + F_B * RK;                       // [32][DK+1]
+  float* do_s = k_s + F_B * RK;                      // [32][DV+1]
+  float* v_s = do_s + F_B * RV;                      // [32][DV+1]
+  float* ds_s = v_s + F_B * RV;  // [query][key]
   int* qp_s = reinterpret_cast<int*>(ds_s + F_B * F_PS);
   int* kp_s = qp_s + F_B;
 
@@ -1027,12 +1074,17 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
     const int i = q0 + tid;
     qp_s[tid] = i < Sq ? qpos[(long long)b * Sq + i] : PAD_QPOS;
   }
-  for (int e = tid; e < F_B * D; e += 128) {
-    const int i = e / D, d = e % D;
-    const bool in = q0 + i < Sq;
-    const long long off = (((long long)b * Sq + q0 + i) * H + h) * D + d;
-    q_s[i * RS + d] = in ? q[off] : 0.f;
-    do_s[i * RS + d] = in ? dout[off] : 0.f;
+  for (int e = tid; e < F_B * DK; e += 128) {
+    const int i = e / DK, d = e % DK;
+    q_s[i * RK + d] =
+        q0 + i < Sq ? q[(((long long)b * Sq + q0 + i) * H + h) * DK + d]
+                    : 0.f;
+  }
+  for (int e = tid; e < F_B * DV; e += 128) {
+    const int i = e / DV, d = e % DV;
+    do_s[i * RV + d] =
+        q0 + i < Sq ? dout[(((long long)b * Sq + q0 + i) * H + h) * DV + d]
+                    : 0.f;
   }
   const bool in = q0 + r < Sq;
   const long long li = ((long long)b * H + h) * Sq + q0 + r;
@@ -1046,9 +1098,9 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
     qmax = max(qmax, qp_s[i]);
   }
 
-  float dqa[D / 4];
+  float dqa[DK / 4];
 #pragma unroll
-  for (int t = 0; t < D / 4; ++t) dqa[t] = 0.f;
+  for (int t = 0; t < DK / 4; ++t) dqa[t] = 0.f;
 
   const int n_kb = (Sk + F_B - 1) / F_B;
   for (int kb = 0; kb < n_kb; ++kb) {
@@ -1074,12 +1126,18 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
         tile_class(kmin, kmax, neg, qmin, qmax, causal, window);
     if (cls == TILE_SKIP) continue;
     const bool partial = cls == TILE_PARTIAL;
-    for (int e = tid; e < F_B * D; e += 128) {
-      const int j = e / D, d = e % D;
-      const bool kin = k0 + j < Sk;
-      const long long off = (((long long)b * Sk + k0 + j) * Hkv + hk) * D + d;
-      k_s[j * RS + d] = kin ? k[off] : 0.f;
-      v_s[j * RS + d] = kin ? v[off] : 0.f;
+    for (int e = tid; e < F_B * DK; e += 128) {
+      const int j = e / DK, d = e % DK;
+      k_s[j * RK + d] =
+          k0 + j < Sk ? k[(((long long)b * Sk + k0 + j) * Hkv + hk) * DK + d]
+                      : 0.f;
+    }
+    for (int e = tid; e < F_B * DV; e += 128) {
+      const int j = e / DV, d = e % DV;
+      v_s[j * RV + d] =
+          k0 + j < Sk
+              ? v[(((long long)b * Sk + k0 + j) * Hkv + hk) * ldv + d]
+              : 0.f;
     }
     __syncthreads();
     // dS for row r and keys c, c + 4, ..., c + 28
@@ -1088,32 +1146,515 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
       const int j = c + 4 * jj;
       float sd = 0.f, gd = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        sd = fmaf(q_s[r * RS + d], k_s[j * RS + d], sd);
-        gd = fmaf(do_s[r * RS + d], v_s[j * RS + d], gd);
-      }
+      for (int d = 0; d < DK; ++d)
+        sd = fmaf(q_s[r * RK + d], k_s[j * RK + d], sd);
+#pragma unroll 8
+      for (int d = 0; d < DV; ++d)
+        gd = fmaf(do_s[r * RV + d], v_s[j * RV + d], gd);
       const bool vis = !partial || visible(qp, kp_s[j], causal, window);
       const float p = vis ? expf(sd * scale - lr) : 0.f;
       ds_s[r * F_PS + j] = p * (gd - ddr);
     }
     __syncwarp();
 #pragma unroll
-    for (int t = 0; t < D / 4; ++t) {
+    for (int t = 0; t < DK / 4; ++t) {
       const int d = c + 4 * t;
       float acc = 0.f;
 #pragma unroll 8
       for (int j = 0; j < F_B; ++j)
-        acc = fmaf(ds_s[r * F_PS + j], k_s[j * RS + d], acc);
+        acc = fmaf(ds_s[r * F_PS + j], k_s[j * RK + d], acc);
       dqa[t] += acc;
     }
     __syncwarp();
   }
 
   if (in) {
-    float* row = dq + (((long long)b * Sq + q0 + r) * H + h) * D;
+    float* row = dq + (((long long)b * Sq + q0 + r) * H + h) * DK;
 #pragma unroll
-    for (int t = 0; t < D / 4; ++t) row[c + 4 * t] = dqa[t] * scale;
+    for (int t = 0; t < DK / 4; ++t) row[c + 4 * t] = dqa[t] * scale;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at (32, 16), (32, 32), (80, 64), (80, 80) and MLA's (576, 512):
+// mma.sync m16n8k16 kernels, one template for both gradients
+// ---------------------------------------------------------------------------
+// A CTA of 8 warps holds one resident tile of 64 rows and streams units
+// of 32 rows past it, two units in flight (cp.async into a double
+// buffer); a unit with no visible pair is never loaded (`tile_class`):
+//
+// - dK (and dV): resident 64 keys of one KV head (K, and V unless V is
+//   K's prefix), streamed units of 32 (query, head) rows of the KV head's
+//   rep query heads in q's own layout (row rr is query rr / rep of head
+//   hk * rep + rr % rep: MLA's rep 16 heads share each K tile), Q and dO;
+// - dQ: resident 64 (query, head) rows (Q and dO), streamed units of 32
+//   keys (K, and V unless it is K's prefix).
+//
+// Each unit takes two steps.  (1) S = R1 S1^T (depth Dk) and dP = R2
+// S2^T (depth Dv) for the 64 x 32 pairs, a 16 x 16 block a warp, with P
+// and dS formed in registers and written as bf16 to shared memory.  (2)
+// The output tile (64 rows x Dk, float32 in registers) takes dS times the
+// unit's rows of K (dQ) or Q (dK) and, for dK, P times the unit's dO into
+// dV, or into dK's first Dv columns where V is K's prefix (FOLD).  The
+// output's columns are split across the warps: at Dk 576 four column
+// slices of 144 by two row halves (2 x 18 m16n8 tiles, 144 registers of
+// float32 a thread); at the narrow sizes two column halves by four row
+// quarters.  B operands are read with ldmatrix (.trans where the product
+// runs along the unit's rows), so nothing is transposed in memory.
+//
+// Where the scale enters: with FOLD one accumulator takes dS^T Q and P^T
+// dO, so dS is scaled before its bf16 rounding, bf16(scale dS), and the
+// same rounded dS gives dQ = bf16(scale dS) K; without FOLD dS is rounded
+// unscaled and the outputs are scaled once (`ref.attention_bwd`).
+template <int DK, int DV>
+struct MmaBwd {
+  static constexpr int BR = 64, BS = 32;       // resident rows, unit rows
+  static constexpr int WN = DK >= 256 ? 4 : 2;  // warps across the columns
+  static constexpr int WM = 8 / WN;            // and across the rows
+  static constexpr int MTW = 4 / WM;           // m16 tiles a warp
+  static constexpr int NTW = DK / 8 / WN;      // n8 tiles a warp (dK, dQ)
+  static constexpr int NTV = DV / 8 / WN;      // n8 tiles a warp (dV)
+  static constexpr int SK = DK + 8, SV = DV + 8, SP = BS + 8;  // strides
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK >= DV, "head sizes");
+  static_assert((DK / 8) % WN == 0 && (DV / 8) % WN == 0, "column split");
+  // shared memory (bytes): the resident tiles, the two stages of the
+  // streamed ones, P and dS, the unit classes and the per-row scalars
+  static constexpr int R1 = BR * SK * 2, R2 = BR * SV * 2;
+  static constexpr int U1 = BS * SK * 2, U2 = BS * SV * 2;
+  static constexpr int PT = BR * SP * 2;
+  static constexpr int bytes(bool dq, bool fold) {
+    return R1 + (!dq && fold ? 0 : R2) + 2 * U1 + (dq && fold ? 0 : 2 * U2) +
+           (dq ? 1 : 2) * PT + 256 + BR * 4 + 2 * BS * 12;
+  }
+};
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_t2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+// The lane's address of an ldmatrix over the 16 x 16 block at (r0, c0) of
+// a row-major tile: `at_a` gives with ldsm the A fragment of rows r0..
+// along k = c0.., and with ldsm_t the B fragments of k rows r0.. for the
+// n8 tiles c0 and c0 + 8 (ldsm_t2: c0 alone); `at_b` gives with ldsm the
+// B fragments of n rows r0.. and r0 + 8 along k = c0...
+__device__ __forceinline__ const bf16* at_a(const bf16* t, int stride,
+                                            int r0, int c0) {
+  const int l = threadIdx.x & 31;
+  return t + (r0 + (l & 15)) * stride + c0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ const bf16* at_b(const bf16* t, int stride,
+                                            int r0, int c0) {
+  const int l = threadIdx.x & 31;
+  return t + (r0 + (l & 7) + (l >> 4) * 8) * stride + c0 +
+         ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// acc[i][t] += A_i B_t over 16 of the depth, for the warp's MT m16 tiles
+// (A fragments `a`) and n8 tiles t = 0.. NT - 1 starting at column `c0`
+// of the row-major tile `bt` (stride `ld`, k rows from `k0`): the B
+// fragments by ldmatrix.trans, two n8 tiles a load.  Only the tiles below
+// column `lim` (a multiple of 8, uniform across the warp) are taken.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_rows(float (*acc)[NT][4],
+                                         const uint32_t (*a)[4],
+                                         const bf16* bt, int ld, int k0,
+                                         int c0, int lim) {
+#pragma unroll
+  for (int t = 0; t < NT; t += 2) {
+    const int c = c0 + 8 * t;
+    if (t + 1 < NT && c + 8 < lim) {
+      uint32_t b[4];
+      ldsm_t(b, at_a(bt, ld, k0, c));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][t], a[i], b[0], b[1]);
+        mma_bf16(acc[i][t + 1], a[i], b[2], b[3]);
+      }
+    } else if (c < lim) {
+      uint32_t b[2];
+      ldsm_t2(b, at_a(bt, ld, k0, c));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][t], a[i], b[0], b[1]);
+    }
+  }
+}
+
+// The gradient's kernel body: DQ picks dQ (else dK and dV); FOLD: V is
+// K's first DV columns (v == k, rows DK apart), dV goes into dK and `o2`
+// is unused.  o1 is dq or dk, o2 dv.
+template <int DK, int DV, bool FOLD, bool DQ>
+__device__ __forceinline__ void bwd_mma_body(
+    uint8_t* smem, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    bf16* __restrict__ o1, bf16* __restrict__ o2, int Sq, int Sk, int H,
+    int Hkv, float scale, int causal, int window) {
+  using C = MmaBwd<DK, DV>;
+  constexpr int BR = C::BR, BS = C::BS, SK = C::SK, SV = C::SV, SP = C::SP;
+  constexpr int MTW = C::MTW, NTW = C::NTW, NTV = C::NTV;
+  constexpr bool R2_OWN = !(!DQ && FOLD), U2_OWN = !(DQ && FOLD);
+  // strides of the second resident and streamed operands (V or dO)
+  constexpr int SR2 = R2_OWN ? SV : SK, SU2 = U2_OWN ? SV : SK;
+  constexpr int ldv = FOLD ? DK : DV;
+
+  bf16* r1 = reinterpret_cast<bf16*>(smem);
+  bf16* r2 = R2_OWN ? r1 + BR * SK : r1;
+  bf16* u1 = reinterpret_cast<bf16*>(smem + C::R1 + (R2_OWN ? C::R2 : 0));
+  bf16* u2 = U2_OWN ? u1 + 2 * BS * SK : u1;
+  bf16* ds_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<uint8_t*>(u1) + 2 * C::U1 + (U2_OWN ? 2 * C::U2 : 0));
+  bf16* p_s = ds_s + BR * SP;  // dK only
+  uint8_t* cls_s = reinterpret_cast<uint8_t*>(ds_s) + (DQ ? 1 : 2) * C::PT;
+  int* rp_s = reinterpret_cast<int*>(cls_s + 256);  // resident positions
+  int* up_s = rp_s + BR;                            // [2][BS] unit positions
+  float* ul_s = reinterpret_cast<float*>(up_s + 2 * BS);  // [2][BS] lse
+  float* ud_s = ul_s + 2 * BS;                            // [2][BS] D
+
+  const int rep = H / Hkv, rows = Sq * rep;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const float sl = scale * LOG2E;
+  // the resident block: 64 keys (dK, lightest last) or 64 rows (dQ,
+  // heaviest first)
+  const int n_res = DQ ? (rows + BR - 1) / BR : (Sk + BR - 1) / BR;
+  const int r0 = (DQ ? n_res - 1 - (int)blockIdx.x : (int)blockIdx.x) * BR;
+  const int n_units = DQ ? (Sk + BS - 1) / BS : (rows + BS - 1) / BS;
+
+  // a (query, head) row's global row of q / dout, and a key's of k / v
+  auto qrow = [&](int rr) -> long long {
+    return ((long long)b * Sq + rr / rep) * H + hk * rep + rr % rep;
+  };
+  auto krow = [&](int j) -> long long {
+    return ((long long)b * Sk + j) * Hkv + hk;
+  };
+  // 16-byte copies of `n` rows from `first` on: `dst` (stride ds), `src`
+  // rows of `cols` elements (global stride gs), zeros past the end
+  auto load_rows = [&](bf16* dst, int ds, const bf16* src, long long gs,
+                       int cols, int first, int n, bool keys) {
+    const int chunks = cols / 8;
+    for (int e = tid; e < n * chunks; e += 256) {
+      const int r = e / chunks, c = (e % chunks) * 8, x = first + r;
+      const bool in = keys ? x < Sk : x < rows;
+      const long long g = in ? (keys ? krow(x) : qrow(x)) : 0;
+      cp16(dst + r * ds + c, src + g * gs + c, in);
+    }
+  };
+
+  // ---- the resident tile, its positions and its position range ---------
+  if constexpr (DQ) {
+    load_rows(r1, SK, q, DK, DK, r0, BR, false);
+    load_rows(r2, SV, dout, DV, DV, r0, BR, false);
+  } else {
+    load_rows(r1, SK, k, DK, DK, r0, BR, true);
+    if constexpr (R2_OWN) load_rows(r2, SV, v, ldv, DV, r0, BR, true);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (tid < BR) {
+    const int x = r0 + tid;
+    rp_s[tid] = DQ ? (x < rows ? qpos[(long long)b * Sq + x / rep] : PAD_QPOS)
+                   : (x < Sk ? kpos[(long long)b * Sk + x] : -1);
+  }
+  __syncthreads();
+  int lo = INT_HI, hi = INT_LO;
+  bool neg = false;
+  for (int x = 0; x < BR; ++x) {
+    const int p = rp_s[x];
+    if (DQ ? r0 + x < rows : p >= 0) {
+      lo = min(lo, p);
+      hi = max(hi, p);
+    } else {
+      neg = true;
+    }
+  }
+  // this thread's resident rows in step (1): m-tile warp & 3
+  const int m0 = 16 * (warp & 3) + gr, m1 = m0 + 8;
+  const int rp0 = rp_s[m0], rp1 = rp_s[m1];
+  float rl0 = 0.f, rl1 = 0.f, rd0 = 0.f, rd1 = 0.f;  // dQ: lse (log2), D
+  if constexpr (DQ) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int rr = r0 + (x ? m1 : m0);
+      float l2 = pos_inf(), d = 0.f;
+      if (rr < rows) {
+        const long long li =
+            ((long long)b * H + hk * rep + rr % rep) * Sq + rr / rep;
+        l2 = lse[li] * LOG2E;
+        d = delta[li];
+      }
+      (x ? rl1 : rl0) = l2;
+      (x ? rd1 : rd0) = d;
+    }
+  }
+
+  // ---- the units' classes, 256 at a time, a thread a unit ---------------
+  int chunk0 = INT_LO / 2;
+  auto classify = [&](int c0) {
+    __syncthreads();  // every thread is done with the last chunk
+    const int u = c0 + tid;
+    uint8_t cl = TILE_SKIP;
+    if (u < n_units) {
+      if constexpr (DQ) {  // 32 keys against the resident rows
+        int kmin = INT_HI, kmax = INT_LO;
+        bool kneg = false;
+        for (int j = u * BS; j < u * BS + BS; ++j) {
+          const int p = j < Sk ? __ldg(kpos + (long long)b * Sk + j) : -1;
+          if (p < 0) {
+            kneg = true;
+          } else {
+            kmin = min(kmin, p);
+            kmax = max(kmax, p);
+          }
+        }
+        cl = tile_class(kmin, kmax, kneg, lo, hi, causal, window);
+      } else {  // 32 rows (their queries) against the resident keys
+        int qmin = INT_HI, qmax = INT_LO;
+        const int last = min(u * BS + BS, rows) - 1;
+        for (int i = u * BS / rep; i <= last / rep; ++i) {
+          const int p = __ldg(qpos + (long long)b * Sq + i);
+          qmin = min(qmin, p);
+          qmax = max(qmax, p);
+        }
+        cl = tile_class(lo, hi, neg, qmin, qmax, causal, window);
+      }
+    }
+    cls_s[tid] = cl;
+    __syncthreads();
+    chunk0 = c0;
+  };
+  // the first unit from u on that some pair sees (n_units: none), and its
+  // class
+  auto next_unit = [&](int u, uint8_t* cl) -> int {
+    for (; u < n_units; ++u) {
+      if (u >= chunk0 + 256) classify(u);
+      const uint8_t c = cls_s[u - chunk0];
+      if (c != TILE_SKIP) {
+        *cl = c;
+        return u;
+      }
+    }
+    return n_units;
+  };
+  // a unit's tiles into stage s, and its rows' positions (and lse, D)
+  auto prefetch = [&](int u, int s) {
+    const int first = u * BS;
+    if constexpr (DQ) {
+      load_rows(u1 + s * BS * SK, SK, k, DK, DK, first, BS, true);
+      if constexpr (U2_OWN)
+        load_rows(u2 + s * BS * SV, SV, v, ldv, DV, first, BS, true);
+    } else {
+      load_rows(u1 + s * BS * SK, SK, q, DK, DK, first, BS, false);
+      load_rows(u2 + s * BS * SV, SV, dout, DV, DV, first, BS, false);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tid < BS) {
+      const int x = first + tid;
+      if constexpr (DQ) {
+        up_s[s * BS + tid] =
+            x < Sk ? __ldg(kpos + (long long)b * Sk + x) : -1;
+      } else {
+        int p = PAD_QPOS;
+        float l2 = pos_inf(), d = 0.f;
+        if (x < rows) {
+          const long long li =
+              ((long long)b * H + hk * rep + x % rep) * Sq + x / rep;
+          p = __ldg(qpos + (long long)b * Sq + x / rep);
+          l2 = __ldg(lse + li) * LOG2E;
+          d = __ldg(delta + li);
+        }
+        up_s[s * BS + tid] = p;
+        ul_s[s * BS + tid] = l2;
+        ud_s[s * BS + tid] = d;
+      }
+    }
+  };
+
+  // ---- the output tile: m16 tiles wm * MTW.., n8 tiles wn * NTW.. -------
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  float acc[MTW][NTW][4];
+  float accv[MTW][(DQ || FOLD) ? 1 : NTV][4];
+#pragma unroll
+  for (int i = 0; i < MTW; ++i) {
+#pragma unroll
+    for (int t = 0; t < NTW; ++t)
+      acc[i][t][0] = acc[i][t][1] = acc[i][t][2] = acc[i][t][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < ((DQ || FOLD) ? 1 : NTV); ++t)
+      accv[i][t][0] = accv[i][t][1] = accv[i][t][2] = accv[i][t][3] = 0.f;
+  }
+
+  uint8_t cl_cur = TILE_SKIP, cl_nxt = TILE_SKIP;
+  int cur = next_unit(0, &cl_cur);
+  if (cur < n_units) prefetch(cur, 0);
+  for (int it = 0; cur < n_units; ++it) {
+    const int nxt = next_unit(cur + 1, &cl_nxt);
+    const int s = it & 1;
+    if (nxt < n_units) {
+      prefetch(nxt, s ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const bf16* t1 = u1 + s * BS * SK;
+    const bf16* t2 = U2_OWN ? u2 + s * BS * SV : t1;
+
+    // (1) S and dP for 16 resident rows x 16 unit rows a warp
+    {
+      const int mr = 16 * (warp & 3), nr = 16 * (warp >> 2);
+      float sc[2][4] = {}, dp[2][4] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm(a, at_a(r1, SK, mr, 16 * kk));
+        ldsm(bb, at_b(t1, SK, nr, 16 * kk));
+        mma_bf16(sc[0], a, bb[0], bb[1]);
+        mma_bf16(sc[1], a, bb[2], bb[3]);
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm(a, at_a(r2, SR2, mr, 16 * kk));
+        ldsm(bb, at_b(t2, SU2, nr, 16 * kk));
+        mma_bf16(dp[0], a, bb[0], bb[1]);
+        mma_bf16(dp[1], a, bb[2], bb[3]);
+      }
+      const bool part = cl_cur == TILE_PARTIAL;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {  // rows m0 (h2 0) and m1
+          float pv[2], dv_[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int n = nr + 8 * t + 2 * tq + x, e = 2 * h2 + x;
+            float l2, d;
+            int qp, kp;
+            if constexpr (DQ) {
+              l2 = h2 ? rl1 : rl0;
+              d = h2 ? rd1 : rd0;
+              qp = h2 ? rp1 : rp0;
+              kp = up_s[s * BS + n];
+            } else {
+              l2 = ul_s[s * BS + n];
+              d = ud_s[s * BS + n];
+              qp = up_s[s * BS + n];
+              kp = h2 ? rp1 : rp0;
+            }
+            const bool vis = !part || visible(qp, kp, causal, window);
+            const float p = vis ? exp2f(fmaf(sc[t][e], sl, -l2)) : 0.f;
+            const float g = p * (dp[t][e] - d);
+            pv[x] = p;
+            dv_[x] = FOLD ? g * scale : g;
+          }
+          const int m = h2 ? m1 : m0, n = nr + 8 * t + 2 * tq;
+          *reinterpret_cast<uint32_t*>(ds_s + m * SP + n) =
+              pack_bf16(dv_[0], dv_[1]);
+          if constexpr (!DQ)
+            *reinterpret_cast<uint32_t*>(p_s + m * SP + n) =
+                pack_bf16(pv[0], pv[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // (2) the output tile takes dS (and P) times the unit's rows
+    const int c0 = 8 * NTW * wn;
+#pragma unroll
+    for (int kk = 0; kk < BS / 16; ++kk) {
+      uint32_t a[MTW][4];
+#pragma unroll
+      for (int i = 0; i < MTW; ++i)
+        ldsm(a[i], at_a(ds_s, SP, 16 * (wm * MTW + i), 16 * kk));
+      mma_rows<MTW, NTW>(acc, a, t1, SK, 16 * kk, c0, DK);
+      if constexpr (!DQ) {
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+          ldsm(a[i], at_a(p_s, SP, 16 * (wm * MTW + i), 16 * kk));
+        if constexpr (FOLD)
+          mma_rows<MTW, NTW>(acc, a, t2, SU2, 16 * kk, c0, DV);
+        else
+          mma_rows<MTW, NTV>(accv, a, t2, SU2, 16 * kk, 8 * NTV * wn, DV);
+      }
+    }
+    __syncthreads();  // stage s, P and dS are free
+    cur = nxt;
+    cl_cur = cl_nxt;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // ---- epilogue: bf16 pairs straight from the accumulators --------------
+  const float os = FOLD ? 1.f : scale;
+#pragma unroll
+  for (int i = 0; i < MTW; ++i) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int x = r0 + 16 * (wm * MTW + i) + gr + 8 * h2;
+      if (DQ ? x >= rows : x >= Sk) continue;
+      const long long g = DQ ? qrow(x) : krow(x);
+#pragma unroll
+      for (int t = 0; t < NTW; ++t)
+        *reinterpret_cast<uint32_t*>(o1 + g * DK + 8 * (NTW * wn + t) +
+                                     2 * tq) =
+            pack_bf16(acc[i][t][2 * h2] * os, acc[i][t][2 * h2 + 1] * os);
+      if constexpr (!DQ && !FOLD) {
+#pragma unroll
+        for (int t = 0; t < NTV; ++t)
+          *reinterpret_cast<uint32_t*>(o2 + g * DV + 8 * (NTV * wn + t) +
+                                       2 * tq) =
+              pack_bf16(accv[i][t][2 * h2], accv[i][t][2 * h2 + 1]);
+      }
+    }
+  }
+}
+
+template <int DK, int DV, bool FOLD>
+__global__ void __launch_bounds__(256, 1) fa_bwd_dkdv_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+    int Hkv, float scale, int causal, int window) {
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  bwd_mma_body<DK, DV, FOLD, false>(mma_smem, q, k, v, dout, lse, delta,
+                                    qpos, kpos, dk, dv, Sq, Sk, H, Hkv,
+                                    scale, causal, window);
+}
+
+template <int DK, int DV, bool FOLD>
+__global__ void __launch_bounds__(256, 1) fa_bwd_dq_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv, float scale,
+    int causal, int window) {
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  bwd_mma_body<DK, DV, FOLD, true>(mma_smem, q, k, v, dout, lse, delta,
+                                   qpos, kpos, dq, nullptr, Sq, Sk, H, Hkv,
+                                   scale, causal, window);
 }
 
 // ---------------------------------------------------------------------------
@@ -1209,15 +1750,15 @@ cudaError_t launch_bf16(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV, bool FOLD>
 cudaError_t launch_f32(const BwdArgs& a) {
-  cudaError_t err = launch_delta<float, D>(a);
+  cudaError_t err = launch_delta<float, DV>(a);
   if (err != cudaSuccess) return err;
-  constexpr int s1 = f32_dkdv_smem<D>(), s2 = f32_dq_smem<D>();
-  if ((err = cudaFuncSetAttribute(fa_bwd_dkdv_f32<D>,
+  constexpr int s1 = f32_dkdv_smem<DK, DV>(), s2 = f32_dq_smem<DK, DV>();
+  if ((err = cudaFuncSetAttribute(fa_bwd_dkdv_f32<DK, DV, FOLD>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   s1)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(fa_bwd_dq_f32<D>,
+      (err = cudaFuncSetAttribute(fa_bwd_dq_f32<DK, DV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   s2)) != cudaSuccess)
     return err;
@@ -1225,72 +1766,191 @@ cudaError_t launch_f32(const BwdArgs& a) {
               *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v),
               *g = static_cast<const float*>(a.dout);
-  fa_bwd_dkdv_f32<D><<<dim3((a.Sk + F_B - 1) / F_B, a.Hkv, a.B), 128, s1,
-                        a.stream>>>(
+  const int ldv = a.v == a.k ? DK : DV;
+  fa_bwd_dkdv_f32<DK, DV, FOLD><<<dim3((a.Sk + F_B - 1) / F_B, a.Hkv, a.B),
+                                  128, s1, a.stream>>>(
       q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal,
+      a.window, ldv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fa_bwd_dq_f32<DK, DV><<<dim3((a.Sq + F_B - 1) / F_B, a.H, a.B), 128, s2,
+                          a.stream>>>(
+      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<float*>(a.dq),
+      a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal, a.window, ldv);
+  return cudaGetLastError();
+}
+
+template <int DK, int DV, bool FOLD>
+cudaError_t launch_mma(const BwdArgs& a) {
+  using C = MmaBwd<DK, DV>;
+  const long long rows = (long long)a.Sq * (a.H / a.Hkv);
+  if (rows > 0x7fffffffLL - C::BR) return cudaErrorInvalidValue;
+  cudaError_t err = launch_delta<bf16, DV>(a);
+  if (err != cudaSuccess) return err;
+  constexpr int s1 = C::bytes(false, FOLD), s2 = C::bytes(true, FOLD);
+  if ((err = cudaFuncSetAttribute(fa_bwd_dkdv_mma<DK, DV, FOLD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  s1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_dq_mma<DK, DV, FOLD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  s2)) != cudaSuccess)
+    return err;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v),
+             *g = static_cast<const bf16*>(a.dout);
+  fa_bwd_dkdv_mma<DK, DV, FOLD><<<dim3((a.Sk + C::BR - 1) / C::BR, a.Hkv,
+                                       a.B),
+                                  256, s1, a.stream>>>(
+      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal,
       a.window);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dq_f32<D><<<dim3((a.Sq + F_B - 1) / F_B, a.H, a.B), 128, s2,
-                      a.stream>>>(
-      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<float*>(a.dq),
+  fa_bwd_dq_mma<DK, DV, FOLD><<<dim3(static_cast<unsigned>(
+                                         (rows + C::BR - 1) / C::BR),
+                                     a.Hkv, a.B),
+                                256, s2, a.stream>>>(
+      q, k, v, g, a.lse, a.delta, a.qpos, a.kpos, static_cast<bf16*>(a.dq),
       a.Sq, a.Sk, a.H, a.Hkv, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
-bool supported(int dk, int dv) { return dk == dv && (dk == 64 || dk == 128); }
+enum BwdVariant {
+  BV_NONE = -1, BV_WGMMA = 0, BV_MMA_SYNC = 1, BV_MLA = 2, BV_F32 = 3
+};
 
-// A bf16 kernel's ring stages, dynamic shared memory and, from the
-// compiled kernel, registers a thread at launch and local (spill) bytes.
-template <int D>
-cudaError_t kernel_info(int which, int* out) {
+// The fixed rule (flash_attention.py's docstring states it): bf16 at
+// (64, 64) and (128, 128) -> the wgmma kernels; bf16 at (32, 16),
+// (32, 32), (80, 64) and (80, 80) -> the mma.sync kernels; bf16 at
+// (576, 512) -> the same template at MLA's width (V must be K's prefix);
+// float32 at every size but (576, 512) -> the CUDA-core kernels.
+int bwd_variant_of(int bf16_, int dk, int dv) {
+  const bool wide = (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
+  const bool narrow = (dk == 32 && (dv == 16 || dv == 32)) ||
+                      (dk == 80 && (dv == 64 || dv == 80));
+  if (bf16_)
+    return wide     ? BV_WGMMA
+           : narrow ? BV_MMA_SYNC
+           : dk == 576 && dv == 512 ? BV_MLA
+                                    : BV_NONE;
+  return wide || narrow ? BV_F32 : BV_NONE;
+}
+
+// A bf16 kernel's stages, dynamic shared memory and, from the compiled
+// kernel, registers a thread at launch and local (spill) bytes.
+cudaError_t func_info(const void* fn, int stages, int bytes, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err =
-      which == 0 ? cudaFuncGetAttributes(&attr, fa_bwd_dkdv_wgmma<D>)
-                 : cudaFuncGetAttributes(&attr, fa_bwd_dq_wgmma<D>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
-  out[0] = which == 0 ? DkdvLayout<D>::STAGES : DqLayout<D>::STAGES;
-  out[1] = which == 0 ? DkdvLayout<D>::BYTES : DqLayout<D>::BYTES;
+  out[0] = stages;
+  out[1] = bytes;
   out[2] = attr.numRegs;
   out[3] = static_cast<int>(attr.localSizeBytes);
   return cudaSuccess;
+}
+
+template <int D>
+cudaError_t wgmma_info(int which, int* out) {
+  return which == 0
+             ? func_info(reinterpret_cast<const void*>(fa_bwd_dkdv_wgmma<D>),
+                         DkdvLayout<D>::STAGES, DkdvLayout<D>::BYTES, out)
+             : func_info(reinterpret_cast<const void*>(fa_bwd_dq_wgmma<D>),
+                         DqLayout<D>::STAGES, DqLayout<D>::BYTES, out);
+}
+
+template <int DK, int DV, bool FOLD>
+cudaError_t mma_info(int which, int* out) {
+  using C = MmaBwd<DK, DV>;
+  return which == 0
+             ? func_info(reinterpret_cast<const void*>(
+                             fa_bwd_dkdv_mma<DK, DV, FOLD>),
+                         2, C::bytes(false, FOLD), out)
+             : func_info(reinterpret_cast<const void*>(
+                             fa_bwd_dq_mma<DK, DV, FOLD>),
+                         2, C::bytes(true, FOLD), out);
 }
 
 }  // namespace
 
 extern "C" {
 
-int fa_bwd_supported(int is_bf16, int dk, int dv) {
-  (void)is_bf16;
-  return supported(dk, dv) ? 1 : 0;
+int fa_bwd_variant(int is_bf16, int dk, int dv) {
+  return bwd_variant_of(is_bf16, dk, dv);
 }
 
-// dq [B,Sq,H,D], dk and dv [B,Sk,Hkv,D] in the inputs' dtype; delta is
-// float32 [B,H,Sq] scratch (D of the recompute), written here.
+// dq [B,Sq,H,Dk], dk [B,Sk,Hkv,Dk] and dv [B,Sk,Hkv,Dv] in the inputs'
+// dtype; delta is float32 [B,H,Sq] scratch (D of the recompute), written
+// here.  dv null: V is K's first Dv < Dk columns (v == k, rows Dk apart)
+// and dk takes dV in its first Dv columns (`ref.attention_bwd`'s folded
+// contract); bf16 (576, 512) takes only that.
 int fa_backward(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, const void* qpos,
                 const void* kpos, void* dq, void* dk, void* dv, void* delta,
                 int B, int Sq, int Sk, int H, int Hkv, int dk_, int dv_,
                 int bf16_, float scale, int causal, int window,
                 void* stream) {
-  if (!supported(dk_, dv_) || Hkv < 1 || H % Hkv != 0)
+  const int var = bwd_variant_of(bf16_, dk_, dv_);
+  const bool fold = dv == nullptr;
+  if (var == BV_NONE || Hkv < 1 || H % Hkv != 0 ||
+      (fold && (v != k || dv_ >= dk_)) ||
+      (!fold && v == k && dv_ < dk_) || (var == BV_MLA && !fold))
     return cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse),
                   static_cast<const int*>(qpos),
                   static_cast<const int*>(kpos), dq, dk, dv,
                   static_cast<float*>(delta), B, Sq, Sk, H, Hkv, scale,
                   causal, window, static_cast<cudaStream_t>(stream)};
-  if (bf16_) return dk_ == 64 ? launch_bf16<64>(a) : launch_bf16<128>(a);
-  return dk_ == 64 ? launch_f32<64>(a) : launch_f32<128>(a);
+  switch (var) {
+    case BV_WGMMA:
+      return dk_ == 64 ? launch_bf16<64>(a) : launch_bf16<128>(a);
+    case BV_MLA:
+      return launch_mma<576, 512, true>(a);
+    case BV_MMA_SYNC:
+      if (dk_ == 80) {
+        if (dv_ == 80) return launch_mma<80, 80, false>(a);
+        return fold ? launch_mma<80, 64, true>(a)
+                    : launch_mma<80, 64, false>(a);
+      }
+      if (dv_ == 32) return launch_mma<32, 32, false>(a);
+      return fold ? launch_mma<32, 16, true>(a)
+                  : launch_mma<32, 16, false>(a);
+    case BV_F32:
+      if (dk_ == 64) return launch_f32<64, 64, false>(a);
+      if (dk_ == 128) return launch_f32<128, 128, false>(a);
+      if (dk_ == 80) {
+        if (dv_ == 80) return launch_f32<80, 80, false>(a);
+        return fold ? launch_f32<80, 64, true>(a)
+                    : launch_f32<80, 64, false>(a);
+      }
+      if (dv_ == 32) return launch_f32<32, 32, false>(a);
+      return fold ? launch_f32<32, 16, true>(a)
+                  : launch_f32<32, 16, false>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// out[4] = {ring stages, dynamic shared bytes, registers a thread, local
-// bytes} of the bf16 dK/dV (which = 0) or dQ (which = 1) kernel at head
-// size d (64 or 128).
-int fa_bwd_kernel_info(int which, int d, int* out) {
-  if ((which != 0 && which != 1) || (d != 64 && d != 128))
-    return cudaErrorInvalidValue;
-  return d == 64 ? kernel_info<64>(which, out) : kernel_info<128>(which, out);
+// out[4] = {stages, dynamic shared bytes, registers a thread, local bytes}
+// of the bf16 dK/dV (which = 0) or dQ (which = 1) kernel at (dk, dv):
+// the wgmma kernels at (64, 64) and (128, 128), the mma.sync ones
+// elsewhere (with V as K's prefix at (576, 512), a separate V otherwise).
+int fa_bwd_kernel_info(int which, int dk, int dv, int* out) {
+  if (which != 0 && which != 1) return cudaErrorInvalidValue;
+  switch (bwd_variant_of(1, dk, dv)) {
+    case BV_WGMMA:
+      return dk == 64 ? wgmma_info<64>(which, out)
+                      : wgmma_info<128>(which, out);
+    case BV_MLA:
+      return mma_info<576, 512, true>(which, out);
+    case BV_MMA_SYNC:
+      if (dk == 80)
+        return dv == 64 ? mma_info<80, 64, false>(which, out)
+                        : mma_info<80, 80, false>(which, out);
+      return dv == 16 ? mma_info<32, 16, false>(which, out)
+                      : mma_info<32, 32, false>(which, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 const char* fa_bwd_error_string(int err) {

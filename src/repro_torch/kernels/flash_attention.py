@@ -41,22 +41,36 @@ runs the same kernel and also writes each row's log-sum-exp ``lse``
 key; ``ref.attention_lse``), and :func:`flash_attention_bwd` launches the
 backward of ``csrc/flash_attention_bwd.cu`` (``ref.attention_bwd``),
 counted in ``launch.launches["flash_attention_bwd"]`` (its three kernels,
-one count a call): in bf16 the persistent ``wgmma`` kernels
-``fa_bwd_dkdv_wgmma`` and ``fa_bwd_dq_wgmma`` (TMA rings, a producer warp
-and two consumer warpgroups each; their walk over the tiles is
-``ref.attention_bwd_schedule``, their rings and registers
-:func:`bwd_kernel_info`), in float32 CUDA-core kernels.  Both take the head sizes of :data:`BWD_HEAD_DIMS`,
-``(64, 64)`` and ``(128, 128)`` in bf16 and float32; elsewhere they raise
-``NotImplementedError`` naming the ROADMAP item that adds the backward
-(the ``mma_sync`` head sizes, 16.4e; MLA's ``(576, 512)`` and its smoke
-config's ``(80, 64)``, 16.4d).
+one count a call).  Its kernel, by a fixed rule from the dtype and the
+head sizes (:func:`bwd_variant`; :data:`last_bwd_variant` after a call):
+
+- ``"wgmma_tma"``: bf16 at ``(64, 64)`` and ``(128, 128)``: the persistent
+  ``wgmma`` kernels ``fa_bwd_dkdv_wgmma`` and ``fa_bwd_dq_wgmma`` (TMA
+  rings, a producer warp and two consumer warpgroups each; their walk
+  over the tiles is ``ref.attention_bwd_schedule``, their rings and
+  registers :func:`bwd_kernel_info`);
+- ``"mma_sync"``: bf16 at ``(32, 16)``, ``(32, 32)``, ``(80, 64)`` and
+  ``(80, 80)``: ``fa_bwd_dkdv_mma`` and ``fa_bwd_dq_mma``, ``mma.sync``
+  products, a resident 64-row tile and 32-row units streamed past it;
+- ``"mla_mma_sync"``: bf16 at ``(576, 512)``, MLA's latent heads: the same
+  template at that width (V read from the K tiles, dK's 576 columns
+  split across the warps);
+- ``"f32_cuda_cores"``: float32 at every size of :data:`HEAD_DIMS` but
+  ``(576, 512)``, CUDA-core kernels.
+
+:data:`BWD_HEAD_DIMS` lists what each dtype takes; float32 at ``(576,
+512)`` raises ``NotImplementedError`` naming its ROADMAP item
+(:data:`BWD_TODO`).  No backward kernel uses atomics.
 
 V as K's prefix: ``v`` may be the view ``k[..., :Dv]`` of a contiguous
-``k`` (the same ``data_ptr`` and ``k``'s strides), as MLA passes its
-latent values (``models.attention._mla_blocked``); only that view is
-admitted without being contiguous, and the kernels then read V from K's
-rows.  At bf16 ``(576, 512)`` it is the only ``v`` taken: the MLA kernel
-serves both products from one K tile, and a separate ``v`` raises.
+``k`` with ``Dv < Dk`` (``ref.v_is_k_prefix``: the same ``data_ptr`` and
+``k``'s strides), as MLA passes its latent values
+(``models.attention._mla_blocked``); only that view is admitted without
+being contiguous, and the kernels then read V from K's rows.  At bf16
+``(576, 512)`` it is the only ``v`` taken: the MLA kernels serve both
+products from one K tile, and a separate ``v`` raises.  The backward then
+returns ``(dq, dk, None)``, dK holding dV in its first Dv columns
+(``ref.attention_bwd``'s folded contract).
 
 Limits: head sizes ``(Dk, Dv)`` in :data:`HEAD_DIMS`, ``H % Hkv == 0``,
 ``B`` and ``H`` up to 65535, any ``Sq, Sk >= 1`` (the kernels mask the
@@ -70,6 +84,7 @@ import ctypes
 
 import torch
 
+from . import ref
 from .launch import check, launches, load_lib, raise_on, require_cuda, stream
 
 HEAD_DIMS = ((32, 16), (32, 32), (64, 64), (80, 64), (80, 80), (128, 128),
@@ -87,21 +102,26 @@ _ARGTYPES = {"fa_forward": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
              "fa_variant": [_i, _i, _i]}
 _BWD_ARGTYPES = {"fa_backward": [_vp] * 12 + [_i] * 8 + [ctypes.c_float,
                                                          _i, _i, _vp],
-                 "fa_bwd_supported": [_i, _i, _i],
-                 "fa_bwd_kernel_info": [_i, _i, _vp]}
-# The bf16 backward's two wgmma kernels, in the order fa_bwd_kernel_info
-# numbers them.
-BWD_WGMMA_KERNELS = ("fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma")
-# The head sizes the backward takes (bf16 and float32).
-BWD_HEAD_DIMS = ((64, 64), (128, 128))
-# The ROADMAP item that adds the backward of the other head sizes.
-BWD_TODO = {(576, 512): "16.4d (MLA's backward at (576, 512))",
-            (80, 64): "16.4d (MLA's backward; (80, 64) is its smoke "
-                      "config's latent heads)"}
-BWD_TODO_DEFAULT = "16.4e (the backward of the mma_sync head sizes)"
+                 "fa_bwd_variant": [_i, _i, _i],
+                 "fa_bwd_kernel_info": [_i, _i, _i, _vp]}
+BWD_VARIANTS = ("wgmma_tma", "mma_sync", "mla_mma_sync", "f32_cuda_cores")
+# The bf16 backward's two kernels by variant, in the order
+# fa_bwd_kernel_info numbers them.
+BWD_KERNELS = {"wgmma_tma": ("fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma"),
+               "mma_sync": ("fa_bwd_dkdv_mma", "fa_bwd_dq_mma"),
+               "mla_mma_sync": ("fa_bwd_dkdv_mma", "fa_bwd_dq_mma")}
+# The head sizes the backward takes, by dtype.
+BWD_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS,
+                 torch.float32: tuple(d for d in HEAD_DIMS
+                                      if d != (576, 512))}
+# The ROADMAP item that adds the backward of the others.
+BWD_TODO = {(torch.float32, (576, 512)):
+            "16.4f (the float32 backward at MLA's (576, 512))"}
 
-# The kernel the last call launched (one of VARIANTS).
+# The kernel the last call launched (one of VARIANTS), and the last
+# backward call's (one of BWD_VARIANTS).
 last_variant = None
+last_bwd_variant = None
 
 
 def variant(dtype, Dk: int, Dv: int) -> str:
@@ -135,7 +155,7 @@ def _check_inputs(q, k, v, q_pos, kv_pos, window):
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     dev = q.device
-    v_in_k = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    v_in_k = ref.v_is_k_prefix(k, v)
     if q.dtype == torch.bfloat16 and (Dk, Dv) == (576, 512) and not v_in_k:
         raise ValueError("at bf16 (Dk=576, Dv=512) v must be k[..., :512] "
                          "(MLA's latent values, read from the K tiles)")
@@ -150,16 +170,27 @@ def _check_inputs(q, k, v, q_pos, kv_pos, window):
     return B, Sq, Sk, H, Hkv, Dk, Dv, v_in_k
 
 
+def bwd_variant(dtype, Dk: int, Dv: int) -> str:
+    """The kernel ``flash_attention_bwd`` runs for this dtype and these
+    head sizes, as the library's own rule gives it."""
+    lib = load_lib("flash_attention_bwd", _BWD_ARGTYPES,
+                   "fa_bwd_error_string")
+    v = lib.fa_bwd_variant(int(dtype == torch.bfloat16), Dk, Dv)
+    if v < 0:
+        raise ValueError(f"no backward kernel for {dtype} at (Dk={Dk}, "
+                         f"Dv={Dv})")
+    return BWD_VARIANTS[v]
+
+
 def require_backward(q, Dk: int, Dv: int) -> None:
     """Raise ``NotImplementedError`` unless the backward takes these head
-    sizes (:data:`BWD_HEAD_DIMS`), naming the shape and the ROADMAP item
-    that adds it."""
-    if (Dk, Dv) not in BWD_HEAD_DIMS:
-        todo = BWD_TODO.get((Dk, Dv), BWD_TODO_DEFAULT)
+    sizes in q's dtype (:data:`BWD_HEAD_DIMS`), naming the shape and the
+    ROADMAP item that adds it."""
+    if (Dk, Dv) not in BWD_HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
             f"no backward kernel for attention at (Dk={Dk}, Dv={Dv}) in "
-            f"{q.dtype} on the card (it takes {BWD_HEAD_DIMS}); ROADMAP "
-            f"{todo}")
+            f"{q.dtype} on the card (it takes {BWD_HEAD_DIMS[q.dtype]}); "
+            f"ROADMAP {BWD_TODO[(q.dtype, (Dk, Dv))]}")
 
 
 def flash_attention(q, k, v, *, scale, q_pos, kv_pos, causal=True,
@@ -192,7 +223,8 @@ def flash_attention_fwd_lse(q, k, v, *, scale, q_pos, kv_pos, causal=True,
     lse)``, ``lse`` float32 ``[B, H, Sq]`` (contract of
     ``ref.attention_lse``); the output is bit-equal to
     `flash_attention`'s.  Counted as a ``flash_attention`` launch.  Only
-    at the head sizes the backward takes (:data:`BWD_HEAD_DIMS`)."""
+    at the head sizes the backward takes in q's dtype
+    (:data:`BWD_HEAD_DIMS`)."""
     B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
                                                  window)
     require_backward(q, Dk, Dv)
@@ -219,15 +251,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
     """``(dq, dk, dv)`` of attention for the cotangent ``dout`` (the
     shape and dtype of ``out``), from the forward's ``out`` and ``lse``
     (`flash_attention_fwd_lse`), on the card; contract of
-    ``ref.attention_bwd``.  Three kernels (D, then dK/dV, then dQ) behind
-    one count, ``launches["flash_attention_bwd"]``: in bf16 the dK/dV
-    kernel walks items of 128 keys of a KV head and the dQ kernel items of
-    128 queries of a head over persistent CTAs, both on ``wgmma`` fed by
-    TMA, both recomputing P (``ref.attention_bwd_schedule``); in float32,
-    CUDA cores.  No atomics, so two calls on the same inputs are
+    ``ref.attention_bwd``: with ``v`` as K's prefix (``ref.v_is_k_prefix``)
+    ``(dq, dk, None)``, dK holding dV in its first Dv columns.  Three
+    kernels (D, then dK and dV, then dQ) behind one count,
+    ``launches["flash_attention_bwd"]``, picked by the rule of
+    :func:`bwd_variant` (the module's docstring); each recomputes P from
+    ``lse``.  No atomics, so two calls on the same inputs are
     bit-equal."""
-    B, Sq, Sk, H, Hkv, Dk, Dv, _ = _check_inputs(q, k, v, q_pos, kv_pos,
-                                                 window)
+    B, Sq, Sk, H, Hkv, Dk, Dv, fold = _check_inputs(q, k, v, q_pos, kv_pos,
+                                                    window)
     require_backward(q, Dk, Dv)
     dev = q.device
     check("out", out, q.dtype, (B, Sq, H, Dv), dev)
@@ -235,7 +267,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
     check("lse", lse, torch.float32, (B, H, Sq), dev)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dv = None if fold else torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     lib = load_lib("flash_attention_bwd", _BWD_ARGTYPES,
                    "fa_bwd_error_string")
@@ -243,28 +275,34 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
         err = lib.fa_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), B, Sq, Sk, H, Hkv, Dk, Dv,
-            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
-            -1 if window is None else int(window), stream(dev))
+            kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            None if fold else dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H,
+            Hkv, Dk, Dv, int(q.dtype == torch.bfloat16), float(scale),
+            int(bool(causal)), -1 if window is None else int(window),
+            stream(dev))
     raise_on(lib, err, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
+    global last_bwd_variant
+    last_bwd_variant = bwd_variant(q.dtype, Dk, Dv)
     return dq, dk, dv
 
 
-def bwd_kernel_info(D: int) -> dict:
-    """The bf16 backward's kernels at head size ``D`` (64 or 128) as the
-    library compiled them: for each of :data:`BWD_WGMMA_KERNELS` its ring
-    stages, dynamic shared bytes, registers a thread at launch and local
+def bwd_kernel_info(Dk: int, Dv: int | None = None) -> dict:
+    """The bf16 backward's two kernels at head sizes ``(Dk, Dv)`` (``Dv``
+    defaults to ``Dk``) as the library compiled them: for each of
+    :data:`BWD_KERNELS` of its variant, its stages (ring or double
+    buffer), dynamic shared bytes, registers a thread at launch and local
     (spill) bytes.  Needs the card (the library is loaded, no kernel
     runs)."""
+    Dv = Dk if Dv is None else Dv
     lib = load_lib("flash_attention_bwd", _BWD_ARGTYPES,
                    "fa_bwd_error_string")
     out = {}
-    for which, name in enumerate(BWD_WGMMA_KERNELS):
+    for which, name in enumerate(BWD_KERNELS[bwd_variant(torch.bfloat16,
+                                                         Dk, Dv)]):
         vals = (ctypes.c_int * 4)()
-        err = lib.fa_bwd_kernel_info(which, D, vals)
-        raise_on(lib, err, f"fa_bwd_kernel_info({name}, {D})")
+        err = lib.fa_bwd_kernel_info(which, Dk, Dv, vals)
+        raise_on(lib, err, f"fa_bwd_kernel_info({name}, {Dk}, {Dv})")
         out[name] = dict(zip(("stages", "shared_bytes", "registers",
                               "local_bytes"), vals, strict=True))
     return out

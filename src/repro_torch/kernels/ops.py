@@ -10,16 +10,20 @@ kernels or fails.
 Under autograd (grad enabled and an input that requires grad),
 ``attention`` is a ``torch.autograd.Function`` whose forward also keeps
 each row's log-sum-exp and whose backward is ``flash_attention_bwd`` on
-the card (in bf16 two persistent ``wgmma`` kernels fed by TMA rings, one
-for dK and dV over 128-key items and one for dQ over 128-query items,
-with no atomics; ``ref.attention_lse`` / ``ref.attention_bwd`` on the
-CPU), and ``ssd`` is one whose forward is the serving call and whose
-backward is ``ssd_scan.ssd_bwd`` on the card (three kernels: the states
-entering each chunk, their gradients by a reverse walk, the in-chunk
-gradients; ``ref.ssd_bwd`` on the CPU).  Attention at head sizes outside
-``flash_attention.BWD_HEAD_DIMS`` has no backward yet and raises
-``NotImplementedError`` on the card rather than return a tensor with no
-gradient.  Without a gradient the calls are the serving path's,
+the card (``ref.attention_lse`` / ``ref.attention_bwd`` on the CPU): in
+bf16 two persistent ``wgmma`` kernels fed by TMA rings at head sizes 64
+and 128, ``mma.sync`` kernels at the narrow sizes and MLA's (576, 512),
+CUDA-core kernels in float32, none with atomics.  Where ``v`` is K's
+prefix (MLA's latent values, ``ref.v_is_k_prefix``) the backward returns
+dK with dV folded into its first columns and no gradient for ``v``, and
+autograd carries the whole of it through the tensor both are views of.
+``ssd`` is one whose forward is the serving call and whose backward is
+``ssd_scan.ssd_bwd`` on the card (three kernels: the states entering
+each chunk, their gradients by a reverse walk, the in-chunk gradients;
+``ref.ssd_bwd`` on the CPU).  A float32 gradient through attention at
+MLA's (576, 512) has no kernel yet and raises ``NotImplementedError``
+on the card (``flash_attention.BWD_TODO``) rather than return a tensor
+with no gradient.  Without a gradient the calls are the serving path's,
 unchanged.
 """
 from __future__ import annotations
@@ -85,7 +89,8 @@ def _attention_fwd(q, k, v, **kw):
 
 
 def _attention_bwd(q, k, v, out, lse, dout, **kw):
-    """``(dq, dk, dv)`` of attention from its ``out`` and ``lse``."""
+    """``(dq, dk, dv)`` of attention from its ``out`` and ``lse``; ``dv``
+    is None where ``v`` is K's prefix (dK holds it)."""
     if _on_cuda(q):
         from . import flash_attention as fa
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -95,7 +100,9 @@ def _attention_bwd(q, k, v, out, lse, dout, **kw):
 class _Attention(torch.autograd.Function):
     """Attention with its gradient: the forward keeps ``lse``, the backward
     recomputes P from it (`_attention_fwd`, `_attention_bwd`).  The
-    positions get no gradient."""
+    positions get no gradient; nor does ``v`` where it is K's prefix
+    (``ref.v_is_k_prefix``): dK already holds dV, and autograd adds it
+    into the tensor both are views of."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, scale, causal, window):

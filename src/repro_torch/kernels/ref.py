@@ -418,6 +418,16 @@ def _attention_impl(q, k, v, *, scale, q_pos, kv_pos, causal, window,
             lse.reshape(B, H, Sq))
 
 
+def v_is_k_prefix(k, v) -> bool:
+    """Whether ``v`` is the view ``k[..., :Dv]`` of ``k`` with ``Dv <
+    Dk`` (the same storage, offset and strides), as MLA passes its latent
+    values (``models.attention._mla_blocked``).  Then attention's gradient
+    folds dV into dK (`attention_bwd`), the kernels read V from K's rows,
+    and the CUDA forward admits ``v`` although it is not contiguous."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[:-1] == k.shape[:-1] and v.shape[-1] < k.shape[-1])
+
+
 def attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
                   causal=True, window=None, q_chunk=512):
     """The gradient of `attention` with respect to ``q``, ``k`` and ``v``
@@ -438,11 +448,26 @@ def attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
     ``acc_dtype``, and for bf16 inputs ``P`` and ``dS`` are rounded to
     bf16 before the products that take them (dV, and dQ and dK), as the
     kernel's tensor-core products do.  ``q_chunk`` queries at a time
-    (``[B, H, q_chunk, Sk]`` scores)."""
+    (``[B, H, q_chunk, Sk]`` scores).
+
+    V as K's prefix (`v_is_k_prefix`: MLA's latent values): the gradient
+    of the storage ``v`` shares is dK with dV added into its first Dv
+    columns, so the result is ``(dq, dk + [dv, 0], None)``, rounded once
+    to k's dtype.  One accumulator takes both sums, so the scale enters
+    dS before its rounding: ``dS_r = bf16(scale * dS)`` (no rounding in
+    float32), ``dQ = dS_r K``, ``dK = dS_r^T Q + [P^T dO, 0]``."""
+    return _attention_bwd(q, k, v, out, lse, dout, scale=scale,
+                          q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                          window=window, q_chunk=q_chunk)
+
+
+def _attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
+                   causal, window, q_chunk, unfolded=False):
     B, Sq, H, Dk = q.shape
     _, Sk, Hkv, _ = k.shape
     Dv = v.shape[-1]
     rep = H // Hkv
+    fold = v_is_k_prefix(k, v)
     ft = acc_dtype(q.dtype)
     kf, vf = k.to(ft), v.to(ft)
     dk = torch.zeros((B, Sk, Hkv, Dk), dtype=ft, device=q.device)
@@ -465,12 +490,22 @@ def attention_bwd(q, k, v, out, lse, dout, *, scale, q_pos, kv_pos,
         del dp
         dv += torch.einsum("bgrqk,bqgrd->bkgd", p.to(v.dtype).to(ft), dog)
         del p
+        if fold:    # the scale before the rounding: one accumulator
+            ds = (ds * scale).to(q.dtype).to(ft)
+            dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
+            dq.append(torch.einsum("bgrqk,bkgd->bqgrd", ds,
+                                   kf).reshape(B, n, H, Dk))
+            continue
         ds = ds.to(q.dtype).to(ft)
         dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale
         dq.append((torch.einsum("bgrqk,bkgd->bqgrd", ds, kf)
                    * scale).reshape(B, n, H, Dk))
-    return (torch.cat(dq, dim=1).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    dq = torch.cat(dq, dim=1).to(q.dtype)
+    if fold:
+        if not unfolded:
+            dk[..., :Dv] += dv
+        return dq, dk.to(k.dtype), None
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_bwd_fault(q, k, v, out, lse, dout, *, fault: str, tile=64,
@@ -479,11 +514,18 @@ def attention_bwd_fault(q, k, v, out, lse, dout, *, fault: str, tile=64,
     fail: ``"d_zero"`` takes D as 0 (dS = P * dO V^T); ``"dropped_tile"``
     leaves one key tile (``tile`` key slots, the tile the later half of
     the queries sees most pairs of) out for the later half of the queries,
-    as a kernel that skipped it would.  The forward's ``lse`` is kept, so
-    only the dropped pairs change."""
+    as a kernel that skipped it would; ``"unfolded_dv"`` (V as K's prefix
+    only) leaves dV out of dK's first Dv columns.  The forward's ``lse``
+    is kept, so only the dropped pairs change."""
     if fault == "d_zero":
         return attention_bwd(q, k, v, torch.zeros_like(out), lse, dout,
                              **kw)
+    if fault == "unfolded_dv":
+        if not v_is_k_prefix(k, v):
+            raise ValueError("unfolded_dv needs v as k's prefix")
+        return _attention_bwd(q, k, v, out, lse, dout, unfolded=True,
+                              **{"causal": True, "window": None,
+                                 "q_chunk": 512} | kw)
     if fault != "dropped_tile":
         raise ValueError(f"unknown fault {fault!r}")
     h, Sk = q.shape[1] // 2, k.shape[1]
@@ -502,6 +544,7 @@ def attention_bwd_fault(q, k, v, out, lse, dout, *, fault: str, tile=64,
                                               "kv_pos": kp})
     return (torch.cat([early[0], late[0]], dim=1),
             (early[1].float() + late[1].float()).to(k.dtype),
+            None if early[2] is None else
             (early[2].float() + late[2].float()).to(v.dtype))
 
 

@@ -6,19 +6,23 @@ smoke config of the arch by default, ``--full`` its published widths;
 technique as ``--consistency bsp|ssp|essp`` with ``--staleness`` and
 ``--buckets`` (`psdist.grad_sync.GradSync`); batches from
 ``data.synthetic.token_batches`` (and the family's modality stub);
-weights drawn from ``--seed``.  It runs on ``cuda`` unless ``--device
-cpu`` is given; without a GPU the default raises.  On the card the dense
-family trains through ``flash_attention`` and its backward, the ssm family
-(mamba2-130m, full or smoke) and the hybrid one (Jamba's smoke config:
-its published widths do not fit one card) through ``ssd`` and
-``ssd_bwd``; an arch whose attention has no backward kernel yet
-(deepseek's MLA, 16.4d; the ``mma.sync`` head sizes, 16.4e) raises
-``NotImplementedError``.
+weights drawn from ``--seed``; ``--layers N`` cuts the config's depth to
+N layers, every width kept (a config whose training state does not fit
+one card).  It runs on ``cuda`` unless ``--device cpu`` is given; without
+a GPU the default raises.  On the card the dense and moe families train
+through ``flash_attention`` and its backward (deepseek's MLA at its
+published (576, 512) latent heads and its smoke config's (80, 64), V as
+K's prefix), the ssm family (mamba2-130m, full or smoke) and the hybrid
+one (Jamba's smoke config: its published widths do not fit one card)
+through ``ssd`` and ``ssd_bwd``.  Only a float32 gradient through
+attention at (576, 512) raises ``NotImplementedError`` (ROADMAP 16.4f).
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
         --batch 8 --seq 2048 --steps 6
     python -m repro_torch.launch.train --arch mamba2-130m --full \\
         --batch 8 --seq 2048 --steps 6
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+        --full --layers 4 --batch 8 --seq 2048 --steps 6
 """
 from __future__ import annotations
 
@@ -52,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--staleness", type=int, default=0)
     ap.add_argument("--buckets", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers, every width "
+                         "kept")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -60,6 +67,11 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers}")
+        cfg = cfg.replace(n_layers=args.layers)
     model = build_model(cfg, seed=args.seed, device=dev)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params={model.n_params/1e6:.1f}M "

@@ -96,7 +96,12 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
     """AdamW.  ``state_dtype=torch.bfloat16`` halves the optimizer's
     memory (the JAX package uses it for the 398B config).  With
     ``weight_decay`` 0 the decay term (``0 * p``, which adds nothing) is
-    left out."""
+    left out.  ``update`` writes the new ``m`` and ``v`` into the state's
+    tensors, leaf by leaf, with JAX's roundings (float32 state: the same
+    products and sums in place; bf16 state: the float32 value rounded
+    into it), and returns the same state: a step holds one leaf's
+    temporaries beside the state, not a second copy of ``m`` and ``v``
+    (16 bytes a bf16 parameter with the float32 updates, not 24)."""
     sched = _schedule(lr)
 
     def init(params):
@@ -112,11 +117,15 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
         c2 = 1.0 - torch.pow(b2, sf)
 
         def upd_m(m, gr):
-            return (b1 * m.float() + (1 - b1) * gr.float()).to(state_dtype)
+            if m.dtype == torch.float32:    # b1 m + (1 - b1) g, in place
+                return m.mul_(b1).add_(gr.float().mul(1 - b1))
+            return m.copy_(b1 * m.float() + (1 - b1) * gr.float())
 
         def upd_v(v, gr):
             g32 = gr.float()
-            return (b2 * v.float() + (1 - b2) * g32 * g32).to(state_dtype)
+            if v.dtype == torch.float32:    # b2 v + ((1 - b2) g) g
+                return v.mul_(b2).add_(g32.mul(1 - b2).mul_(g32))
+            return v.copy_(b2 * v.float() + (1 - b2) * g32 * g32)
 
         m = tree_map(upd_m, state["m"], grads)
         v = tree_map(upd_v, state["v"], grads)

@@ -269,8 +269,6 @@ def main() -> int:
                 <= chip_smoke.SSD_BWD_SPLIT_LIMIT
                 if shape_name == "main" else None,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "bound_cuda_core_ms": chip_smoke.ssd_bwd_bound(
-                    full, rates, cuda_cores=True)[0],
                 "clocks_while_timing": clocks,
                 "ptxas": ablation_kit.entry_ptxas(
                     log, ("ssd_bwd_states", "ssd_bwd_dstates",

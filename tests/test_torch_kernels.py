@@ -1161,13 +1161,122 @@ def test_cuda_attention_under_grad_goes_through_the_kernels(cuda):
         assert torch.equal(g, w)
 
 
+# The backward at the mma.sync head sizes and MLA's (576, 512): B, Sq, Sk,
+# H, Hkv, Dk, Dv, causal, window, dtype, positions, V as K's prefix (dK
+# then holds dV)
+BWD_MMA_CASES = {
+    "bf16_d576_fold": (2, 150, 150, 16, 1, 576, 512, True, None, "bf16",
+                       "holes", True),
+    "bf16_d576_rep3_window": (1, 130, 130, 6, 2, 576, 512, True, 40, "bf16",
+                              "shuffled", True),
+    "bf16_d80_64_fold": (2, 70, 70, 4, 1, 80, 64, True, None, "bf16",
+                         "arange", True),
+    "bf16_d80_64": (1, 90, 120, 8, 2, 80, 64, False, None, "bf16", "holes",
+                    False),
+    "bf16_d80_80": (1, 100, 100, 4, 4, 80, 80, True, 30, "bf16", "late_keys",
+                    False),
+    "bf16_d32_16_fold": (2, 65, 65, 4, 1, 32, 16, True, None, "bf16",
+                         "arange", True),
+    "bf16_d32_32": (1, 77, 77, 8, 2, 32, 32, True, None, "bf16", "holes",
+                    False),
+    "f32_d80_64_fold": (2, 70, 70, 4, 1, 80, 64, True, None, "f32", "arange",
+                        True),
+    "f32_d80_80": (1, 100, 100, 4, 2, 80, 80, True, 30, "f32", "holes",
+                   False),
+    "f32_d32_16": (1, 65, 80, 4, 2, 32, 16, True, None, "f32", "late_keys",
+                   False),
+    "f32_d32_32": (1, 77, 77, 8, 4, 32, 32, True, None, "f32", "arange",
+                   False),
+}
+
+
+def _bwd_mma_tensors(case, device):
+    B, Sq, Sk, H, Hkv, Dk, Dv, causal, window, dt, kind, prefix = \
+        BWD_MMA_CASES[case]
+    q, k, v, qp, kp = _t(*attn_case(B, Sq, Sk, H, Hkv, Dk, Dv, dt, kind,
+                                    seed=1), device=device)
+    q, k, v = (t.to(DTYPES[dt]) for t in (q, k, v))
+    if prefix:
+        v = k[..., :Dv]
+    gd = torch.Generator(device=device).manual_seed(Sq + Sk + Dk)
+    dout = torch.randn((B, Sq, H, Dv), generator=gd, device=device).to(
+        q.dtype)
+    kw = dict(scale=1.0 / np.sqrt(Dk), q_pos=qp, kv_pos=kp, causal=causal,
+              window=window)
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_MMA_CASES))
+def test_cuda_mma_backward_matches_plain_version(cuda, case):
+    """``flash_attention_bwd`` at the mma.sync sizes and MLA's against
+    ``ref.attention_bwd`` (the folded contract where V is K's prefix:
+    ``(dq, dk, None)``), its planted faults outside the limit, two calls
+    bit-equal, the forward with ``lse`` bit-equal to the serving forward
+    and its ``lse`` against ``ref.attention_lse``, the kernels named by
+    ``bwd_variant``."""
+    q, k, v, dout, kw = _bwd_mma_tensors(case, cuda)
+    launch.reset_launches()
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    served = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert launch.launches["flash_attention_bwd"] == 2
+    assert fa.last_bwd_variant == fa.bwd_variant(q.dtype, q.shape[-1],
+                                                 v.shape[-1])
+    bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), served.view(bits))
+    _, want_lse = ref.attention_lse(q, k, v, **kw)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    want = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+    fold = BWD_MMA_CASES[case][-1]
+    assert (got[2] is None) == fold == (want[2] is None)
+    n = 2 if fold else 3
+    for g, a, w in zip(got[:n], again[:n], want[:n], strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(bits), a.view(bits))
+        assert _within(g, w, q.dtype)
+    for fault in ("d_zero", "dropped_tile") + (("unfolded_dv",) if fold
+                                               else ()):
+        bad = ref.attention_bwd_fault(q, k, v, out, lse, dout, fault=fault,
+                                      **kw)
+        assert not all(_within(b, w, q.dtype)
+                       for b, w in zip(bad[:n], want[:n], strict=True)), \
+            fault
+
+
+@pytest.mark.cuda
+def test_cuda_mla_grad_under_autograd_goes_through_the_kernels(cuda):
+    """``ops.attention(q, k, k[..., :512])`` in bf16 under autograd
+    launches the forward with ``lse`` and the MLA backward once each; the
+    key's gradient is the wrappers' folded dK."""
+    q, k, v, dout, kw = _bwd_mma_tensors("bf16_d576_fold", cuda)
+    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+    launch.reset_launches()
+    out = ops.attention(qg, kg, kg[..., :512], **kw)
+    got = torch.autograd.grad(out, (qg, kg), dout)
+    torch.cuda.synchronize()
+    assert launch.launches["flash_attention"] == 1
+    assert launch.launches["flash_attention_bwd"] == 1
+    assert fa.last_bwd_variant == "mla_mma_sync"
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_without_backward_raise_under_grad(cuda):
     """On the card a gradient through attention at a head size with no
-    backward kernel (MLA's (576, 512), the mma.sync sizes) raises
+    backward kernel (float32 at MLA's (576, 512)) raises
     ``NotImplementedError`` naming its ROADMAP item; without a gradient
-    the same calls run.  A gradient through ``ssd`` (ROADMAP 16.4c, done)
-    runs and matches its plain version."""
+    the same call runs.  The head sizes that raised before (bf16 (576,
+    512) with V as K's prefix, ROADMAP 16.4d; bf16 (80, 80), 16.4e) now
+    run and match the plain version, as does a gradient through ``ssd``
+    (ROADMAP 16.4c)."""
     x, dt, A, Bm, C = _t(*ssd_case(1, 64, 2, 32, 1, 32), device=cuda)
     x = x.requires_grad_()
     y, _ = ops.ssd(x, dt, A, Bm, C, chunk=32)
@@ -1177,14 +1286,25 @@ def test_cuda_kernels_without_backward_raise_under_grad(cuda):
     assert ref.ssd_bwd_within([g], [want])
     with torch.no_grad():
         ops.ssd(x, dt, A, Bm, C, chunk=32)
-    for (Dk, Dv), item in (((576, 512), "16.4d"), ((80, 80), "16.4e")):
+    for (Dk, Dv), dtype in (((576, 512), torch.float32),
+                            ((576, 512), torch.bfloat16),
+                            ((80, 80), torch.bfloat16)):
         q, k, v, qp, kp = _t(*attn_case(1, 64, 64, 4, 1, Dk, Dv, "bf16",
                                         "arange"), device=cuda)
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
         if Dk == 576:
             v = k[..., :512]
         q.requires_grad_()
-        with pytest.raises(NotImplementedError, match=item):
-            ops.attention(q, k, v, scale=0.1, q_pos=qp, kv_pos=kp)
-        with torch.no_grad():
-            ops.attention(q, k, v, scale=0.1, q_pos=qp, kv_pos=kp)
+        kw = dict(scale=0.1, q_pos=qp, kv_pos=kp)
+        if dtype == torch.float32:
+            with pytest.raises(NotImplementedError, match="16.4f"):
+                ops.attention(q, k, v, **kw)
+            with torch.no_grad():
+                ops.attention(q, k, v, **kw)
+            continue
+        out = ops.attention(q, k, v, **kw)
+        dout = torch.ones_like(out)
+        (gq,) = torch.autograd.grad(out, q, dout)
+        o, lse = ref.attention_lse(q.detach(), k, v, **kw)
+        assert _within(gq, ref.attention_bwd(q.detach(), k, v, o, lse, dout,
+                                             **kw)[0], dtype)

@@ -79,7 +79,9 @@ TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 # ---------------------------------------------------------------------------
 # B, Sq, Sk, H, Hkv, D, causal, window, positions: causal and not, a
 # window, masked keys (kv_pos < 0), rows that see no key ("late_keys"),
-# rep 1, 2 and 4, head sizes 64 and 128 (the kernel's), ragged Sq != Sk
+# rep 1, 2 and 4, head sizes 64 and 128 (the wgmma kernels'), ragged Sq !=
+# Sk; then the mma.sync sizes, D as (Dk, Dv) with a separate V:
+# stablelm-3b's (80, 80) and the test sizes (32, 16), (32, 32)
 ATTN_CASES = {
     "causal_rep2_d64": (2, 80, 80, 4, 2, 64, True, None, "arange"),
     "noncausal_rep1_d64": (1, 50, 90, 4, 4, 64, False, None, "arange"),
@@ -87,16 +89,27 @@ ATTN_CASES = {
     "holes_rep2_d64": (2, 70, 70, 4, 2, 64, True, None, "holes"),
     "late_keys_d128": (1, 60, 60, 4, 2, 128, True, None, "late_keys"),
     "ragged_rep4_d128": (1, 33, 75, 4, 1, 128, True, None, "arange"),
+    "causal_rep1_d80_80": (2, 45, 45, 4, 4, (80, 80), True, None, "arange"),
+    "window_holes_rep2_d32_16": (1, 60, 70, 4, 2, (32, 16), True, 11,
+                                 "holes"),
+    "noncausal_late_keys_rep4_d32_32": (1, 40, 52, 8, 2, (32, 32), True,
+                                        None, "late_keys"),
 }
+
+
+def head_dims(D):
+    """``(Dk, Dv)`` of an `ATTN_CASES` head size."""
+    return D if isinstance(D, tuple) else (D, D)
 
 
 def attn_case(B_, Sq, Sk, H, Hkv, D, positions, seed=0):
     """``(q, k, v, dout, q_pos, kv_pos)`` as numpy arrays."""
+    Dk, Dv = head_dims(D)
     r = np.random.default_rng(seed)
-    q = r.standard_normal((B_, Sq, H, D)).astype(np.float32)
-    k = r.standard_normal((B_, Sk, Hkv, D)).astype(np.float32)
-    v = r.standard_normal((B_, Sk, Hkv, D)).astype(np.float32)
-    do = r.standard_normal((B_, Sq, H, D)).astype(np.float32)
+    q = r.standard_normal((B_, Sq, H, Dk)).astype(np.float32)
+    k = r.standard_normal((B_, Sk, Hkv, Dk)).astype(np.float32)
+    v = r.standard_normal((B_, Sk, Hkv, Dv)).astype(np.float32)
+    do = r.standard_normal((B_, Sq, H, Dv)).astype(np.float32)
     qp = np.ascontiguousarray(np.broadcast_to(np.arange(Sk - Sq, Sk),
                                               (B_, Sq)), dtype=np.int32)
     kp = np.broadcast_to(np.arange(Sk), (B_, Sk)).astype(np.int32).copy()
@@ -132,7 +145,8 @@ def _port_grads(q, k, v, do, qp, kp, dt, **kw):
 def test_attention_bwd_matches_jax_vjp(case, dt):
     B_, Sq, Sk, H, Hkv, D, causal, window, kind = ATTN_CASES[case]
     q, k, v, do, qp, kp = attn_case(B_, Sq, Sk, H, Hkv, D, kind)
-    kw = dict(scale=1.0 / np.sqrt(D), causal=causal, window=window)
+    kw = dict(scale=1.0 / np.sqrt(head_dims(D)[0]), causal=causal,
+              window=window)
     _, vjp = jax.vjp(lambda q, k, v: jref.attention(
         q, k, v, q_pos=jnp.asarray(qp), kv_pos=jnp.asarray(kp), kv_chunk=32,
         **kw), *(jnp.asarray(a, JDT[dt]) for a in (q, k, v)))
@@ -156,7 +170,7 @@ def test_attention_function_matches_autograd_of_plain_version(case):
     call without a gradient."""
     B_, Sq, Sk, H, Hkv, D, causal, window, kind = ATTN_CASES[case]
     q, k, v, do, qp, kp = attn_case(B_, Sq, Sk, H, Hkv, D, kind)
-    kw = dict(scale=1.0 / np.sqrt(D), q_pos=torch.from_numpy(qp),
+    kw = dict(scale=1.0 / np.sqrt(head_dims(D)[0]), q_pos=torch.from_numpy(qp),
               kv_pos=torch.from_numpy(kp), causal=causal, window=window)
     ins = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
     out = ops.attention(*ins, **kw)
