@@ -229,8 +229,8 @@ JAX or the JAX package).  Sixteen phases, one JSON line each (or more):
    mamba2-130m --full --batch 8 --seq 2048 --steps 6``: ``ssd`` 48 and
    ``ssd_bwd`` 24 launches a step; ``--arch deepseek-v2-lite-16b --full
    --layers 4``, its `TRAIN_CUTS` depth: ``flash_attention`` 8 (MLA's,
-   with ``lse``) and ``flash_attention_bwd`` 4 (the ``mma.sync``
-   template at (576, 512)); no other kernel), ms a step, tokens/s, peak
+   with ``lse``) and ``flash_attention_bwd`` 4 (the MLA ``wgmma``
+   kernels at (576, 512)); no other kernel), ms a step, tokens/s, peak
    memory, a profiled step, a finite loss that falls;
 16. training on the card against the CPU (``train_card_vs_cpu``): the
    smoke configs of qwen3-0.6b, mamba2-130m, jamba-1.5-large-398b and
@@ -3318,11 +3318,12 @@ BWD_TIMED = ("train_main", "mla_train", "stablelm_train")
 BWD_V_PREFIX = ("mla_smoke_bf16", "mla_smoke_f32", "bf16_d32_16_prefix",
                 "f32_d32_16_prefix")
 # the backward's kernels (csrc/flash_attention_bwd.cu), for the ptxas lines
-# and the profiler: D, the bf16 wgmma kernels, the bf16 mma.sync ones (the
-# narrow sizes and MLA's), the float32 ones
+# and the profiler: D, the bf16 wgmma kernels ((64, 64), (80, 80), (128,
+# 128)), the MLA ones, the mma.sync ones (the smoke sizes), the float32
+# ones
 BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma",
-               "fa_bwd_dkdv_mma", "fa_bwd_dq_mma", "fa_bwd_dkdv_f32",
-               "fa_bwd_dq_f32")
+               "fa_bwd_dkdv_mla", "fa_bwd_dq_mla", "fa_bwd_dkdv_mma",
+               "fa_bwd_dq_mma", "fa_bwd_dkdv_f32", "fa_bwd_dq_f32")
 # Training at full width (phase 15): qwen3-0.6b through
 # repro_torch.launch.train at the serving cells' batch, 8 x 2048 tokens,
 # with the launcher's AdamW and cosine schedule, BSP; step 1 is the
@@ -3346,8 +3347,8 @@ TRAIN_SSM_KERNELS = {"ssd": ("split::split_kernel", "5split12split_kernel",
 TRAIN_MLA_ARCH = "deepseek-v2-lite-16b"
 TRAIN_MLA_KERNELS = {"flash_attention": ("fa_mla_wgmma_kernel",),
                      "flash_attention_bwd": ("fa_bwd_delta",
-                                             "fa_bwd_dkdv_mma",
-                                             "fa_bwd_dq_mma")}
+                                             "fa_bwd_dkdv_mla",
+                                             "fa_bwd_dq_mla")}
 # deepseek-v2-lite-16b's training state does not fit one card at 27
 # layers: bf16 parameters and gradients, AdamW's float32 m and v (updated
 # in place) and its float32 updates are 16 bytes a parameter, ~0.585 B
@@ -3581,15 +3582,18 @@ def check_flash_attention_bwd(name, device, rates, timed: bool):
             library_backend=backend, bound_ms=bound, bound_by=by,
             visible_triples=triples)
         del library
-        rec["ptxas"] = [ln for entry in BWD_KERNELS
-                        for ln in kernel_ptxas("flash_attention_bwd", entry)]
+        lines = {entry: kernel_ptxas("flash_attention_bwd", entry)
+                 for entry in BWD_KERNELS}
+        rec["ptxas"] = [ln for entry in BWD_KERNELS for ln in lines[entry]]
         rec["bwd_kernels"] = fa.bwd_kernel_info(q.shape[-1], v.shape[-1])
-        if len(rec["ptxas"]) < 2 * len(BWD_KERNELS) or any(
+        if not all(lines.values()) or any(
                 ", 0 bytes spill stores, 0 bytes spill loads" not in ln
-                for ln in rec["ptxas"]):
+                for ln in rec["ptxas"]) or any(
+                info["local_bytes"] for info in rec["bwd_kernels"].values()):
             emit(rec)
             raise AssertionError(f"flash_attention_bwd's kernels spill or "
-                                 f"have no ptxas lines: {rec['ptxas']}")
+                                 f"have no ptxas lines: {rec['ptxas']}, "
+                                 f"{rec['bwd_kernels']}")
     emit(rec)
     return rec
 
@@ -4467,8 +4471,9 @@ def main() -> int:
     # the backward of attention: no pallas_call stands behind it (the TPU's
     # train step differentiates the blocked reference attention with XLA)
     # qwen3-0.6b's step through the wgmma kernels, deepseek-v2-lite's
-    # through the mma.sync template at (576, 512); stablelm-3b's training
-    # shape (80, 80), which no phase trains, beside the latter
+    # through the MLA wgmma kernels at (576, 512); stablelm-3b's training
+    # shape (80, 80) (the wgmma kernels), which no phase trains, beside
+    # the latter
     for name, rec, run in (("flash_attention_bwd", bwd_timed["train_main"],
                             trained),
                            ("flash_attention_bwd[mla]",

@@ -33,7 +33,8 @@
 // FFMAs a score) beside them and not between them.
 //
 // Three kernels, launched in turn on the caller's stream (bf16 at (64,
-// 64) and (128, 128)):
+// 64), (80, 80) and (128, 128); at 80 a row takes two 64-column boxes, the
+// second zero past column 79, and the products stop at column 80):
 //
 // - `fa_bwd_delta`: D = rowsum(dO * O) in float32, a warp a row;
 // - `fa_bwd_dkdv_wgmma` (bf16): dK and dV.  A persistent grid (one CTA an
@@ -102,13 +103,20 @@
 // past Sk has position -1, so it is masked), and the TMA stores write no
 // row past the end.
 //
-// bf16 at (32, 16), (32, 32), (80, 64), (80, 80) and MLA's (576, 512):
-// `fa_bwd_dkdv_mma` and `fa_bwd_dq_mma`, one mma.sync template (its
-// section below): a resident 64-row tile (keys, or (query, head) rows)
-// and 32-row units streamed past it through a cp.async double buffer, S
-// and dP for the pairs, then the output tile's products, its columns
-// split across 8 warps (at 576 columns, 144 float32 registers a
-// thread).  Like the wgmma kernels they skip a unit with no visible pair
+// bf16 at MLA's (576, 512), V as K's first 512 columns: `fa_bwd_dkdv_mla`
+// and `fa_bwd_dq_mla` (their section below), the same design at MLA's
+// width: persistent, a producer warp and TMA rings, the products on
+// wgmma; K resident with 32-row units of (query, head) rows streamed
+// past it (dK), Q and dO resident with 32-key tiles streamed (dQ); two
+// consumer warpgroups split the output's 576 columns and hand P and dS to
+// each other.
+//
+// bf16 at the smoke sizes (32, 16), (32, 32) and (80, 64): `fa_bwd_dkdv_mma`
+// and `fa_bwd_dq_mma`, one mma.sync template (its section below): a
+// resident 64-row tile (keys, or (query, head) rows) and 32-row units
+// streamed past it through a cp.async double buffer, S and dP for the
+// pairs, then the output tile's products, its columns split across 8
+// warps.  Like the wgmma kernels they skip a unit with no visible pair
 // before loading it and mask only partial ones, with no atomics.
 //
 // float32 at every size but (576, 512): CUDA cores, full float32 products
@@ -168,10 +176,10 @@ __global__ void __launch_bounds__(256) fa_bwd_delta(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 and 128: TMA, wgmma, warp-specialised persistent CTAs
+// bf16 at D = 64, 80 and 128: TMA, wgmma, warp-specialised persistent CTAs
 // ---------------------------------------------------------------------------
 // Every tile lives in shared memory as TMA's 128-byte swizzle writes it:
-// D / 64 boxes of (rows) x 128 bytes, each box 1024-byte aligned.  A
+// ceil(D / 64) boxes of (rows) x 128 bytes, each box 1024-byte aligned.  A
 // K-major operand steps 32 bytes a 16-wide slice of D inside a box and a
 // box every 4 slices; an MN-major operand steps 1024 bytes every 8 rows
 // along its depth (SBO) and a box every 64 columns of N (LBO).
@@ -192,7 +200,8 @@ __device__ __forceinline__ void ss_64x64(float* s, uint32_t a, int abox,
 
 // acc += A B over a depth of 64 rows: A (64 x 64) from registers, four
 // 16-wide slices of `af`; B (64 rows x D) MN-major at `b`, boxes `bbox`
-// bytes apart (wgmma m64nDk16, RS).
+// bytes apart (wgmma m64nDk16, RS).  At D = 80, N runs from the first
+// box's 64 columns on into the second box's first 16 (LBO).
 template <int D>
 __device__ __forceinline__ void rs_64xD(float* acc, uint32_t (*af)[4],
                                         uint32_t b, int bbox) {
@@ -201,17 +210,20 @@ __device__ __forceinline__ void rs_64xD(float* acc, uint32_t (*af)[4],
     const uint64_t db = sw128_desc(b + kk * 16 * 128, bbox, 1024);
     if constexpr (D == 128)
       wgmma_rs_m64n128(acc, af[kk], db);
+    else if constexpr (D == 80)
+      wgmma_rs_m64n80(acc, af[kk], db);
     else
       wgmma_rs_m64n64(acc, af[kk], db);
   }
 }
 
-// A 64 x 64 accumulator rounded to bf16 as wgmma's register A operand:
+// A 64 x 16 NK accumulator rounded to bf16 as wgmma's register A operand:
 // columns 16kk..16kk+15 are the accumulator's column groups 2kk and
 // 2kk + 1, in mma's A fragment order.
+template <int NK = 4>
 __device__ __forceinline__ void pack_a(const float* s, uint32_t (*af)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NK; ++kk) {
     af[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     af[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     af[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -221,9 +233,10 @@ __device__ __forceinline__ void pack_a(const float* s, uint32_t (*af)[4]) {
 
 // Keeps an A operand's registers from reuse until the product that reads
 // them has been waited for.
+template <int NK = 4>
 __device__ __forceinline__ void fence_af(uint32_t (*af)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < NK; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(af[kk][e])::"memory");
 }
@@ -276,15 +289,18 @@ __device__ __forceinline__ void warp_range(int& lo, int& hi) {
 // D, position), the mbarriers (full and empty per K/V buffer and per
 // stage), one slot per buffer naming its item (b, hk, k0; w = 0 ends the
 // work) and one per stage naming its tile (q0, head, class; q0 = -1 ends
-// the item).  D = 128: 2 x 64 KB of K and V and two stages of 32 KB, 194
-// KB (one buffer and three stages measured slower); D = 64: four stages,
-// 131 KB.
+// the item).  A row of D columns takes NB = ceil(D / 64) whole boxes: at
+// D = 80 TMA fills the second box's columns 80-127 with zeros (no product
+// reads them) and its stores write nothing past column 79, so the byte
+// counts are the boxes'.  NB = 2 (D = 80, 128): 2 x 64 KB of K and V and
+// two stages of 32 KB, 194 KB (one buffer and three stages measured
+// slower at D = 128); D = 64: four stages, 131 KB.
 template <int D>
 struct DkdvLayout {
-  static constexpr int BK = 128, BQ = 64;
-  static constexpr int STAGES = D == 128 ? 2 : 4, KVBUF = 2;
+  static constexpr int BK = 128, BQ = 64, NB = (D + 63) / 64;
+  static constexpr int STAGES = NB == 2 ? 2 : 4, KVBUF = 2;
   static constexpr int KV_BOX = BK * 128, Q_BOX = BQ * 128;
-  static constexpr int KV_BYTES = BK * D * 2, QT_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = NB * KV_BOX, QT_BYTES = NB * Q_BOX;
   static constexpr int K_OFF = 0, V_OFF = KV_BYTES;  // buffer k: + 2k KV
   static constexpr int Q_OFF = KVBUF * 2 * KV_BYTES;  // stage s: Q, dO
   static constexpr int ROW_OFF = Q_OFF + STAGES * 2 * QT_BYTES;
@@ -373,7 +389,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_wgmma(
         islot[kb] = make_int4(b, hk, k0, 1);
         mbar_expect_tx(FULL_KV(kb), 2 * L::KV_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < L::NB; ++c) {
           tma_load_4d(KV_BUF(kb) + L::K_OFF + c * L::KV_BOX, &tm_k,
                       FULL_KV(kb), c * 64, hk, k0, b);
           tma_load_4d(KV_BUF(kb) + L::V_OFF + c * L::KV_BOX, &tm_v,
@@ -446,7 +462,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_wgmma(
                                   0);
               mbar_expect_tx(FULL(s), 2 * L::QT_BYTES);
 #pragma unroll
-              for (int c = 0; c < D / 64; ++c) {
+              for (int c = 0; c < L::NB; ++c) {
                 tma_load_4d(Q_STAGE(s) + c * L::Q_BOX, &tm_q, FULL(s),
                             c * 64, h, q0, b);
                 tma_load_4d(Q_STAGE(s) + L::QT_BYTES + c * L::Q_BOX, &tm_do,
@@ -561,7 +577,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_wgmma(
     if ((tid & 127) == 0) {
       if (k0 + 64 * w < Sk) {
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < L::NB; ++c) {
           tma_store_4d(&tm_dk, ka + c * L::KV_BOX, c * 64, hk, k0 + 64 * w,
                        b);
           tma_store_4d(&tm_dv, va + c * L::KV_BOX, c * 64, hk, k0 + 64 * w,
@@ -586,14 +602,15 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_wgmma(
 // V tiles of 64 keys, the mbarriers (Q full and Q empty per buffer; full
 // and empty per stage), one slot per buffer naming its item (b, h, q0;
 // w = 0 ends the work) and one per stage naming its tile (index and
-// class; index -1 ends the item).  D = 128: 128 KB of Q and dO and three
-// stages of 32 KB, 225 KB; D = 64: four stages, 129 KB.
+// class; index -1 ends the item).  Whole boxes, as in DkdvLayout.  NB =
+// 2 (D = 80, 128): 128 KB of Q and dO and three stages of 32 KB, 225 KB;
+// D = 64: four stages, 129 KB.
 template <int D>
 struct DqLayout {
-  static constexpr int BQ = 128, BK = 64;
-  static constexpr int STAGES = D == 128 ? 3 : 4, QBUF = 2;
+  static constexpr int BQ = 128, BK = 64, NB = (D + 63) / 64;
+  static constexpr int STAGES = NB == 2 ? 3 : 4, QBUF = 2;
   static constexpr int Q_BOX = BQ * 128, K_BOX = BK * 128;
-  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int Q_BYTES = NB * Q_BOX, KV_BYTES = NB * K_BOX;
   static constexpr int K_OFF = QBUF * 2 * Q_BYTES;  // stage s: K, then V
   static constexpr int BAR_OFF = K_OFF + STAGES * 2 * KV_BYTES;
   static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 * QBUF + 2 * STAGES);
@@ -690,7 +707,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dq_wgmma(
         islot[q] = make_int4(b, h, q0, 1);
         mbar_expect_tx(FULL_Q(q), 2 * L::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < L::NB; ++c) {
           tma_load_4d(Q_BUF(q) + c * L::Q_BOX, &tm_q, FULL_Q(q), c * 64, h,
                       q0, b);
           tma_load_4d(Q_BUF(q) + L::Q_BYTES + c * L::Q_BOX, &tm_do,
@@ -742,7 +759,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dq_wgmma(
                                                             : TILE_FULL);
             mbar_expect_tx(FULL(s), 2 * L::KV_BYTES);
 #pragma unroll
-            for (int c = 0; c < D / 64; ++c) {
+            for (int c = 0; c < L::NB; ++c) {
               tma_load_4d(K_STAGE(s) + c * L::K_BOX, &tm_k, FULL(s), c * 64,
                           hk, t * BK, b);
               tma_load_4d(K_STAGE(s) + L::KV_BYTES + c * L::K_BOX, &tm_v,
@@ -852,7 +869,7 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_dq_wgmma(
     if ((tid & 127) == 0) {
       if (q0 + 64 * w < Sq) {
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
+        for (int c = 0; c < L::NB; ++c)
           tma_store_4d(&tm_dq, qa + c * L::Q_BOX, c * 64, h, q0 + 64 * w, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -1176,8 +1193,8 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at (32, 16), (32, 32), (80, 64), (80, 80) and MLA's (576, 512):
-// mma.sync m16n8k16 kernels, one template for both gradients
+// bf16 at (32, 16), (32, 32) and (80, 64): mma.sync m16n8k16 kernels, one
+// template for both gradients
 // ---------------------------------------------------------------------------
 // A CTA of 8 warps holds one resident tile of 64 rows and streams units
 // of 32 rows past it, two units in flight (cp.async into a double
@@ -1186,7 +1203,7 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
 // - dK (and dV): resident 64 keys of one KV head (K, and V unless V is
 //   K's prefix), streamed units of 32 (query, head) rows of the KV head's
 //   rep query heads in q's own layout (row rr is query rr / rep of head
-//   hk * rep + rr % rep: MLA's rep 16 heads share each K tile), Q and dO;
+//   hk * rep + rr % rep: the rep heads share each K tile), Q and dO;
 // - dQ: resident 64 (query, head) rows (Q and dO), streamed units of 32
 //   keys (K, and V unless it is K's prefix).
 //
@@ -1196,11 +1213,10 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
 // The output tile (64 rows x Dk, float32 in registers) takes dS times the
 // unit's rows of K (dQ) or Q (dK) and, for dK, P times the unit's dO into
 // dV, or into dK's first Dv columns where V is K's prefix (FOLD).  The
-// output's columns are split across the warps: at Dk 576 four column
-// slices of 144 by two row halves (2 x 18 m16n8 tiles, 144 registers of
-// float32 a thread); at the narrow sizes two column halves by four row
-// quarters.  B operands are read with ldmatrix (.trans where the product
-// runs along the unit's rows), so nothing is transposed in memory.
+// output's columns are split across the warps, two column halves by four
+// row quarters.  B operands are read with ldmatrix (.trans where the
+// product runs along the unit's rows), so nothing is transposed in
+// memory.
 //
 // Where the scale enters: with FOLD one accumulator takes dS^T Q and P^T
 // dO, so dS is scaled before its bf16 rounding, bf16(scale dS), and the
@@ -1209,8 +1225,7 @@ __global__ void __launch_bounds__(128, 1) fa_bwd_dq_f32(
 template <int DK, int DV>
 struct MmaBwd {
   static constexpr int BR = 64, BS = 32;       // resident rows, unit rows
-  static constexpr int WN = DK >= 256 ? 4 : 2;  // warps across the columns
-  static constexpr int WM = 8 / WN;            // and across the rows
+  static constexpr int WN = 2, WM = 4;  // warps across columns, rows
   static constexpr int MTW = 4 / WM;           // m16 tiles a warp
   static constexpr int NTW = DK / 8 / WN;      // n8 tiles a warp (dK, dQ)
   static constexpr int NTV = DV / 8 / WN;      // n8 tiles a warp (dV)
@@ -1658,6 +1673,810 @@ __global__ void __launch_bounds__(256, 1) fa_bwd_dq_mma(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at MLA's (576, 512), V as K's first 512 columns: TMA, wgmma,
+// warp-specialised persistent CTAs
+// ---------------------------------------------------------------------------
+// Both kernels have the shape of the MLA forward (flash_attention.cu,
+// `fa_mla_wgmma_kernel`): a persistent CTA an SM walks work items heaviest
+// first (`item_of`); a producer warp (setmaxnreg 40) loads each item's
+// resident tile by TMA into one buffer, classes the item's streamed units
+// 32 at a time (a lane a unit, `tile_class`) and sends those some pair
+// sees through a two-stage ring guarded by full/empty mbarriers; two
+// consumer warpgroups (232 registers) share every product of each unit.
+// All tiles are TMA's 128-byte swizzle, boxes of 64 columns (576 = 9
+// boxes, V's 512 the first 8, the rope columns box 8), so one K tile
+// serves K and V, and the products read Q, dO and K K-major (S, dP) or
+// MN-major (the outputs) without a transpose in memory:
+//
+// - `fa_bwd_dkdv_mla`: an item is 64 keys of one (batch row, KV head),
+//   K resident (72 KB); the units are 32 (query, head) rows of the KV
+//   head's rep query heads in q's own order (row rr: query rr / rep of
+//   head hk * rep + rr % rep), Q (36 KB) and dO (32 KB) by TMA when a
+//   unit is one box of q (rep divides 32, or 32 divides rep), else copied
+//   by the producer warp into the same layout, with the rows' lse, D and
+//   positions, the item's last unit first: the CTAs on the items of one
+//   (batch row, KV head) then read each unit at about the same time, and
+//   it comes from L2 (first unit first, each unit came again from device
+//   memory for every key block: at deepseek-v2-lite's training shape on
+//   an H100 the ring alone, with D, took 2.72 ms against 1.68 last unit
+//   first, attention_bwd_ablation.py's `mla_dkdv_ring_only`).  Consumer
+//   0 forms S^T = K Q^T (m64n32k16, depth 576) and P^T, consumer 1 dP^T =
+//   V dO^T (depth 512) and, once P^T is there, dS^T = P^T (dP^T - D)
+//   scaled before its bf16 rounding (the folded contract, as the mma.sync
+//   template).  Then each adds bf16(scale
+//   dS^T) Q + P^T dO into its own columns of dK (dV folded in): consumer
+//   0 boxes 0-4 (320 columns, 160 float32 registers), consumer 1 boxes
+//   5-8 (256 columns, 128 registers; box 8 takes no P^T dO).  Consumer 0
+//   issues its P^T dO while consumer 1 forms dS^T.  dK is stored once an
+//   item, through the K buffer and TMA stores; the next item's K waits for
+//   those stores (one buffer: 72 KB, about two items a CTA at
+//   deepseek-v2-lite's training shape).
+// - `fa_bwd_dq_mla`: an item is 64 (query, head) rows of a KV head, Q (72
+//   KB) and dO (64 KB) resident, by TMA when the rows are one box of q
+//   (rep divides 64, or 64 divides rep), else copied by the producer; the
+//   units are 32-key K tiles (36 KB; V is their first 8 boxes).  Consumer
+//   0 forms S = Q K^T and P, consumer 1 dP = dO V^T and dS; both add
+//   bf16(scale dS) K into dQ's boxes 0-4 / 5-8, K read MN-major, the sum
+//   over tiles in their fixed order.  dQ is stored once an item through
+//   the Q buffer (TMA, or 16-byte stores of the rows before the end), and
+//   the next item's Q and dO wait for it.
+//
+// The two consumers hand P and dS to each other through shared memory,
+// thread t of one to thread t of the other (both hold the same
+// accumulator positions): P in float32, which dS takes as the plain
+// version does, and dS as its bf16 A fragments; named barriers order the
+// hand-offs (P ready: consumer 0 arrives, 1 waits; dS ready: the other
+// way).  S and dP are recomputed in both kernels (7680 FLOP a visible
+// triple against the bound's 5504), and being m64n32 with both operands
+// in shared memory, they read 3 KB a k-step for 16 tensor-core cycles:
+// shared memory, not the FLOP, bounds them at about 2/3 of the rate.
+struct MlaDkLayout {
+  static constexpr int BK = 64, BQ = 32, STAGES = 2;  // keys, unit rows
+  static constexpr int NBK = 9, NBV = 8;              // boxes of Q, dO
+  static constexpr int K_BOX = BK * 128, U_BOX = BQ * 128;
+  static constexpr int K_BYTES = NBK * K_BOX;
+  static constexpr int Q_BYTES = NBK * U_BOX, DO_BYTES = NBV * U_BOX;
+  static constexpr int U_OFF = K_BYTES;  // stage s: Q, then dO
+  static constexpr int XP_OFF = U_OFF + STAGES * (Q_BYTES + DO_BYTES);
+  static constexpr int XS_OFF = XP_OFF + 16 * 128 * 4;  // P: 16 a thread
+  static constexpr int ROW_OFF = XS_OFF + 8 * 128 * 4;  // dS: 8 words
+  static constexpr int BAR_OFF = ROW_OFF + STAGES * 3 * BQ * 4;
+  static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 + 2 * STAGES);
+  static constexpr int SLOT_OFF = ISLOT_OFF + 16;
+  static constexpr int BYTES = 1024 + SLOT_OFF + 16 * STAGES;
+};
+
+struct MlaDqLayout {
+  static constexpr int BQ = 64, BK = 32, STAGES = 2;  // item rows, keys
+  static constexpr int NBK = 9, NBV = 8;
+  static constexpr int Q_BOX = BQ * 128, K_BOX = BK * 128;
+  static constexpr int Q_BYTES = NBK * Q_BOX, DO_BYTES = NBV * Q_BOX;
+  static constexpr int TILE_BYTES = NBK * K_BOX;
+  static constexpr int K_OFF = Q_BYTES + DO_BYTES;  // stage s: a K tile
+  static constexpr int XP_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int XS_OFF = XP_OFF + 16 * 128 * 4;
+  static constexpr int KP_OFF = XS_OFF + 8 * 128 * 4;  // [ST][BK] positions
+  static constexpr int BAR_OFF = KP_OFF + STAGES * BK * 4;
+  static constexpr int ISLOT_OFF = BAR_OFF + 8 * (2 + 2 * STAGES);
+  static constexpr int SLOT_OFF = ISLOT_OFF + 16;
+  static constexpr int BYTES = 1024 + SLOT_OFF + 8 * STAGES;
+};
+static_assert(MlaDkLayout::BYTES <= 232448 && MlaDqLayout::BYTES <= 232448,
+              "shared memory");
+
+// Named barriers of the MLA kernels: P ready, dS ready (both consumer
+// warpgroups, 256 threads), and each warpgroup alone (3 + w).
+constexpr int MB_P = 1, MB_DS = 2;
+__device__ __forceinline__ void mb_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void mb_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void mb_wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + w) : "memory");
+}
+
+template <int W>
+struct MlaWg {
+  static constexpr int value = W;
+};
+
+// x, opaque to the compiler: a shared address that does not change from
+// unit to unit would otherwise have its 36 wgmma descriptors hoisted out
+// of the loop (72 registers) and spilled.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// S = A B^T over NB boxes of depth for 64 rows and 32 columns, both
+// K-major: A's boxes `abox` bytes apart, B's `bbox` (wgmma m64n32k16, SS).
+template <int NB>
+__device__ __forceinline__ void ss_64x32(float* s, uint32_t a, int abox,
+                                         uint32_t b, int bbox) {
+#pragma unroll
+  for (int kk = 0; kk < NB * 4; ++kk)
+    wgmma_ss_m64n32(s, sw128_desc(a + (kk / 4) * abox + (kk % 4) * 32, 16,
+                                  1024),
+                    sw128_desc(b + (kk / 4) * bbox + (kk % 4) * 32, 16, 1024),
+                    kk > 0);
+}
+
+// acc += A B over a depth of 32 rows: A (64 x 32) from registers, two
+// 16-wide slices; B MN-major at `b` (rows 128 bytes, boxes `bbox` apart).
+// W 0: boxes 0-4 of B into acc[0..159] (m64n256 over boxes 0-3, m64n64 box
+// 4); W 1: boxes 5-7 (m64n192) into acc[0..95] and, with `rope`, box 8
+// (m64n64) into acc[96..127].
+template <int W>
+__device__ __forceinline__ void rs_mla(float* acc, uint32_t (*af)[4],
+                                       uint32_t b, int bbox, bool rope) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const uint32_t bk = b + kk * 16 * 128;
+    if constexpr (W == 0) {
+      wgmma_rs_m64n256(acc, af[kk], sw128_desc(bk, bbox, 1024));
+      wgmma_rs_m64n64(acc + 128, af[kk], sw128_desc(bk + 4 * bbox, bbox,
+                                                    1024));
+    } else {
+      wgmma_rs_m64n192(acc, af[kk], sw128_desc(bk + 5 * bbox, bbox, 1024));
+      if (rope)
+        wgmma_rs_m64n64(acc + 96, af[kk], sw128_desc(bk + 8 * bbox, bbox,
+                                                     1024));
+    }
+  }
+}
+
+// Rows of a tile copied by one warp into TMA's 128-byte-swizzle layout
+// (NB boxes of `box_rows` rows of 128 bytes at `dst`), 16 bytes a lane a
+// step: tile row r is row `row_of(r)` of `src` (`ld` elements apart), or
+// zeros where that is negative.  Then the copies are fenced for wgmma.
+template <int NB, typename RowOf>
+__device__ __forceinline__ void warp_copy_rows(uint8_t* dst, int box_rows,
+                                               const bf16* __restrict__ src,
+                                               int ld, RowOf row_of,
+                                               int lane) {
+#pragma unroll 1
+  for (int e = lane; e < box_rows * NB * 8; e += 32) {
+    const int r = e / (NB * 8), c = e % (NB * 8);
+    const long long g = row_of(r);
+    const uint4 val =
+        g >= 0 ? __ldg(reinterpret_cast<const uint4*>(src + g * ld + c * 8))
+               : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(dst + (c / 8) * box_rows * 128 + r * 128 +
+                              (((c & 7) ^ (r & 7)) << 4)) = val;
+  }
+  fence_proxy_async();
+}
+
+// A partial unit's element mask for the MLA dK kernel (m64n32): bit e for
+// the accumulator's element e (key row kp0 or kp1, unit row acc_col).
+__device__ __forceinline__ uint32_t mla_dk_mask(const int* qp_s, int tq,
+                                                int kp0, int kp1, int causal,
+                                                int window) {
+  uint32_t vis = 0u;
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    vis |= static_cast<uint32_t>(visible(qp_s[acc_col(e, tq)],
+                                         (e & 2) ? kp1 : kp0, causal,
+                                         window))
+           << e;
+  return vis;
+}
+
+// The same for the MLA dQ kernel: rows qp0 / qp1, the tile's keys' staged
+// positions.
+__device__ __forceinline__ uint32_t mla_dq_mask(const int* kp_s, int tq,
+                                                int qp0, int qp1, int causal,
+                                                int window) {
+  uint32_t vis = 0u;
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    vis |= static_cast<uint32_t>(visible((e & 2) ? qp1 : qp0,
+                                         kp_s[acc_col(e, tq)], causal,
+                                         window))
+           << e;
+  return vis;
+}
+
+// The positions of 32 keys from j0 (a lane's unit or tile): their range
+// [lo, hi] past -1, and whether one is masked or past Sk.
+__device__ __forceinline__ void key_range(const int* __restrict__ kp_row,
+                                          int j0, int n, int Sk, int& lo,
+                                          int& hi, bool& neg) {
+  lo = INT_HI;
+  hi = INT_LO;
+  neg = false;
+#pragma unroll 8
+  for (int e = 0; e < n; ++e) {
+    const int j = j0 + e;
+    const int kp = j < Sk ? __ldg(kp_row + j) : -1;
+    neg |= kp < 0;
+    lo = kp < 0 ? lo : min(lo, kp);
+    hi = kp < 0 ? hi : max(hi, kp);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1) fa_bwd_dkdv_mla(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_dk, const bf16* __restrict__ q,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, int Sq, int Sk, int H, int Hkv, int B,
+    float scale, int causal, int window, int u_tma) {
+  using L = MlaDkLayout;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::STAGES;
+  extern __shared__ uint8_t mla_dk_smem[];
+  const uint32_t raw = smem_u32(mla_dk_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // K; the ring follows
+  uint8_t* gbase = mla_dk_smem + (base - raw);
+  const uint32_t bar = base + L::BAR_OFF;
+  int4* islot = reinterpret_cast<int4*>(gbase + L::ISLOT_OFF);
+  int4* slot = reinterpret_cast<int4*>(gbase + L::SLOT_OFF);
+  float* rows_s = reinterpret_cast<float*>(gbase + L::ROW_OFF);
+  float* xp = reinterpret_cast<float*>(gbase + L::XP_OFF);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(gbase + L::XS_OFF);
+#define FULL_K (bar)
+#define EMPTY_K (bar + 8)
+#define FULL(s) (bar + 8 * (2 + (s)))
+#define EMPTY(s) (bar + 8 * (2 + ST + (s)))
+#define U_STAGE(s) (base + L::U_OFF + (s) * (L::Q_BYTES + L::DO_BYTES))
+
+  // rows: Sq * rep < 2^31 (the launcher checks)
+  const int rep = H / Hkv, rows = Sq * rep;
+  const int n_kb = (Sk + BK - 1) / BK, n_units = (rows + BQ - 1) / BQ;
+  const int G = B * Hkv, n_items = n_kb * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(FULL_K, 1);
+    mbar_init(EMPTY_K, 2);  // one thread of each consumer warpgroup
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL(s), 32);    // every lane of the producer warp
+      mbar_init(EMPTY(s), 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer: one warp loads each item's K, classes the units of
+    // its KV head's rows (32 at a time, a lane a unit) and sends those
+    // not skipped in order (Q and dO by TMA from lane 0, or copied by the
+    // warp; each lane one row's lse, D and position), then an end of item
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0, n = 0;  // stages sent, items sent
+    for (int item; (item = item_of(n, blockIdx.x, gridDim.x)) < n_items;
+         ++n) {
+      // key blocks in order, the batch rows and KV heads within: causal,
+      // the heaviest first
+      const int k0 = item / G * BK, g = item % G;
+      const int hk = g % Hkv, b = g / Hkv;
+      if (lane == 0) {
+        mbar_wait(EMPTY_K, (n & 1) ^ 1);
+        islot[0] = make_int4(b, hk, k0, 1);
+        mbar_expect_tx(FULL_K, L::K_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::NBK; ++c)
+          tma_load_4d(base + c * L::K_BOX, &tm_k, FULL_K, c * 64, hk, k0, b);
+      }
+      int klo, khi;
+      bool neg;
+      key_range(kpos + (long long)b * Sk, k0 + 2 * lane, 2, Sk, klo, khi,
+                neg);
+      warp_range(klo, khi);
+      neg = __any_sync(0xffffffffu, neg);
+      // the units from the last down, 32 at a time (the L2's reuse: the
+      // section's comment)
+      for (int c0 = (n_units - 1) / 32 * 32; c0 >= 0 && klo <= khi;
+           c0 -= 32) {
+        int cl = TILE_SKIP;
+        if (c0 + lane < n_units) {
+          const int rr = (c0 + lane) * BQ;
+          const int last = (min(rr + BQ, rows) - 1) / rep;
+          int qlo = INT_HI, qhi = INT_LO;
+          for (int i = rr / rep; i <= last; ++i) {
+            const int qp = __ldg(qpos + (long long)b * Sq + i);
+            qlo = min(qlo, qp);
+            qhi = max(qhi, qp);
+          }
+          cl = tile_class(klo, khi, neg, qlo, qhi, causal, window);
+        }
+        const uint32_t part = __ballot_sync(0xffffffffu, cl == TILE_PARTIAL);
+        for (uint32_t send = __ballot_sync(0xffffffffu, cl != TILE_SKIP);
+             send; send &= ~(1u << (31 - __clz(send)))) {
+          const int t = 31 - __clz(send), rr0 = (c0 + t) * BQ;
+          const int rr = rr0 + lane, i = rr / rep, h = hk * rep + rr % rep;
+          const bool in = rr < rows;
+          const long long li = ((long long)b * H + h) * Sq + i;
+          const int qp = in ? qpos[(long long)b * Sq + i] : PAD_QPOS;
+          const float l2 = in ? lse[li] * LOG2E : pos_inf();
+          const float dd = in ? delta[li] : 0.f;
+          const int s = ring % ST;
+          mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+          float* rs = rows_s + s * 3 * BQ;
+          rs[lane] = l2;
+          rs[BQ + lane] = dd;
+          reinterpret_cast<int*>(rs)[2 * BQ + lane] = qp;
+          if (lane == 0)
+            slot[s] = make_int4(c0 + t,
+                                (part >> t) & 1u ? TILE_PARTIAL : TILE_FULL,
+                                0, 0);
+          if (u_tma) {
+            if (lane == 0) {
+              mbar_expect_tx(FULL(s), L::Q_BYTES + L::DO_BYTES);
+              const int hh = hk * rep + rr0 % rep, i0 = rr0 / rep;
+#pragma unroll
+              for (int c = 0; c < L::NBK; ++c)
+                tma_load_4d(U_STAGE(s) + c * L::U_BOX, &tm_q, FULL(s),
+                            c * 64, hh, i0, b);
+#pragma unroll
+              for (int c = 0; c < L::NBV; ++c)
+                tma_load_4d(U_STAGE(s) + L::Q_BYTES + c * L::U_BOX, &tm_do,
+                            FULL(s), c * 64, hh, i0, b);
+            } else {
+              mbar_arrive(FULL(s));
+            }
+          } else {  // rep neither divides nor is a multiple of 32
+            auto row_of = [&](int r) -> long long {
+              const int x = rr0 + r;
+              return x < rows ? ((long long)b * Sq + x / rep) * H + hk * rep +
+                                    x % rep
+                              : -1;
+            };
+            uint8_t* us = gbase + (U_STAGE(s) - base);
+            warp_copy_rows<L::NBK>(us, BQ, q, 576, row_of, lane);
+            warp_copy_rows<L::NBV>(us + L::Q_BYTES, BQ, dout, 512, row_of,
+                                   lane);
+            mbar_arrive(FULL(s));
+          }
+          ++ring;
+        }
+      }
+      const int s = ring % ST;  // the end of the item
+      mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+      if (lane == 0) slot[s] = make_int4(-1, 0, 0, 0);
+      mbar_arrive(FULL(s));
+      ++ring;
+    }
+    if (lane == 0) {  // no more items
+      mbar_wait(EMPTY_K, (n & 1) ^ 1);
+      islot[0] = make_int4(0, 0, 0, 0);
+      mbar_arrive(FULL_K);
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups over all 64 keys of each item: consumer 0
+  // S^T and P^T, consumer 1 dP^T and dS^T; dK's boxes 0-4 / 5-8 ---------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3, tq = lane & 3, ctid = tid & 127;
+  const int r0 = 16 * wl + (lane >> 2), r1 = r0 + 8;  // the item's keys
+  const float sl = scale * LOG2E;  // scores in log2 units
+  auto consume = [&](auto which) {
+    constexpr int W = decltype(which)::value;
+    constexpr int B0 = W == 0 ? 0 : 5, NB = W == 0 ? 5 : 4;  // dK's boxes
+    float dk[NB * 32], s[16];
+    uint32_t pf[2][4], sf[2][4];
+    int ring = 0;  // stages consumed
+    for (int n = 0;; ++n) {
+      mbar_wait(FULL_K, n & 1);
+      const int4 it = islot[0];
+      if (!it.w) break;
+      const int b = it.x, hk = it.y, k0 = it.z;
+      const int kp0 = k0 + r0 < Sk ? kpos[(long long)b * Sk + k0 + r0] : -1;
+      const int kp1 = k0 + r1 < Sk ? kpos[(long long)b * Sk + k0 + r1] : -1;
+#pragma unroll
+      for (int e = 0; e < NB * 32; ++e) dk[e] = 0.f;
+      int st;
+      for (;;) {
+        st = ring % ST;
+        mbar_wait(FULL(st), (ring / ST) & 1);
+        const int4 tile = slot[st];
+        if (tile.x < 0) break;
+        const uint32_t sq = U_STAGE(st), sdo = sq + L::Q_BYTES;
+        const float* rs = rows_s + st * 3 * BQ;
+        const uint32_t ka = opaque(base);  // K
+        if constexpr (W == 0) {
+          // S^T = K Q^T: the item's 64 keys x the unit's 32 rows
+          wgmma_fence();
+          ss_64x32<L::NBK>(s, ka, L::K_BOX, sq, L::U_BOX);
+          wgmma_commit();
+          const uint32_t vis =
+              tile.y == TILE_PARTIAL
+                  ? mla_dk_mask(reinterpret_cast<const int*>(rs + 2 * BQ),
+                                tq, kp0, kp1, causal, window)
+                  : ~0u;
+          wgmma_wait<0>();
+          fence_regs<16>(s);
+          // P^T = exp2(S^T scale log2(e) - lse), lse in log2 units a column
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const float p = ex2(fmaf(s[e], sl, -rs[acc_col(e, tq)]));
+            s[e] = (vis >> e) & 1u ? p : 0.f;
+            xp[e * 128 + ctid] = s[e];
+          }
+          mb_arrive(MB_P);
+          pack_a<2>(s, pf);
+          // dK[:, 0:320] += P^T dO while consumer 1 forms dS^T
+          fence_regs<NB * 32>(dk);
+          wgmma_fence();
+          rs_mla<0>(dk, pf, sdo, L::U_BOX, false);
+          wgmma_commit();
+          mb_sync(MB_DS);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) sf[x / 4][x % 4] = xs[x * 128 + ctid];
+          wgmma_fence();
+          rs_mla<0>(dk, sf, sq, L::U_BOX, true);
+          wgmma_commit();
+        } else {
+          // dP^T = V dO^T, V the K tile's first 8 boxes
+          wgmma_fence();
+          ss_64x32<L::NBV>(s, ka, L::K_BOX, sdo, L::U_BOX);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<16>(s);
+          mb_sync(MB_P);
+          // dS^T = P^T (dP^T - D), scaled before its bf16 rounding
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int e = 8 * kk + 2 * j;
+              const float p0 = xp[e * 128 + ctid];
+              const float p1 = xp[(e + 1) * 128 + ctid];
+              const float d0 =
+                  p0 * (s[e] - rs[BQ + acc_col(e, tq)]) * scale;
+              const float d1 =
+                  p1 * (s[e + 1] - rs[BQ + acc_col(e + 1, tq)]) * scale;
+              pf[kk][j] = pack_bf16(p0, p1);
+              sf[kk][j] = pack_bf16(d0, d1);
+              xs[(4 * kk + j) * 128 + ctid] = sf[kk][j];
+            }
+          }
+          mb_arrive(MB_DS);
+          // dK[:, 320:576] += bf16(scale dS^T) Q, dK[:, 320:512] += P^T dO
+          fence_regs<NB * 32>(dk);
+          wgmma_fence();
+          rs_mla<1>(dk, pf, sdo, L::U_BOX, false);
+          rs_mla<1>(dk, sf, sq, L::U_BOX, true);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_regs<NB * 32>(dk);
+        fence_af<2>(pf);
+        fence_af<2>(sf);
+        mbar_arrive(EMPTY(st));
+        ++ring;
+      }
+      mbar_arrive(EMPTY(st));  // the end of the item holds no unit
+      ++ring;
+
+      // ---- epilogue: this consumer's boxes of K are read out (its own
+      // products are done, and the other's S^T or dP^T of the last unit
+      // came before the hand-off this one waited for): dK takes their
+      // place, then TMA stores; the buffer is released for the next item
+      stage_out<NB * 64>(gbase + B0 * L::K_BOX, BK, r0, tq, dk, 1.f);
+      fence_proxy_async();
+      mb_wg_sync(W);
+      if (ctid == 0) {
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_store_4d(&tm_dk, base + (B0 + c) * L::K_BOX, 64 * (B0 + c), hk,
+                       k0, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(EMPTY_K);
+      }
+    }
+  };
+  if (w == 0)
+    consume(MlaWg<0>{});
+  else
+    consume(MlaWg<1>{});
+#undef FULL_K
+#undef EMPTY_K
+#undef FULL
+#undef EMPTY
+#undef U_STAGE
+}
+
+__global__ void __launch_bounds__(384, 1) fa_bwd_dq_mla(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_dq, const bf16* __restrict__ q,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, const int* __restrict__ kpos, int Sq,
+    int Sk, int H, int Hkv, int B, float scale, int causal, int window,
+    int q_tma) {
+  using L = MlaDqLayout;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  extern __shared__ uint8_t mla_dq_smem[];
+  const uint32_t raw = smem_u32(mla_dq_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // Q, dO; the ring follows
+  uint8_t* gbase = mla_dq_smem + (base - raw);
+  const uint32_t bar = base + L::BAR_OFF;
+  int4* islot = reinterpret_cast<int4*>(gbase + L::ISLOT_OFF);
+  int2* slot = reinterpret_cast<int2*>(gbase + L::SLOT_OFF);
+  int* kps = reinterpret_cast<int*>(gbase + L::KP_OFF);
+  float* xp = reinterpret_cast<float*>(gbase + L::XP_OFF);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(gbase + L::XS_OFF);
+#define FULL_Q (bar)
+#define EMPTY_Q (bar + 8)
+#define FULL(s) (bar + 8 * (2 + (s)))
+#define EMPTY(s) (bar + 8 * (2 + ST + (s)))
+#define K_STAGE(s) (base + L::K_OFF + (s) * L::TILE_BYTES)
+
+  // rows: Sq * rep < 2^31 (the launcher checks)
+  const int rep = H / Hkv, rows = Sq * rep;
+  const int n_blk = (rows + BQ - 1) / BQ, n_kt = (Sk + BK - 1) / BK;
+  const int G = B * Hkv, n_items = n_blk * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(FULL_Q, 32);  // every lane of the producer warp
+    mbar_init(EMPTY_Q, 2);  // one thread of each consumer warpgroup
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(FULL(s), 32);
+      mbar_init(EMPTY(s), 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer: for each item one warp loads Q and dO (TMA from lane
+    // 0, or copied by the warp), classes the 32-key tiles (32 at a time, a
+    // lane a tile) and sends those not skipped in order, each with its
+    // keys' positions (a lane a key), then an end of item -----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    int ring = 0, n = 0;  // stages sent, items sent
+    for (int item; (item = item_of(n, blockIdx.x, gridDim.x)) < n_items;
+         ++n) {
+      // the forward's order: the heaviest (causal: last) row block first
+      // across the batch rows and KV heads
+      const int g = item % G, hk = g % Hkv, b = g / Hkv;
+      const int rr0 = (n_blk - 1 - item / G) * BQ;
+      mbar_wait(EMPTY_Q, (n & 1) ^ 1);
+      if (lane == 0) islot[0] = make_int4(b, hk, rr0, 1);
+      if (q_tma) {
+        if (lane == 0) {
+          mbar_expect_tx(FULL_Q, L::Q_BYTES + L::DO_BYTES);
+          const int hh = hk * rep + rr0 % rep, i0 = rr0 / rep;
+#pragma unroll
+          for (int c = 0; c < L::NBK; ++c)
+            tma_load_4d(base + c * L::Q_BOX, &tm_q, FULL_Q, c * 64, hh, i0,
+                        b);
+#pragma unroll
+          for (int c = 0; c < L::NBV; ++c)
+            tma_load_4d(base + L::Q_BYTES + c * L::Q_BOX, &tm_do, FULL_Q,
+                        c * 64, hh, i0, b);
+        } else {
+          mbar_arrive(FULL_Q);
+        }
+      } else {  // rep neither divides nor is a multiple of 64
+        auto row_of = [&](int r) -> long long {
+          const int x = rr0 + r;
+          return x < rows
+                     ? ((long long)b * Sq + x / rep) * H + hk * rep + x % rep
+                     : -1;
+        };
+        warp_copy_rows<L::NBK>(gbase, BQ, q, 576, row_of, lane);
+        warp_copy_rows<L::NBV>(gbase + L::Q_BYTES, BQ, dout, 512, row_of,
+                               lane);
+        mbar_arrive(FULL_Q);
+      }
+      int qlo = INT_HI, qhi = INT_LO;  // the block's rows before the end
+      for (int r = lane; r < BQ; r += 32) {
+        if (rr0 + r < rows) {
+          const int qp = qpos[(long long)b * Sq + (rr0 + r) / rep];
+          qlo = min(qlo, qp);
+          qhi = max(qhi, qp);
+        }
+      }
+      warp_range(qlo, qhi);
+      const int* kp_row = kpos + (long long)b * Sk;
+      for (int c0 = 0; c0 < n_kt; c0 += 32) {
+        int cl = TILE_SKIP;
+        if (c0 + lane < n_kt) {
+          int lo, hi;
+          bool neg;
+          key_range(kp_row, (c0 + lane) * BK, BK, Sk, lo, hi, neg);
+          cl = tile_class(lo, hi, neg, qlo, qhi, causal, window);
+        }
+        const uint32_t part = __ballot_sync(0xffffffffu, cl == TILE_PARTIAL);
+        for (uint32_t send = __ballot_sync(0xffffffffu, cl != TILE_SKIP);
+             send; send &= send - 1) {
+          const int t = c0 + __ffs(send) - 1, j = t * BK + lane;
+          const int kp = j < Sk ? kp_row[j] : -1;
+          const int s = ring % ST;
+          mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+          kps[s * BK + lane] = kp;
+          if (lane == 0) {
+            slot[s] = make_int2(t, (part >> (t - c0)) & 1u ? TILE_PARTIAL
+                                                            : TILE_FULL);
+            mbar_expect_tx(FULL(s), L::TILE_BYTES);
+#pragma unroll
+            for (int c = 0; c < L::NBK; ++c)
+              tma_load_4d(K_STAGE(s) + c * L::K_BOX, &tm_k, FULL(s), c * 64,
+                          hk, t * BK, b);
+          } else {
+            mbar_arrive(FULL(s));
+          }
+          ++ring;
+        }
+      }
+      const int s = ring % ST;  // the end of the item
+      mbar_wait(EMPTY(s), ((ring / ST) & 1) ^ 1);
+      if (lane == 0) slot[s] = make_int2(-1, 0);
+      mbar_arrive(FULL(s));
+      ++ring;
+    }
+    mbar_wait(EMPTY_Q, (n & 1) ^ 1);  // no more items
+    if (lane == 0) islot[0] = make_int4(0, 0, 0, 0);
+    mbar_arrive(FULL_Q);
+    return;
+  }
+
+  // ---- two consumer warpgroups over all 64 rows of each item: consumer 0
+  // S and P, consumer 1 dP and dS; dQ's boxes 0-4 / 5-8 -------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int w = warp / 4 - 1, wl = warp & 3, tq = lane & 3, ctid = tid & 127;
+  const int r0 = 16 * wl + (lane >> 2), r1 = r0 + 8;  // the item's rows
+  const float sl = scale * LOG2E;  // scores in log2 units
+  auto consume = [&](auto which) {
+    constexpr int W = decltype(which)::value;
+    constexpr int B0 = W == 0 ? 0 : 5, NB = W == 0 ? 5 : 4;  // dQ's boxes
+    float dqa[NB * 32], s[16];
+    uint32_t sf[2][4];
+    int ring = 0;  // stages consumed
+    for (int n = 0;; ++n) {
+      mbar_wait(FULL_Q, n & 1);
+      const int4 it = islot[0];
+      if (!it.w) break;
+      const int b = it.x, hk = it.y, rr0 = it.z;
+      // this thread's rows: consumer 0 their positions and lse (log2
+      // units), consumer 1 their D
+      int qp0 = PAD_QPOS, qp1 = PAD_QPOS;
+      float x0 = W == 0 ? pos_inf() : 0.f, x1 = x0;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int rr = rr0 + (x ? r1 : r0);
+        if (rr < rows) {
+          const int i = rr / rep;
+          const long long li = ((long long)b * H + hk * rep + rr % rep) * Sq +
+                               i;
+          if constexpr (W == 0) {
+            (x ? qp1 : qp0) = qpos[(long long)b * Sq + i];
+            (x ? x1 : x0) = lse[li] * LOG2E;
+          } else {
+            (x ? x1 : x0) = delta[li];
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < NB * 32; ++e) dqa[e] = 0.f;
+      int st;
+      for (;;) {
+        st = ring % ST;
+        mbar_wait(FULL(st), (ring / ST) & 1);
+        const int2 tile = slot[st];
+        if (tile.x < 0) break;
+        const uint32_t sk = K_STAGE(st);
+        const uint32_t qa = opaque(base);  // Q, then dO
+        if constexpr (W == 0) {
+          // S = Q K^T: the item's 64 rows x the tile's 32 keys
+          wgmma_fence();
+          ss_64x32<L::NBK>(s, qa, L::Q_BOX, sk, L::K_BOX);
+          wgmma_commit();
+          const uint32_t vis = tile.y == TILE_PARTIAL
+                                   ? mla_dq_mask(kps + st * BK, tq, qp0,
+                                                 qp1, causal, window)
+                                   : ~0u;
+          wgmma_wait<0>();
+          fence_regs<16>(s);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const float p = ex2(fmaf(s[e], sl, -((e & 2) ? x1 : x0)));
+            s[e] = (vis >> e) & 1u ? p : 0.f;
+            xp[e * 128 + ctid] = s[e];
+          }
+          mb_arrive(MB_P);
+          mb_sync(MB_DS);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) sf[x / 4][x % 4] = xs[x * 128 + ctid];
+        } else {
+          // dP = dO V^T, V the K tile's first 8 boxes
+          wgmma_fence();
+          ss_64x32<L::NBV>(s, qa + L::Q_BYTES, L::Q_BOX, sk, L::K_BOX);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<16>(s);
+          mb_sync(MB_P);
+          // dS = P (dP - D), scaled before its bf16 rounding
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int e = 8 * kk + 2 * j;
+              const float dd = (e & 2) ? x1 : x0;  // the row's D
+              const float d0 = xp[e * 128 + ctid] * (s[e] - dd) * scale;
+              const float d1 = xp[(e + 1) * 128 + ctid] * (s[e + 1] - dd) *
+                               scale;
+              sf[kk][j] = pack_bf16(d0, d1);
+              xs[(4 * kk + j) * 128 + ctid] = sf[kk][j];
+            }
+          }
+          mb_arrive(MB_DS);
+        }
+        // dQ += bf16(scale dS) K, K read MN-major
+        fence_regs<NB * 32>(dqa);
+        wgmma_fence();
+        rs_mla<W>(dqa, sf, sk, L::K_BOX, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NB * 32>(dqa);
+        fence_af<2>(sf);
+        mbar_arrive(EMPTY(st));
+        ++ring;
+      }
+      mbar_arrive(EMPTY(st));  // the end of the item holds no tile
+      ++ring;
+
+      // ---- epilogue: this consumer's boxes of Q are read out (consumer
+      // 1's once consumer 0's last S came before the P hand-off): dQ takes
+      // their place, then a TMA store or 16-byte stores of the rows before
+      // the end; the buffer is released for the next item
+      stage_out<NB * 64>(gbase + B0 * L::Q_BOX, BQ, r0, tq, dqa, 1.f);
+      fence_proxy_async();
+      mb_wg_sync(W);
+      if (q_tma) {
+        if (ctid == 0) {
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            tma_store_4d(&tm_dq, base + (B0 + c) * L::Q_BOX, 64 * (B0 + c),
+                         hk * rep + rr0 % rep, rr0 / rep, b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+      } else {  // each row's bytes of this consumer's columns, coalesced
+        for (int e = ctid; e < BQ * NB * 8; e += 128) {
+          const int r = e / (NB * 8), c = e % (NB * 8), rr = rr0 + r;
+          if (rr < rows) {
+            const uint4 val = *reinterpret_cast<const uint4*>(
+                gbase + (B0 + c / 8) * L::Q_BOX + r * 128 +
+                (((c & 7) ^ (r & 7)) << 4));
+            const long long row =
+                ((long long)b * Sq + rr / rep) * H + hk * rep + rr % rep;
+            *reinterpret_cast<uint4*>(dq + row * 576 + 64 * B0 + c * 8) =
+                val;
+          }
+        }
+        mb_wg_sync(W);
+      }
+      if (ctid == 0) mbar_arrive(EMPTY_Q);
+    }
+  };
+  if (w == 0)
+    consume(MlaWg<0>{});
+  else
+    consume(MlaWg<1>{});
+#undef FULL_Q
+#undef EMPTY_Q
+#undef FULL
+#undef EMPTY
+#undef K_STAGE
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 struct BwdArgs {
@@ -1815,25 +2634,91 @@ cudaError_t launch_mma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+// bf16 (576, 512) with V as K's first 512 columns (v == k): D, then the
+// MLA dK and dQ kernels.  A unit or item of (query, head) rows is one box
+// of q when rep divides its rows or its rows divide rep; otherwise the
+// producer copies its rows (the maps passed are then unused).
+cudaError_t launch_mla_bwd(const BwdArgs& a) {
+  using KL = MlaDkLayout;
+  using QL = MlaDqLayout;
+  if (a.v != a.k) return cudaErrorInvalidValue;
+  const int rep = a.H / a.Hkv;
+  const long long rows = (long long)a.Sq * rep;
+  if (rows > 0x7fffffffLL - QL::BQ) return cudaErrorInvalidValue;
+  cudaError_t err = launch_delta<bf16, 512>(a);
+  if (err != cudaSuccess) return err;
+  const int u_tma = KL::BQ % rep == 0 || rep % KL::BQ == 0;
+  const int q_tma = QL::BQ % rep == 0 || rep % QL::BQ == 0;
+  CUtensorMap k64, dk64, k32, qu, dou, qi, doi, dqi;
+  if ((err = make_map(&k64, a.k, a.B, a.Sk, a.Hkv, 576, KL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&dk64, a.dk, a.B, a.Sk, a.Hkv, 576, KL::BK)) !=
+          cudaSuccess ||
+      (err = make_map(&k32, a.k, a.B, a.Sk, a.Hkv, 576, QL::BK)) !=
+          cudaSuccess)
+    return err;
+  qu = dou = qi = doi = dqi = k64;
+  const int uh = rep < KL::BQ ? rep : KL::BQ, ih = rep < QL::BQ ? rep : QL::BQ;
+  if (u_tma &&
+      ((err = make_map(&qu, a.q, a.B, a.Sq, a.H, 576, KL::BQ / uh, uh)) !=
+           cudaSuccess ||
+       (err = make_map(&dou, a.dout, a.B, a.Sq, a.H, 512, KL::BQ / uh, uh)) !=
+           cudaSuccess))
+    return err;
+  if (q_tma &&
+      ((err = make_map(&qi, a.q, a.B, a.Sq, a.H, 576, QL::BQ / ih, ih)) !=
+           cudaSuccess ||
+       (err = make_map(&doi, a.dout, a.B, a.Sq, a.H, 512, QL::BQ / ih, ih)) !=
+           cudaSuccess ||
+       (err = make_map(&dqi, a.dq, a.B, a.Sq, a.H, 576, QL::BQ / ih, ih)) !=
+           cudaSuccess))
+    return err;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *g = static_cast<const bf16*>(a.dout);
+  unsigned grid = 0;
+  const long long kv_items =
+      (long long)((a.Sk + KL::BK - 1) / KL::BK) * a.Hkv * a.B;
+  if ((err = persistent_grid(kv_items, &grid)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_dkdv_mla,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  KL::BYTES)) != cudaSuccess)
+    return err;
+  fa_bwd_dkdv_mla<<<grid, 384, KL::BYTES, a.stream>>>(
+      qu, dou, k64, dk64, q, g, a.lse, a.delta, a.qpos, a.kpos, a.Sq, a.Sk,
+      a.H, a.Hkv, a.B, a.scale, a.causal, a.window, u_tma);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long q_items = (rows + QL::BQ - 1) / QL::BQ * a.Hkv * a.B;
+  if ((err = persistent_grid(q_items, &grid)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_dq_mla,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  QL::BYTES)) != cudaSuccess)
+    return err;
+  fa_bwd_dq_mla<<<grid, 384, QL::BYTES, a.stream>>>(
+      qi, doi, k32, dqi, q, g, static_cast<bf16*>(a.dq), a.lse, a.delta,
+      a.qpos, a.kpos, a.Sq, a.Sk, a.H, a.Hkv, a.B, a.scale, a.causal,
+      a.window, q_tma);
+  return cudaGetLastError();
+}
+
 enum BwdVariant {
   BV_NONE = -1, BV_WGMMA = 0, BV_MMA_SYNC = 1, BV_MLA = 2, BV_F32 = 3
 };
 
-// The fixed rule (flash_attention.py's docstring states it): bf16 at
-// (64, 64) and (128, 128) -> the wgmma kernels; bf16 at (32, 16),
-// (32, 32), (80, 64) and (80, 80) -> the mma.sync kernels; bf16 at
-// (576, 512) -> the same template at MLA's width (V must be K's prefix);
-// float32 at every size but (576, 512) -> the CUDA-core kernels.
+// The fixed rule (flash_attention.py's docstring states it, and its
+// BWD_HEAD_DIMS and BWD_KERNELS mirror it): bf16 at (64, 64), (80, 80)
+// and (128, 128) -> the wgmma kernels; bf16 at (32, 16), (32, 32) and
+// (80, 64) -> the mma.sync kernels; bf16 at (576, 512) -> the MLA wgmma
+// kernels (V must be K's prefix); float32 at every size but (576, 512) ->
+// the CUDA-core kernels.
 int bwd_variant_of(int bf16_, int dk, int dv) {
-  const bool wide = (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
-  const bool narrow = (dk == 32 && (dv == 16 || dv == 32)) ||
-                      (dk == 80 && (dv == 64 || dv == 80));
+  const bool wgmma = (dk == 64 && dv == 64) || (dk == 80 && dv == 80) ||
+                     (dk == 128 && dv == 128);
+  const bool narrow = (dk == 32 && dv == 16) || (dk == 32 && dv == 32) ||
+                      (dk == 80 && dv == 64);
+  const bool mla = (dk == 576 && dv == 512);
   if (bf16_)
-    return wide     ? BV_WGMMA
-           : narrow ? BV_MMA_SYNC
-           : dk == 576 && dv == 512 ? BV_MLA
-                                    : BV_NONE;
-  return wide || narrow ? BV_F32 : BV_NONE;
+    return wgmma ? BV_WGMMA : narrow ? BV_MMA_SYNC : mla ? BV_MLA : BV_NONE;
+  return wgmma || narrow ? BV_F32 : BV_NONE;
 }
 
 // A bf16 kernel's stages, dynamic shared memory and, from the compiled
@@ -1856,6 +2741,14 @@ cudaError_t wgmma_info(int which, int* out) {
                          DkdvLayout<D>::STAGES, DkdvLayout<D>::BYTES, out)
              : func_info(reinterpret_cast<const void*>(fa_bwd_dq_wgmma<D>),
                          DqLayout<D>::STAGES, DqLayout<D>::BYTES, out);
+}
+
+cudaError_t mla_info(int which, int* out) {
+  return which == 0
+             ? func_info(reinterpret_cast<const void*>(fa_bwd_dkdv_mla),
+                         MlaDkLayout::STAGES, MlaDkLayout::BYTES, out)
+             : func_info(reinterpret_cast<const void*>(fa_bwd_dq_mla),
+                         MlaDqLayout::STAGES, MlaDqLayout::BYTES, out);
 }
 
 template <int DK, int DV, bool FOLD>
@@ -1902,15 +2795,14 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
                   causal, window, static_cast<cudaStream_t>(stream)};
   switch (var) {
     case BV_WGMMA:
+      if (dk_ == 80) return launch_bf16<80>(a);
       return dk_ == 64 ? launch_bf16<64>(a) : launch_bf16<128>(a);
     case BV_MLA:
-      return launch_mma<576, 512, true>(a);
+      return launch_mla_bwd(a);
     case BV_MMA_SYNC:
-      if (dk_ == 80) {
-        if (dv_ == 80) return launch_mma<80, 80, false>(a);
+      if (dk_ == 80)
         return fold ? launch_mma<80, 64, true>(a)
                     : launch_mma<80, 64, false>(a);
-      }
       if (dv_ == 32) return launch_mma<32, 32, false>(a);
       return fold ? launch_mma<32, 16, true>(a)
                   : launch_mma<32, 16, false>(a);
@@ -1931,21 +2823,19 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
 }
 
 // out[4] = {stages, dynamic shared bytes, registers a thread, local bytes}
-// of the bf16 dK/dV (which = 0) or dQ (which = 1) kernel at (dk, dv):
-// the wgmma kernels at (64, 64) and (128, 128), the mma.sync ones
-// elsewhere (with V as K's prefix at (576, 512), a separate V otherwise).
+// of the bf16 dK/dV (which = 0) or dQ (which = 1) kernel at (dk, dv), of
+// its variant's kernels (the mma.sync ones with a separate V).
 int fa_bwd_kernel_info(int which, int dk, int dv, int* out) {
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   switch (bwd_variant_of(1, dk, dv)) {
     case BV_WGMMA:
+      if (dk == 80) return wgmma_info<80>(which, out);
       return dk == 64 ? wgmma_info<64>(which, out)
                       : wgmma_info<128>(which, out);
     case BV_MLA:
-      return mma_info<576, 512, true>(which, out);
+      return mla_info(which, out);
     case BV_MMA_SYNC:
-      if (dk == 80)
-        return dv == 64 ? mma_info<80, 64, false>(which, out)
-                        : mma_info<80, 80, false>(which, out);
+      if (dk == 80) return mma_info<80, 64, false>(which, out);
       return dv == 16 ? mma_info<32, 16, false>(which, out)
                       : mma_info<32, 32, false>(which, out);
     default:

@@ -44,23 +44,32 @@ counted in ``launch.launches["flash_attention_bwd"]`` (its three kernels,
 one count a call).  Its kernel, by a fixed rule from the dtype and the
 head sizes (:func:`bwd_variant`; :data:`last_bwd_variant` after a call):
 
-- ``"wgmma_tma"``: bf16 at ``(64, 64)`` and ``(128, 128)``: the persistent
-  ``wgmma`` kernels ``fa_bwd_dkdv_wgmma`` and ``fa_bwd_dq_wgmma`` (TMA
-  rings, a producer warp and two consumer warpgroups each; their walk
-  over the tiles is ``ref.attention_bwd_schedule``, their rings and
-  registers :func:`bwd_kernel_info`);
-- ``"mma_sync"``: bf16 at ``(32, 16)``, ``(32, 32)``, ``(80, 64)`` and
-  ``(80, 80)``: ``fa_bwd_dkdv_mma`` and ``fa_bwd_dq_mma``, ``mma.sync``
+- ``"wgmma_tma"``: bf16 at ``(64, 64)``, ``(80, 80)`` (stablelm-3b) and
+  ``(128, 128)``: the persistent ``wgmma`` kernels ``fa_bwd_dkdv_wgmma``
+  and ``fa_bwd_dq_wgmma`` (TMA rings, a producer warp and two consumer
+  warpgroups each; a row of 80 columns in two 64-column boxes, the
+  second zero past column 79; their walk over the tiles is
+  ``ref.attention_bwd_schedule``, their rings and registers
+  :func:`bwd_kernel_info`);
+- ``"mma_sync"``: bf16 at ``(32, 16)``, ``(32, 32)`` and ``(80, 64)`` (the
+  smoke sizes): ``fa_bwd_dkdv_mma`` and ``fa_bwd_dq_mma``, ``mma.sync``
   products, a resident 64-row tile and 32-row units streamed past it;
-- ``"mla_mma_sync"``: bf16 at ``(576, 512)``, MLA's latent heads: the same
-  template at that width (V read from the K tiles, dK's 576 columns
-  split across the warps);
+- ``"mla_wgmma"``: bf16 at ``(576, 512)``, MLA's latent heads:
+  ``fa_bwd_dkdv_mla`` (items of 64 keys, K resident, 32-row units of
+  (query, head) rows streamed by TMA) and ``fa_bwd_dq_mla`` (items of 64
+  rows, Q and dO resident, 32-key K tiles streamed), persistent, a
+  producer warp and two ``wgmma`` consumer warpgroups each that split
+  the output's columns and hand P and dS to each other; V read from the
+  K tiles (their walk is ``ref.attention_bwd_schedule(...,
+  variant="mla_wgmma")``);
 - ``"f32_cuda_cores"``: float32 at every size of :data:`HEAD_DIMS` but
   ``(576, 512)``, CUDA-core kernels.
 
-:data:`BWD_HEAD_DIMS` lists what each dtype takes; float32 at ``(576,
-512)`` raises ``NotImplementedError`` naming its ROADMAP item
-(:data:`BWD_TODO`).  No backward kernel uses atomics.
+:data:`BWD_HEAD_DIMS` lists what each dtype takes and
+:data:`BWD_BF16_RULE` which bf16 variant takes each size (the library's
+``bwd_variant_of``); float32 at ``(576, 512)`` raises
+``NotImplementedError`` naming its ROADMAP item (:data:`BWD_TODO`).  No
+backward kernel uses atomics.
 
 V as K's prefix: ``v`` may be the view ``k[..., :Dv]`` of a contiguous
 ``k`` with ``Dv < Dk`` (``ref.v_is_k_prefix``: the same ``data_ptr`` and
@@ -104,12 +113,16 @@ _BWD_ARGTYPES = {"fa_backward": [_vp] * 12 + [_i] * 8 + [ctypes.c_float,
                                                          _i, _i, _vp],
                  "fa_bwd_variant": [_i, _i, _i],
                  "fa_bwd_kernel_info": [_i, _i, _i, _vp]}
-BWD_VARIANTS = ("wgmma_tma", "mma_sync", "mla_mma_sync", "f32_cuda_cores")
+BWD_VARIANTS = ("wgmma_tma", "mma_sync", "mla_wgmma", "f32_cuda_cores")
 # The bf16 backward's two kernels by variant, in the order
 # fa_bwd_kernel_info numbers them.
 BWD_KERNELS = {"wgmma_tma": ("fa_bwd_dkdv_wgmma", "fa_bwd_dq_wgmma"),
                "mma_sync": ("fa_bwd_dkdv_mma", "fa_bwd_dq_mma"),
-               "mla_mma_sync": ("fa_bwd_dkdv_mma", "fa_bwd_dq_mma")}
+               "mla_wgmma": ("fa_bwd_dkdv_mla", "fa_bwd_dq_mla")}
+# The bf16 variant of each head size (the library's bwd_variant_of).
+BWD_BF16_RULE = {"wgmma_tma": ((64, 64), (80, 80), (128, 128)),
+                 "mma_sync": ((32, 16), (32, 32), (80, 64)),
+                 "mla_wgmma": ((576, 512),)}
 # The head sizes the backward takes, by dtype.
 BWD_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS,
                  torch.float32: tuple(d for d in HEAD_DIMS

@@ -251,6 +251,11 @@ def attention_tile_classes(q_pos, kv_pos, causal, window, bq, bk):
 # the dQ kernel's items of 128 queries walk 64-key tiles.
 BWD_DKDV_TILES = (128, 64)    # (keys an item, queries a tile)
 BWD_DQ_TILES = (128, 64)      # (queries an item, keys a tile)
+# At MLA's (576, 512) (`MlaDkLayout`, `MlaDqLayout`): the dK kernel's items
+# of 64 keys walk units of 32 (query, head) rows in q's order, the dQ
+# kernel's items of 64 (query, head) rows walk 32-key tiles.
+BWD_MLA_DK_TILES = (64, 32)   # (keys an item, rows a unit)
+BWD_MLA_DQ_TILES = (64, 32)   # (rows an item, keys a tile)
 
 
 def persistent_items(n_items: int, ctas: int) -> list[list[int]]:
@@ -268,10 +273,11 @@ def persistent_items(n_items: int, ctas: int) -> list[list[int]]:
 
 
 def attention_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window,
-                           ctas=132):
+                           ctas=132, variant="wgmma_tma"):
     """The walk of the bf16 backward's two persistent kernels over the
     work, as ``csrc/flash_attention_bwd.cu`` runs it on ``min(items,
-    ctas)`` CTAs (132 on an H100 SXM):
+    ctas)`` CTAs (132 on an H100 SXM).  ``variant="wgmma_tma"`` (the
+    kernels at (64, 64), (80, 80) and (128, 128)):
 
     - ``"dkdv"``: for each CTA its items in order, each ``(b, hk, kt,
       tiles)``: keys ``kt * 128`` on of KV head ``hk`` and batch row ``b``
@@ -285,9 +291,26 @@ def attention_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window,
       each other, query blocks last first), and its 64-key tiles ``(kt,
       cls)`` in order, skipped ones left out.
 
+    ``variant="mla_wgmma"`` (MLA's (576, 512)), on the rows of a KV head's
+    rep query heads in q's order (row ``rr``: query ``rr // rep`` of head
+    ``hk * rep + rr % rep``; `_mla_bwd_schedule`):
+
+    - ``"dkdv"``: each item ``(b, hk, kt, units)``: keys ``kt * 64`` on
+      (items ordered by ``kt``, then (b, hk): causal, the heaviest first),
+      and its 32-row units ``(u, cls)`` from the last down (the CTAs on
+      one (b, hk) then read each unit at about the same time), skipped
+      ones left out;
+    - ``"dq"``: each item ``(b, hk, blk, tiles)``: rows ``blk * 64`` on
+      (the last block first, then (b, hk)), and its 32-key tiles ``(kt,
+      cls)`` in order, skipped ones left out.
+
     Classes by `attention_tile_classes` on each kernel's tiles.  Every
     visible (query, key, head) triple lies in exactly one sent tile of each
     kernel, and the sums over a kernel's tiles run in this fixed order."""
+    if variant == "mla_wgmma":
+        return _mla_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window, ctas)
+    if variant != "wgmma_tma":
+        raise ValueError(f"no persistent walk for variant {variant!r}")
     B, Sq = q_pos.shape
     Sk = kv_pos.shape[1]
     rep = H // Hkv
@@ -323,6 +346,49 @@ def attention_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window,
             walk.append((b, hk * rep + item % rep, qb, [
                 (kt, cls[b][qb][kt]) for kt in range(n_kt)
                 if cls[b][qb][kt] != TILE_SKIP]))
+        dq.append(walk)
+    return {"dkdv": dkdv, "dq": dq}
+
+
+def _mla_bwd_schedule(q_pos, kv_pos, H, Hkv, causal, window, ctas):
+    """`attention_bwd_schedule`'s walk of the MLA kernels
+    (``fa_bwd_dkdv_mla``, ``fa_bwd_dq_mla``): classes of the (query, head)
+    rows' blocks, each row at its query's position."""
+    B = q_pos.shape[0]
+    Sk = kv_pos.shape[1]
+    rep = H // Hkv
+    row_pos = q_pos.repeat_interleave(rep, dim=1)          # [B, Sq * rep]
+    rows = row_pos.shape[1]
+    G = B * Hkv
+    kb_keys, ku = BWD_MLA_DK_TILES
+    cls = attention_tile_classes(row_pos, kv_pos, causal, window, ku,
+                                 kb_keys).tolist()       # [B, nu, nk]
+    n_kb, n_units = -(-Sk // kb_keys), -(-rows // ku)
+    n_items = n_kb * G
+    dkdv = []
+    for seq in persistent_items(n_items, min(n_items, ctas)):
+        walk = []
+        for item in seq:
+            kt, g = divmod(item, G)
+            b, hk = divmod(g, Hkv)
+            walk.append((b, hk, kt, [(u, cls[b][u][kt])
+                                     for u in reversed(range(n_units))
+                                     if cls[b][u][kt] != TILE_SKIP]))
+        dkdv.append(walk)
+    rb, kk = BWD_MLA_DQ_TILES
+    cls = attention_tile_classes(row_pos, kv_pos, causal, window, rb,
+                                 kk).tolist()
+    n_blk, n_kt = -(-rows // rb), -(-Sk // kk)
+    n_items = n_blk * G
+    dq = []
+    for seq in persistent_items(n_items, min(n_items, ctas)):
+        walk = []
+        for item in seq:
+            blk = n_blk - 1 - item // G
+            b, hk = divmod(item % G, Hkv)
+            walk.append((b, hk, blk, [(kt, cls[b][blk][kt])
+                                      for kt in range(n_kt)
+                                      if cls[b][blk][kt] != TILE_SKIP]))
         dq.append(walk)
     return {"dkdv": dkdv, "dq": dq}
 

@@ -1161,9 +1161,9 @@ def test_cuda_attention_under_grad_goes_through_the_kernels(cuda):
         assert torch.equal(g, w)
 
 
-# The backward at the mma.sync head sizes and MLA's (576, 512): B, Sq, Sk,
-# H, Hkv, Dk, Dv, causal, window, dtype, positions, V as K's prefix (dK
-# then holds dV)
+# The backward at the mma.sync head sizes, at (80, 80) (the wgmma kernels)
+# and at MLA's (576, 512) (the MLA kernels): B, Sq, Sk, H, Hkv, Dk, Dv,
+# causal, window, dtype, positions, V as K's prefix (dK then holds dV)
 BWD_MMA_CASES = {
     "bf16_d576_fold": (2, 150, 150, 16, 1, 576, 512, True, None, "bf16",
                        "holes", True),
@@ -1209,7 +1209,7 @@ def _bwd_mma_tensors(case, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(BWD_MMA_CASES))
 def test_cuda_mma_backward_matches_plain_version(cuda, case):
-    """``flash_attention_bwd`` at the mma.sync sizes and MLA's against
+    """``flash_attention_bwd`` at the narrow sizes and MLA's against
     ``ref.attention_bwd`` (the folded contract where V is K's prefix:
     ``(dq, dk, None)``), its planted faults outside the limit, two calls
     bit-equal, the forward with ``lse`` bit-equal to the serving forward
@@ -1262,7 +1262,7 @@ def test_cuda_mla_grad_under_autograd_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert launch.launches["flash_attention"] == 1
     assert launch.launches["flash_attention_bwd"] == 1
-    assert fa.last_bwd_variant == "mla_mma_sync"
+    assert fa.last_bwd_variant == "mla_wgmma"
     o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
     want = fa.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
